@@ -1,0 +1,34 @@
+"""The epitome matmul kernels, hand-written in CUDA C++ for Hopper (sm_90a).
+
+epitome_matmul        — y = x_folded @ E, column blocks steered by the OFAT
+                        table (``csrc/epitome_matmul.cu``)
+quant_epitome_matmul  — the same over int8 codes with per-block (scale,
+                        zero) dequantized inside the kernel, and a variant
+                        that folds the activation inside the kernel
+                        (``csrc/quant_epitome_matmul.cu``)
+ref                   — the plain PyTorch version of each kernel
+ops                   — the public wrappers: fold, block picks, padding, trim
+
+Each kernel wrapper counts its launches in a plain integer attribute
+``launches``; ``launch_counts`` reads them and ``reset_launch_counts`` sets
+them to 0.  The sources are compiled with nvcc at first use
+(``_build.py``), never at import.
+"""
+from .epitome_matmul import epitome_matmul_blocks
+from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
+                                   quant_epitome_matmul_fused_fold)
+
+KERNELS = {
+    "quant_epitome_matmul_blocks": quant_epitome_matmul_blocks,
+    "quant_epitome_matmul_fused_fold": quant_epitome_matmul_fused_fold,
+    "epitome_matmul_blocks": epitome_matmul_blocks,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,228 @@
+"""Public wrappers around the epitome matmul kernels.
+
+``epitome_matmul`` is what core/layers.py mode="kernel" calls: it folds the
+activations into epitome-row space (the IFRT analogue), runs the kernel with
+the static OFAT column-block table, and trims the result to the virtual
+width.  ``quant_epitome_matmul`` does the same through the int8 kernels.
+Block picks, padding and trimming follow ``repro.kernels.ops`` integer for
+integer, since they feed plan provenance.
+
+Tensors on the CPU run every kernel's plain version; tensors on a CUDA
+device launch the kernels.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.epitome import EpitomeSpec
+from ..core.quant import QuantConfig, quantize_epitome_packed
+from .epitome_matmul import epitome_matmul_blocks
+from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
+                                   quant_epitome_matmul_fused_fold)
+
+
+def kernel_col_blocks(spec: EpitomeSpec,
+                      bn: Optional[int] = None) -> np.ndarray:
+    """Static OFAT table: output block j <- epitome column block cb[j].
+    Exact only for bn-aligned column offsets; unaligned spread offsets are
+    snapped to their containing block.  With ``bn`` (a divisor of spec.bn),
+    each spec.bn-wide virtual block splits into spec.bn/bn sub-blocks;
+    requires bn-aligned offsets (``col_blocks_splittable``)."""
+    offs = spec.col_offsets()
+    if bn is None or bn == spec.bn:
+        return (offs // spec.bn).astype(np.int32)
+    assert spec.bn % bn == 0 and (offs % bn == 0).all(), (spec, bn)
+    sub = spec.bn // bn
+    cb = offs[:, None] // bn + np.arange(sub)[None, :]
+    return cb.reshape(-1).astype(np.int32)
+
+
+def col_blocks_splittable(spec: EpitomeSpec, bn: int) -> bool:
+    """True iff ``kernel_col_blocks(spec, bn)`` samples exactly the same W
+    columns as the spec.bn table."""
+    if bn == spec.bn:
+        return True
+    return (spec.bn % bn == 0 and spec.n % bn == 0
+            and bool((spec.col_offsets() % bn == 0).all()))
+
+
+class SpecTables(NamedTuple):
+    """A spec's static index tables as int32 tensors on one device."""
+    rows: torch.Tensor          # (M,) row_index_map: virtual row -> epitome row
+    col_blocks: torch.Tensor    # (gn*spec.bn/bn,) kernel_col_blocks(spec, bn)
+    row_offsets: torch.Tensor   # (gm,) row_offsets
+
+
+@functools.lru_cache(maxsize=None)
+def spec_tables(spec: EpitomeSpec, bn: int, device: torch.device) -> SpecTables:
+    """Copied to the device once per (spec, bn, device): a host-to-device
+    copy of a numpy table waits for the stream, so doing it per call would
+    stall the host on every layer."""
+    def put(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+    return SpecTables(put(spec.row_index_map()), put(kernel_col_blocks(spec, bn)),
+                      put(spec.row_offsets()))
+
+
+def fold_rows(x: torch.Tensor, spec: EpitomeSpec) -> torch.Tensor:
+    """IFRT analogue: scatter-add virtual fan-in into epitome rows."""
+    rmap = spec_tables(spec, spec.bn, x.device).rows
+    return x.new_zeros(*x.shape[:-1], spec.m).index_add_(-1, rmap, x)
+
+
+def epitome_matmul(x: torch.Tensor, E: torch.Tensor, spec: EpitomeSpec, *,
+                   bt: Optional[int] = None, bk: Optional[int] = None,
+                   bn: Optional[int] = None) -> torch.Tensor:
+    """y = x @ W(E) via the epitome-space kernel.  Leading dims are free-form
+    and flatten to (T, M) rows; bt/bk/bn override the heuristic blocks; a bk
+    that tiles m raggedly zero-pads the contraction dim (dot-neutral)."""
+    *lead, M = x.shape
+    x2 = x.reshape(-1, M)
+    T = x2.shape[0]
+    bk = _pick_bk(spec.m) if bk is None else bk
+    bn = spec.bn if bn is None else bn
+    folded, bt = _pad_rows(fold_rows(x2, spec), bt)  # (Tp, m)
+    folded, E = _pad_contraction(folded, E.to(x.dtype), bk)
+    y = epitome_matmul_blocks(folded, E.contiguous(),
+                              spec_tables(spec, bn, x.device).col_blocks, bn=bn)
+    return y[:T, :spec.N].reshape(*lead, spec.N)
+
+
+_BT_BLOCKS = (256, 128, 64, 32, 16, 8)
+
+
+def _pick_bt(T: int) -> int:
+    """Row block for a T-row matmul: the largest block dividing T exactly,
+    else the largest block not exceeding T (the caller pads T up to it)."""
+    for bt in _BT_BLOCKS:
+        if T % bt == 0:
+            return bt
+    for bt in _BT_BLOCKS:
+        if bt <= T:
+            return bt
+    return _BT_BLOCKS[-1]     # T < 8: a single (padded) row block
+
+
+def _pad_rows(x2: torch.Tensor, bt: Optional[int] = None) -> tuple:
+    """Zero-pad the row dim of (T, m) up to a multiple of the row block.
+    Returns (padded, bt); callers slice the output back to T rows."""
+    T = x2.shape[0]
+    bt = _pick_bt(T) if bt is None else bt
+    pad = (-T) % bt
+    if pad:
+        x2 = F.pad(x2, (0, 0, 0, pad))
+    return x2, bt
+
+
+_BK_BLOCKS = (512, 256, 128, 64, 32, 16, 8)
+
+
+def _pick_bk(m: int) -> int:
+    """Contraction block for an m-row epitome: the largest block dividing m
+    exactly, else the largest standard block not exceeding m (the caller
+    zero-pads the contraction dim, ``_pad_contraction``)."""
+    for bk in _BK_BLOCKS:
+        if m % bk == 0:
+            return bk
+    for bk in _BK_BLOCKS:
+        if bk <= m:
+            return bk
+    return m                  # m < 8: a single (tiny) block
+
+
+def _pad_contraction(folded: torch.Tensor, w_rows: torch.Tensor, bk: int) -> tuple:
+    """Zero-pad the contraction dim of (T, m) x (m, n) up to a bk multiple;
+    the zero activation columns make the padded weight rows dot-neutral."""
+    m = folded.shape[1]
+    pad = (-m) % bk
+    if pad:
+        folded = F.pad(folded, (0, pad))
+        w_rows = F.pad(w_rows, (0, 0, 0, pad))
+    return folded, w_rows
+
+
+# ---------------------------------------------------------------------------
+# Fused quantized-epitome path (the paper's flagship configuration)
+# ---------------------------------------------------------------------------
+class PackedEpitome(NamedTuple):
+    """An epitome packed for the fused kernel: int8 codes + per-block
+    (scale, zero).  Pack once (at load), reuse every forward."""
+    q: torch.Tensor          # (m, n) int8
+    scales: torch.Tensor     # (ceil(m/bk), n/bn) float32
+    zeros: torch.Tensor      # (ceil(m/bk), n/bn) float32
+    bk: int
+    bn: int
+
+
+def _pick_bk_quant(m: int, tile: int) -> int:
+    """Pack row block: never wider than the quantizer's crossbar tile, so
+    each block nests inside one scale tile; prime/odd m takes the largest
+    standard block not exceeding min(tile, m)."""
+    for bk in _BK_BLOCKS[1:]:
+        if bk <= tile and m % bk == 0:
+            return bk
+    for bk in _BK_BLOCKS[1:]:
+        if bk <= min(tile, m):
+            return bk
+    return m
+
+
+def pack_blocks(spec: EpitomeSpec, qcfg: QuantConfig,
+                blocks: Optional[tuple] = None) -> tuple:
+    """The (bk, bn) block a pack of (spec, qcfg) uses; ``blocks`` is an
+    autotuned (bt, bk, bn) triple overriding the heuristic."""
+    if blocks is not None:
+        bt, bk, bn = blocks
+        assert col_blocks_splittable(spec, bn), (spec, bn)
+        return bk, bn
+    return _pick_bk_quant(spec.m, qcfg.tile), spec.bn
+
+
+def pack_epitome(E: torch.Tensor, spec: EpitomeSpec, qcfg: QuantConfig,
+                 blocks: Optional[tuple] = None) -> PackedEpitome:
+    """Quantize an epitome into the kernel's storage layout."""
+    bk, bn = pack_blocks(spec, qcfg, blocks)
+    q, scales, zeros = quantize_epitome_packed(E, spec, qcfg, (bk, bn))
+    return PackedEpitome(q, scales, zeros, bk, bn)
+
+
+def quant_epitome_matmul(x: torch.Tensor, E: Optional[torch.Tensor],
+                         spec: EpitomeSpec, qcfg: Optional[QuantConfig] = None,
+                         *, packed: Optional[PackedEpitome] = None,
+                         bt: Optional[int] = None,
+                         fused_fold: bool = False) -> torch.Tensor:
+    """y = x @ W(deq(Q(E))) via the fused int8-epitome kernels.
+
+    Pass ``packed`` (from pack_epitome) to skip re-quantizing per call;
+    otherwise E is packed on the fly.  ``bt`` overrides the row block the
+    activation is padded to; ``fused_fold=True`` runs the fold inside the
+    kernel."""
+    if packed is None:
+        assert E is not None and qcfg is not None
+        packed = pack_epitome(E, spec, qcfg)
+    *lead, M = x.shape
+    x2 = x.reshape(-1, M)
+    T = x2.shape[0]
+    bk, bn = packed.bk, packed.bn
+    q = packed.q
+    pad_m = (-spec.m) % bk          # ragged (prime/odd) epitome row count
+    if pad_m:
+        q = F.pad(q, (0, 0, 0, pad_m))
+    tables = spec_tables(spec, bn, x.device)
+    if fused_fold:
+        x2p, bt = _pad_rows(x2.to(torch.float32), bt)
+        y = quant_epitome_matmul_fused_fold(
+            x2p.contiguous(), q, packed.scales, packed.zeros, tables.col_blocks,
+            tables.row_offsets, bm=spec.bm, bk=bk, bn=bn).to(x.dtype)
+        return y[:T, :spec.N].reshape(*lead, spec.N)
+    folded, bt = _pad_rows(fold_rows(x2, spec), bt)  # (Tp, m)
+    if pad_m:
+        folded = F.pad(folded, (0, pad_m))
+    y = quant_epitome_matmul_blocks(folded.to(x.dtype), q, packed.scales,
+                                    packed.zeros, tables.col_blocks, bk=bk, bn=bn)
+    return y[:T, :spec.N].reshape(*lead, spec.N)
