@@ -1,11 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
-The main path is EPIM-ResNet-50 at 3-bit epitome-aware quantization,
-``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
-epitomized layers, each one launch of the fused int8 kernel.  Phases:
+Two main paths, each at the full width of its model:
+
+* EPIM-ResNet-50 at 3-bit epitome-aware quantization,
+  ``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
+  epitomized layers, each one launch of the fused int8 kernel;
+* serving rwkv6-7b at kernel-q3 in bf16, ``get_config("rwkv6-7b",
+  "kernel-q3")`` -> ``lm.init_params`` -> ``lm.prepack_params`` ->
+  ``serve.generate``: 32 layers, each 8 launches of the fused int8 kernel
+  per forward and one launch of the WKV kernel per prefill.
+
+Phases:
 
 1. build   — nvcc builds the kernels from ``src/repro_torch/kernels/csrc``;
              prints ptxas' registers and shared memory, and the card's name
@@ -20,8 +28,23 @@ epitomized layers, each one launch of the fused int8 kernel.  Phases:
              forward; then the same model at batch 2 on the card against
              the plain versions on the CPU.
    The batch-32 forward is timed and its peak memory recorded.
-4. times   — each kernel's times and bound summed over one forward's 45
-             launches.
+4. LM kernels — the int8 kernel in bf16 and float32 at rwkv6-7b's three
+             projection shapes, at prefill rows (4 x 256) and decode rows
+             (4), and the WKV kernel at 4 x 256 tokens x 64 heads of 64 from
+             a non-zero state, each against its plain version and timed;
+             the WKV kernel under strong decay (log w = -20) must stay
+             finite.
+5. LM path — rwkv6-7b kernel-q3 (bf16, 32 layers, full width) from seeded
+             weights on the card: generate 32 greedy tokens for 4 prompts
+             of 256 with exactly 8192 launches of the int8 kernel and 32 of
+             the WKV kernel; then prefill and decode timed (three prefills
+             must give the same logits bit for bit), peak memory and a
+             profile of one prefill and one decode step.
+6. LM card vs CPU — the same config in float32 cut to 2 layers: prefill and
+             decode logits and greedy tokens of one 80-token prompt on the
+             card against the plain versions on the CPU.
+7. times   — each kernel's times and bound summed over the launches of
+             the main paths (one ResNet forward, one LM generate).
 
 Any failure exits nonzero.  The line before the last is a JSON object
 listing the kernels; the last line is ``{"ok": true, "device": ...}``.
@@ -42,11 +65,17 @@ BATCH, IMAGE, SEED = 32, 224, 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 HBM_BYTES_S = 3.35e12       # H100 SXM HBM3
 KERNEL_TOL = 2e-4           # |y - ref| <= tol + tol*|ref|, fp32 (tests/test_kernels.py:17-18)
+BF16_TOL = 2e-2             # the same in bf16 (tests/test_kernels.py:17-18)
+WKV_TOL = 1e-3              # the WKV, fp32 (tests/test_kernels.py:85)
 # Logits of the card against the CPU, relative to max(1, max|logit|): the
 # tolerance of the CPU parity tests against the JAX reference.  fp32 sums
 # run in another order through 53 conv/matmul layers, each followed by
 # batch-statistics BatchNorm that rescales the differences by 1/std.
+# The LM's card-vs-CPU check keeps it: float32 through 2 layers of 8
+# projections and the WKV recurrence, summed in other orders on the card.
 LOGIT_TOL = 1e-4
+LM_ARCH, LM_REQUESTS, LM_PROMPT, LM_NEW = "rwkv6-7b", 4, 256, 32
+CPU_LAYERS, CPU_PROMPT, CPU_NEW = 2, 80, 4   # 80 = one 64-token chunk + a ragged 16
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/quant_epitome_matmul.cu",
@@ -57,7 +86,11 @@ KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/epitome_matmul.cu",
         "src/repro/kernels/epitome_matmul.py:50"),
+    "wkv6_chunked": (
+        "src/repro_torch/kernels/csrc/wkv6.cu",
+        "src/repro/kernels/wkv6.py:58"),
 }
+QUANT = "quant_epitome_matmul_blocks"
 
 
 def log(*a):
@@ -110,6 +143,7 @@ def device_breakdown(torch, fn) -> list:
 
 
 def max_err(torch, y, ref, tol: float, what: str) -> float:
+    y, ref = y.float(), ref.float()
     err = (y - ref).abs()
     bad = err > tol + tol * ref.abs()
     if not torch.isfinite(y).all() or bool(bad.any()):
@@ -139,6 +173,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    t_start = time.perf_counter()
     log(f"[env] {kind} | {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| python {sys.version.split()[0]}")
 
@@ -152,7 +187,7 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    # -- the main path's kernel shapes ------------------------------------
+    # -- the ResNet path's kernel shapes -----------------------------------
     r50 = get_resnet("resnet50", "kernel-q3")
     shapes = {}
     for l, spec in zip(r50.layers, r50.specs):
@@ -171,7 +206,7 @@ def main() -> int:
     rows = []
     for (spec, T), names in shapes.items():
         for r in check_and_time(torch, dev, gen, ops, ref, WRAPPERS, spec, T):
-            r.update(layers=names, count=len(names))
+            r.update(layers=names, count=len(names), path="resnet50")
             rows.append(r)
             log(f"[kernels] {r['kernel']} ({spec.M},{spec.N})->({spec.m},{spec.n}) T={T} "
                 f"bk={r['pack_bk']} x{len(names)}: max_err={r['max_abs_err']:.2e} "
@@ -180,7 +215,7 @@ def main() -> int:
                 f"({r['bound_by']})")
         torch.cuda.empty_cache()
 
-    # -- 3. the main path, full width --------------------------------------
+    # -- 3. the ResNet path, full width -------------------------------------
     images = torch.randn(BATCH, IMAGE, IMAGE, 3, device=dev, generator=gen)
     small = images[:2].contiguous()
     epitomized = [l.name for l, s in zip(r50.layers, r50.specs) if s is not None]
@@ -237,33 +272,360 @@ def main() -> int:
         for name, ms, n in breakdown[:8]:
             log(f"[profile] {label}: {ms:9.3f} ms  x{n:<4d} {name[:90]}")
         del model, cpu
+    torch.cuda.empty_cache()
+    report["resnet_s"] = time.perf_counter() - t_start
 
-    # -- 4. times per kernel, summed over one forward's launches -----------
+    # -- 4-6. the LM path -----------------------------------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    lm_cfg = get_config(LM_ARCH, "kernel-q3")
+    lm_rows, fold = lm_kernels(torch, dev, gen, ops, ref, WRAPPERS, lm, lm_cfg)
+    rows += lm_rows
+    torch.cuda.empty_cache()
+    lm_run = lm_path(torch, dev, lm, serve, lm_cfg, launch_counts, reset_launch_counts)
+    launches.update({QUANT: launches[QUANT] + lm_run["launches"][QUANT],
+                     "wkv6_chunked": lm_run["launches"]["wkv6_chunked"]})
+    torch.cuda.empty_cache()
+    lm_cpu = lm_card_vs_cpu(torch, dev, lm, get_config)
+    report["lm_s"] = time.perf_counter() - t_start - report["resnet_s"]
+
+    # -- 7. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
-        per_fwd = lambda key: sum(r[key] * r["count"] for r in mine)
-        by = {b: sum(r["bound_ms"] * r["count"] for r in mine if r["bound_by"] == b)
+        counted = [r for r in mine if r["count"]]
+        per_run = lambda key: sum(r[key] * r["count"] for r in counted)
+        by = {b: sum(r["bound_ms"] * r["count"] for r in counted if r["bound_by"] == b)
               for b in ("bytes", "operations")}
+        lib = [r["library_ms"] for r in counted]
+        paths_of = {}
+        for r in counted:
+            p = paths_of.setdefault(r["path"], dict(launches=0, ms=0.0, bound_ms=0.0,
+                                                    plain_ms=0.0, library_ms=0.0))
+            p["launches"] += r["count"]
+            for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
+                p[key] = (None if r[key] is None or p[key] is None
+                          else p[key] + r[key] * r["count"])
         summary.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": per_fwd("ms"), "plain_ms": per_fwd("plain_ms"),
-            "bound_ms": per_fwd("bound_ms"), "bound_by": max(by, key=by.get),
-            "library_ms": per_fwd("library_ms")})
-        log(f"[times] {name}: per batch-{BATCH} forward ({launches[name]} launches) "
-            f"{summary[-1]['ms']:.3f} ms, bound {summary[-1]['bound_ms']:.3f} ms")
+            "ms": per_run("ms"), "plain_ms": per_run("plain_ms"),
+            "bound_ms": per_run("bound_ms"), "bound_by": max(by, key=by.get),
+            "library_ms": None if None in lib else per_run("library_ms"),
+            "paths": paths_of})
+        if sum(p["launches"] for p in paths_of.values()) != launches[name]:
+            raise AssertionError(f"{name}: the timed shapes cover "
+                                 f"{sum(p['launches'] for p in paths_of.values())} "
+                                 f"launches, the main paths made {launches[name]}")
+        log(f"[times] {name}: over the main paths' {launches[name]} launches "
+            f"{summary[-1]['ms']:.3f} ms, bound {summary[-1]['bound_ms']:.3f} ms; "
+            + "; ".join(f"{p}: {v['launches']} launches {v['ms']:.3f} ms (bound "
+                        f"{v['bound_ms']:.3f}, plain {v['plain_ms']:.3f}, library "
+                        f"{_ms(v['library_ms'])})" for p, v in paths_of.items()))
 
-    report.update(kernels=summary, shapes=rows, forwards=forwards, card_end=card_line())
+    report.update(kernels=summary, shapes=rows, forwards=forwards, lm=lm_run,
+                  lm_card_vs_cpu=lm_cpu, fold_probe=fold, total_s=time.perf_counter() - t_start,
+                  card_end=card_line())
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    log(f"[done] {report['total_s']:.1f} s (ResNet {report['resnet_s']:.1f}, "
+        f"LM {report['lm_s']:.1f})")
     log(report["card_end"])
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
+    """The int8 kernel at the LM's three projection shapes, bf16 (the path's
+    dtype, counted) and float32 (checked), at prefill and decode rows; the
+    WKV kernel at the prefill's shape from a non-zero state.  Each against
+    its plain version, then timed beside it, the yardstick and the bound."""
+    from repro_torch.core.quant import dequantize_packed
+    sites = lm.lm_layer_configs(cfg)
+    per_layer = {}
+    for lc in sites.values():
+        per_layer[lc.spec] = per_layer.get(lc.spec, 0) + 1
+    n_layers = cfg.n_layers
+    rows = []
+    for spec, k in per_layer.items():
+        lc = next(v for v in sites.values() if v.spec == spec)
+        E = torch.randn(spec.m, spec.n, device=dev, generator=gen) / math.sqrt(spec.M)
+        p = ops.pack_epitome(E, spec, lc.quant)
+        bn = p.bn
+        cb = ops.spec_tables(spec, bn, dev).col_blocks
+        gn = len(cb)
+        cols = torch.cat([torch.arange(c * bn, (c + 1) * bn, device=dev)
+                          for c in ops.kernel_col_blocks(spec, bn).tolist()])
+        W = dequantize_packed(p.q, p.scales, p.zeros, (p.bk, bn))[:, cols].contiguous()
+        for T, count in ((LM_REQUESTS * LM_PROMPT, k * n_layers),
+                         (LM_REQUESTS, k * n_layers * (LM_NEW - 1))):
+            x = torch.randn(T, spec.M, device=dev, generator=gen)
+            for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, KERNEL_TOL)):
+                folded = ops.fold_rows(x.to(dtype), spec)
+                f32 = folded.float()
+                kernel = lambda: wrappers[QUANT](folded, p.q, p.scales, p.zeros, cb,
+                                                 bk=p.bk, bn=bn)
+                plain = lambda: ref.quant_epitome_matmul_blocks_ref(
+                    folded, p.q, p.scales, p.zeros, cb, p.bk, bn)
+                # yardstick: one cuBLAS float32 product (TF32 off) of the same
+                # activation values with the pre-expanded dequantized weight
+                library = lambda: torch.matmul(f32, W)
+                y = kernel()
+                if y.dtype != dtype:
+                    raise AssertionError(f"{QUANT}: {dtype} in, {y.dtype} out")
+                dname = str(dtype).replace("torch.", "")
+                err = max_err(torch, y, plain(), tol, f"{QUANT} {dname} {spec} T={T}")
+                esz = folded.element_size()
+                nbytes = (esz * folded.numel() + p.q.numel() + 8.0 * p.scales.numel()
+                          + 4.0 * gn + esz * T * gn * bn)
+                flops = 2.0 * T * spec.m * gn * bn
+                row = timed_row(torch, QUANT, kernel, plain, library, nbytes, flops)
+                row.update(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bn=bn, T=T,
+                           pack_bk=p.bk, dtype=dname, max_abs_err=err, path=LM_ARCH,
+                           count=count if dtype == cfg.cdtype else 0)
+                rows.append(row)
+                log(f"[lm-kernels] {QUANT} {dname} ({spec.M},{spec.N})->({spec.m},{spec.n}) "
+                    f"T={T} x{row['count']}: max_err={err:.2e} ms={row['ms']:.4f} "
+                    f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                    f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        del W
+    rows_fold = fold_probe(torch, dev, gen, ops, next(iter(per_layer)))
+    # the WKV at the prefill's shape, from a non-zero state
+    B, S, H, K, L = LM_REQUESTS, LM_PROMPT, cfg.n_heads, cfg.hd, cfg.rwkv_chunk
+    f = lambda *s: torch.randn(s, device=dev, generator=gen)
+    r, k_, v = f(B, S, H, K), f(B, S, H, K), f(B, S, H, K)
+    lw, u, h0 = -torch.exp(f(B, S, H, K) * 0.5), f(H, K) * 0.1, f(B, H, K, K) * 0.5
+    kernel = lambda: wrappers["wkv6_chunked"](r, k_, v, lw, u, h0, chunk=L)
+    plain = lambda: ref.wkv6_chunked_ref(r, k_, v, lw, u, h0, chunk=L)
+    (o, hT), (o_ref, h_ref) = kernel(), plain()
+    err = max(max_err(torch, o, o_ref, WKV_TOL, "wkv6_chunked o"),
+              max_err(torch, hT, h_ref, WKV_TOL, "wkv6_chunked state"))
+    o_s, h_s = wrappers["wkv6_chunked"](r, k_, v, torch.full_like(lw, -20.0), u, h0, chunk=L)
+    if not (torch.isfinite(o_s).all() and torch.isfinite(h_s).all()):
+        raise AssertionError("wkv6_chunked: not finite under log w = -20")
+    nbytes = 4.0 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
+    row = timed_row(torch, "wkv6_chunked", kernel, plain, None, nbytes, wkv6_ops(B, S, H, K, L))
+    row.update(B=B, S=S, H=H, K=K, chunk=L, dtype="float32", max_abs_err=err,
+               path=LM_ARCH, count=cfg.n_layers)
+    rows.append(row)
+    log(f"[lm-kernels] wkv6_chunked B={B} S={S} H={H} K={K} chunk={L} x{row['count']}: "
+        f"max_err={err:.2e} (o and state) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+        f"library_ms=none bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); "
+        f"log w = -20 stays finite")
+    return rows, rows_fold
+
+
+def fold_probe(torch, dev, gen, ops, spec, runs: int = 20) -> dict:
+    """How a bf16 fold repeats on the card: the distinct results of ``runs``
+    identical folds by scatter-add (index_add_) summed in bf16 (the
+    reference's dtype) and in float32 rounded once, and by the port's
+    gather-and-sum (ops.fold_rows)."""
+    x = torch.randn(LM_REQUESTS * LM_PROMPT, spec.M, device=dev, generator=gen).bfloat16()
+    rmap = torch.as_tensor(spec.row_index_map(), device=dev)
+    scatter = lambda dt: x.new_zeros(x.shape[0], spec.m, dtype=dt).index_add_(
+        -1, rmap, x.to(dt)).bfloat16()
+    folds = {"index_add_ bf16": [scatter(torch.bfloat16) for _ in range(runs)],
+             "index_add_ f32": [scatter(torch.float32) for _ in range(runs)],
+             "fold_rows": [ops.fold_rows(x, spec) for _ in range(runs)]}
+    distinct = lambda ys: len({bytes(y.view(torch.int16).cpu().numpy().tobytes()) for y in ys})
+    out = {k: distinct(v) for k, v in folds.items()}
+    out.update(runs=runs, max_abs_bf16_vs_fold_rows=float(
+        (folds["index_add_ bf16"][0].float() - folds["fold_rows"][0].float()).abs().max()))
+    log(f"[fold] bf16 fold ({spec.M} -> {spec.m} rows, T={x.shape[0]}), distinct results "
+        f"in {runs} runs: " + ", ".join(f"{k} {out[k]}" for k in folds)
+        + f"; max |index_add_ bf16 - fold_rows| {out['max_abs_bf16_vs_fold_rows']:.3e}")
+    return out
+
+
+def timed_row(torch, name, kernel, plain, library, nbytes, flops) -> dict:
+    """Kernel, plain and yardstick times with the bound: the larger of the
+    bytes over the memory rate and the operations over fp32's peak."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return dict(kernel=name, ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
+                library_ms=None if library is None else time_ms(torch, library),
+                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def wkv6_ops(B, S, H, K, L) -> float:
+    """Operations of the chunked WKV, per (batch, head, chunk of L tokens):
+    the cumsum and cs_prev (2LK), the decayed r (2LK), the inter-chunk
+    product (2LK^2), the strictly causal scores (L(L-1)/2 pairs of K terms:
+    subtract, exp, two multiplies, add), their product with v (2 pairs K),
+    the bonus (5LK), the decayed k (3LK) and the state (2LK^2 + 2K^2)."""
+    pairs = L * (L - 1) // 2
+    per = (4 * L * K + 2 * L * K * K + 5 * pairs * K + 2 * pairs * K + 8 * L * K
+           + 2 * L * K * K + 2 * K * K)
+    return float(B * H * -(-S // L) * per)
+
+
+def lm_path(torch, dev, lm, serve, cfg, launch_counts, reset_launch_counts) -> dict:
+    """rwkv6-7b kernel-q3 at full width and depth: generate with exact
+    launch counts, then prefill and decode timed and profiled."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    params = lm.prepack_params(params, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    max_len = LM_PROMPT + LM_NEW + 1
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, _ = serve.generate(params, cfg, prompts, max_len, LM_NEW)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    counts = launch_counts()
+    expect = {k: 0 for k in counts}
+    expect[QUANT] = 8 * cfg.n_layers * LM_NEW
+    expect["wkv6_chunked"] = cfg.n_layers
+    if counts != expect:
+        raise AssertionError(f"{LM_ARCH}: launches {counts}, expected {expect}")
+    if tuple(toks.shape) != (LM_REQUESTS, LM_NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"{LM_ARCH}: tokens {tuple(toks.shape)} out of the vocab")
+    with torch.no_grad():
+        state0 = lm.init_decode_state(cfg, LM_REQUESTS, max_len, dev)
+        pre, pre_host, outs = [], [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = lm.prefill(params, prompts, state0, cfg)
+            pre_host.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            pre.append(1e3 * (time.perf_counter() - t0))
+            outs.append(logits[:, -1].float())
+        finite(torch, logits, "prefill logits")
+        # three identical prefills must repeat bit for bit (no atomics on the
+        # path); and how close the first request's top two logits lie, what
+        # a greedy token hangs on
+        repeat_diff = max(float((o - outs[0]).abs().max()) for o in outs)
+        if repeat_diff != 0.0:
+            raise AssertionError(f"{LM_ARCH}: three identical prefills differ by "
+                                 f"{repeat_diff:.3e} in their logits")
+        top2 = torch.topk(outs[0][0], 2).values
+        fingerprint = [float(params["embed"].double().sum()), float(prompts.sum()),
+                       int(params["groups"][0]["L0"]["mixer"]["wr"]["Eq"].long().sum())]
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        logits, state = lm.decode_step(params, state, tok, LM_PROMPT, cfg)   # warm-up
+        dec, dec_host = [], []
+        for i in range(5):
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = lm.decode_step(params, state, tok, LM_PROMPT + 1 + i, cfg)
+            dec_host.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            dec.append(1e3 * (time.perf_counter() - t0))
+        finite(torch, logits, "decode logits")
+        peak = torch.cuda.max_memory_allocated()
+        prof_pre = device_breakdown(torch, lambda: lm.prefill(params, prompts, state0, cfg))
+        prof_dec = device_breakdown(
+            torch, lambda: lm.decode_step(params, state, tok, LM_PROMPT + 6, cfg))
+    decode_ms = statistics.median(dec)
+    run = dict(launches={QUANT: counts[QUANT], "wkv6_chunked": counts["wkv6_chunked"]},
+               setup_s=setup_s, generate_s=generate_s, tokens_sample=toks[0, :8].tolist(),
+               prefill_ms=pre, prefill_host_ms=pre_host, decode_ms=dec, decode_host_ms=dec_host,
+               prefill_ms_median=statistics.median(pre), decode_ms_median=decode_ms,
+               decode_tok_s=LM_REQUESTS / (decode_ms / 1e3), peak_bytes=peak,
+               prefill_device_breakdown=prof_pre, decode_device_breakdown=prof_dec,
+               decode_kernels_per_step=sum(n for _, _, n in prof_dec),
+               prefill_kernels=sum(n for _, _, n in prof_pre),
+               prefill_repeat_max_abs_diff=repeat_diff,
+               first_token_top2=[float(t) for t in top2], fingerprint=fingerprint)
+    log(f"[lm] {LM_ARCH} kernel-q3 bf16 {cfg.n_layers} layers: init+prepack {setup_s:.1f} s; "
+        f"generate {LM_REQUESTS}x{LM_PROMPT}+{LM_NEW} in {generate_s:.2f} s with "
+        f"{QUANT} x{counts[QUANT]}, wkv6_chunked x{counts['wkv6_chunked']}; "
+        f"tokens[0] {toks[0, :8].tolist()}; weights and prompts fingerprint {fingerprint}; "
+        f"3 prefills differ by max|d logits| {repeat_diff:.3e}; request 0's top two "
+        f"logits {float(top2[0]):.4f}, {float(top2[1]):.4f}")
+    log(f"[lm] prefill median {run['prefill_ms_median']:.2f} ms (runs "
+        f"{', '.join(f'{t:.2f}' for t in pre)}; host returns after "
+        f"{statistics.median(pre_host):.2f}); decode step median {decode_ms:.2f} ms (runs "
+        f"{', '.join(f'{t:.2f}' for t in dec)}; host returns after "
+        f"{statistics.median(dec_host):.2f}) = {run['decode_tok_s']:.1f} tok/s; "
+        f"peak {peak / 2**30:.2f} GiB; device kernels: prefill {run['prefill_kernels']}, "
+        f"decode step {run['decode_kernels_per_step']}")
+    for label, prof in (("prefill", prof_pre), ("decode", prof_dec)):
+        busy = sum(ms for _, ms, _ in prof)
+        log(f"[profile] lm {label}: device busy {busy:.3f} ms")
+        for name, ms, n in prof[:8]:
+            log(f"[profile] lm {label}: {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    del params, state, state0
+    return run
+
+
+def finite(torch, t, what):
+    if not torch.isfinite(t.float()).all():
+        raise AssertionError(f"{LM_ARCH}: {what} not finite")
+
+
+def lm_card_vs_cpu(torch, dev, lm, get_config) -> dict:
+    """The LM in float32 at full width, cut to CPU_LAYERS layers: one prompt
+    through prefill and greedy decode on the CPU (plain versions), then the
+    same tokens on the card; logits held at LOGIT_TOL of their scale and
+    the greedy tokens equal, a step whose CPU top two logits lie within the
+    tolerance being held by its logits alone."""
+    cfg = get_config(LM_ARCH, "kernel-q3", compute_dtype="float32", n_layers=CPU_LAYERS)
+    card = lm.prepack_params(
+        lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg)
+    host = _to_cpu(card)
+    prompt = torch.randint(0, cfg.vocab, (1, CPU_PROMPT),
+                           generator=torch.Generator().manual_seed(SEED + 2))
+
+    def run(params, device, tokens=None):
+        with torch.no_grad():
+            state = lm.init_decode_state(cfg, 1, CPU_PROMPT + CPU_NEW, device)
+            logits, state = lm.prefill(params, prompt.to(device), state, cfg)
+            out, toks = [logits[:, -1].float().cpu()], []
+            for i in range(CPU_NEW):
+                tok = (torch.argmax(out[-1], -1).to(torch.int32)[:, None] if tokens is None
+                       else tokens[i])
+                toks.append(tok)
+                if i == CPU_NEW - 1:
+                    break
+                logits, state = lm.decode_step(params, state, tok.to(device),
+                                               CPU_PROMPT + i, cfg)
+                out.append(logits[:, -1].float().cpu())
+        return out, toks
+
+    t0 = time.perf_counter()
+    ref_logits, ref_toks = run(host, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    got, _ = run(card, dev, ref_toks)
+    steps = []
+    for i, (a, b) in enumerate(zip(got, ref_logits)):
+        scale = max(1.0, float(b.abs().max()))
+        err = float((a - b).abs().max())
+        if not err <= LOGIT_TOL * scale:
+            raise AssertionError(f"{LM_ARCH} {CPU_LAYERS} layers: step {i} logits on the "
+                                 f"card differ from the CPU by {err:.3e} "
+                                 f"(> {LOGIT_TOL} * {scale:.3f})")
+        top2 = torch.topk(b[0], 2).values
+        gap = float(top2[0] - top2[1])
+        same = int(torch.argmax(a[0])) == int(ref_toks[i])
+        if not same and gap > LOGIT_TOL * scale:
+            raise AssertionError(f"{LM_ARCH} {CPU_LAYERS} layers: step {i} greedy token "
+                                 f"{int(torch.argmax(a[0]))} on the card, "
+                                 f"{int(ref_toks[i])} on the CPU")
+        if not same:
+            log(f"[lm-cpu] step {i}: top two CPU logits within {gap:.2e} of each other; "
+                f"held by its logits alone")
+        steps.append(dict(max_abs_err=err, scale=scale, top2_gap=gap, same_token=same))
+    errs = ", ".join(f"{s['max_abs_err']:.2e}" for s in steps)
+    log(f"[lm-cpu] {LM_ARCH} float32 {CPU_LAYERS} layers, 1x{CPU_PROMPT}+{CPU_NEW}: card vs "
+        f"cpu logits max|d| per step {errs} "
+        f"(max|logit| {max(s['scale'] for s in steps):.3f}); tokens "
+        f"{[int(t) for t in ref_toks]} equal; cpu run {cpu_s:.1f} s")
+    del card, host
+    return dict(steps=steps, tokens=[int(t) for t in ref_toks], cpu_s=cpu_s)
 
 
 def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T):
@@ -329,9 +691,16 @@ def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T):
     return rows
 
 
+def _ms(t) -> str:
+    return "none" if t is None else f"{t:.3f}"
+
+
 def _to_cpu(tree):
-    return {k: _to_cpu(v) if isinstance(v, dict) else v.detach().cpu()
-            for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.detach().cpu()
 
 
 if __name__ == "__main__":

@@ -1,2 +1,3 @@
-"""Named epitome variants and ``get_resnet``."""
-from .registry import RESNET_ARCHS, EpitomeSettings, epitome_settings, get_resnet
+"""Named epitome variants, ``get_resnet`` and the LM registry."""
+from .registry import (ARCHS, RESNET_ARCHS, EpitomeSettings, epitome_settings,
+                       get_config, get_resnet, get_smoke_config)

@@ -1,18 +1,14 @@
-"""Named epitome variants and the ResNet registry (counterpart of the
-non-LM part of ``repro.configs.registry``)."""
+"""Named epitome variants and the model registry (counterpart of
+``repro.configs.registry``): ``get_resnet`` for the paper's ResNets,
+``get_config``/``get_smoke_config`` for the ten LM architectures."""
 from __future__ import annotations
 
 import dataclasses
 
+from ..models.config import EpitomeSettings, ModelConfig
+from .archs import BUILDERS
 
-@dataclasses.dataclass(frozen=True)
-class EpitomeSettings:
-    """The fields of the reference's ``EpitomeSettings`` that the ResNet
-    registry reads."""
-    enabled: bool = False
-    target_cr: float = 4.0            # weight-matrix compression rate
-    mode: str = "folded"              # reconstruct | wrapped | folded | kernel
-    quant_bits: int = 0               # 0 = fp; else epitome-aware quant
+ARCHS = tuple(BUILDERS)
 
 
 def epitome_settings(variant: str) -> EpitomeSettings:
@@ -37,6 +33,13 @@ def epitome_settings(variant: str) -> EpitomeSettings:
     }[variant]
 
 
+def _no_plans(plan, epitome: str) -> None:
+    if plan is not None or epitome.startswith("evo-"):
+        raise NotImplementedError(
+            "plan-driven models (plan=, evo-* variants) come with the plan "
+            "slice of the port: the EpitomePlan stack is not ported yet")
+
+
 RESNET_ARCHS = ("tiny-resnet", "resnet50", "resnet101")
 
 
@@ -53,10 +56,7 @@ def get_resnet(arch: str = "tiny-resnet", epitome: str = "off", plan=None, *,
     from ..pim.plan import plan_conv_specs
     from ..pim.workloads import (resnet50_layers, resnet101_layers,
                                  tiny_resnet_layers)
-    if plan is not None or epitome.startswith("evo-"):
-        raise NotImplementedError(
-            "plan-driven models (plan=, evo-* variants) come with slice 2 of "
-            "the port: the EpitomePlan stack is not ported yet")
+    _no_plans(plan, epitome)
     build, inventory = {
         "tiny-resnet": (tiny_resnet, tiny_resnet_layers),
         "resnet50": (resnet50, resnet50_layers),
@@ -69,3 +69,43 @@ def get_resnet(arch: str = "tiny-resnet", epitome: str = "off", plan=None, *,
                  else (ep.target_cr, (256, 256)))
     specs = plan_conv_specs(inventory(), target_cr=cr, patch=patch)
     return build(specs, quant_bits=ep.quant_bits, mode=ep.mode, device=device, **kw)
+
+
+def get_config(arch: str, epitome: str = "off", plan=None,
+               **overrides) -> ModelConfig:
+    """The full published config of ``arch`` with a named epitome variant;
+    ``overrides`` replace fields (e.g. ``compute_dtype="float32"``,
+    ``n_layers=2``)."""
+    _no_plans(plan, epitome)
+    cfg = BUILDERS[arch](epitome_settings(epitome))
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def get_smoke_config(arch: str, epitome: str = "off",
+                     plan=None) -> ModelConfig:
+    """Reduced same-family config: two super-block repeats, narrow dims,
+    with small epitomes still planned (min_params 0, CR 2, 32 x 32
+    patches)."""
+    _no_plans(plan, epitome)
+    full = get_config(arch, epitome)
+    ep = epitome_settings(epitome)
+    if ep.enabled:
+        ep = dataclasses.replace(ep, min_params=0, target_cr=2.0, patch=(32, 32))
+    return dataclasses.replace(
+        full,
+        layer_config=(),
+        n_layers=2 * len(full.pattern),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(full.n_kv_heads, 2),
+        head_dim=16 if full.head_dim else 0,
+        d_ff=96,
+        vocab=192,
+        n_experts=min(full.n_experts, 4) if full.n_experts else 0,
+        window=8,
+        rwkv_lora_decay=8, rwkv_lora_mix=4,
+        mamba_d_state=4, mamba_d_conv=4, mamba_expand=2,
+        epitome=ep,
+    )

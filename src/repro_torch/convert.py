@@ -1,13 +1,19 @@
-"""Parameters of the JAX ``ResNetModel`` into this package.
+"""Parameters of the JAX models into this package.
 
 The two frameworks draw different numbers from the same seed, so parameters
-cross as numpy: ``params_from_jax`` takes the reference's parameter tree
-(nested dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``)
-and returns the same tree of torch tensors, which
-``ResNetModel.load_params`` takes.  Names and layouts carry over unchanged:
-``E`` (m, n), dense ``W`` in HWIO (conv) or (M, N) (fc), the prepacked
-int8 ``Eq`` with its ``Es``/``Ez``, and ``bn_g``/``bn_b``; the inventory
-names keep their dots (only the module dict maps them).
+cross as numpy: each function takes the reference's parameter tree (nested
+dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``).
+
+``params_from_jax`` returns the same tree of torch tensors for the
+``ResNetModel`` (``ResNetModel.load_params`` takes it).  Names and layouts
+carry over unchanged: ``E`` (m, n), dense ``W`` in HWIO (conv) or (M, N)
+(fc), the prepacked int8 ``Eq`` with its ``Es``/``Ez``, and ``bn_g``/
+``bn_b``; the inventory names keep their dots (only the module dict maps
+them).
+
+``lm_params_from_jax`` returns the LM's tree as ``models.lm`` keeps it: the
+reference stacks every group leaf over a leading group axis, the port keeps
+a list of per-group dicts, so ``groups`` is unstacked.
 """
 from __future__ import annotations
 
@@ -30,4 +36,31 @@ def params_from_jax(tree: Mapping, device="cuda") -> dict:
             out[k] = torch.from_numpy(np.array(v, copy=True)).to(device)
         else:
             raise KeyError(f"unknown parameter leaf {k!r} (expected one of {LEAVES})")
+    return out
+
+
+LM_LEAVES = ("embed", "head", "final_norm", "norm1", "norm2",
+             "mu", "lora_A", "lora_B", "w0", "wd_A", "wd_B", "u", "ln_x",
+             "mu_k", "mu_r", "E", "W", "b", "Eq", "Es", "Ez")
+
+
+def _lm_tree(tree: Mapping, device, index=None) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out[k] = _lm_tree(v, device, index)
+        elif k in LM_LEAVES:
+            a = np.asarray(v) if index is None else np.asarray(v)[index]
+            out[k] = torch.from_numpy(np.array(a, copy=True)).to(device)
+        else:
+            raise KeyError(f"unknown LM parameter leaf {k!r} (expected one of {LM_LEAVES})")
+    return out
+
+
+def lm_params_from_jax(tree: Mapping, cfg, device="cuda") -> dict:
+    """The reference LM's parameter tree (``embed``, ``groups`` stacked over
+    cfg.n_groups, ``final_norm``, ``head``) -> the port's, with ``groups`` a
+    list of cfg.n_groups dicts; rejects leaf names the port does not know."""
+    out = _lm_tree({k: v for k, v in tree.items() if k != "groups"}, device)
+    out["groups"] = [_lm_tree(tree["groups"], device, g) for g in range(cfg.n_groups)]
     return out

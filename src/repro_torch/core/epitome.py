@@ -254,10 +254,10 @@ def init_epitome(generator: torch.Generator, spec: EpitomeSpec,
                  dtype=torch.float32, scale: Optional[float] = None,
                  device="cuda") -> torch.Tensor:
     """Fan-in-scaled init; fan-in is the *virtual* M so the reconstructed W
-    has the statistics a dense layer would have.  Drawn on the CPU from
-    ``generator`` (a CPU generator), so a seed gives the same epitome on
-    every device."""
+    has the statistics a dense layer would have.  Drawn on the generator's
+    device: a CPU generator gives the same epitome on every device, a CUDA
+    generator draws a large model on the card without a host copy."""
     if scale is None:
         scale = 1.0 / math.sqrt(spec.M)
-    E = torch.randn((spec.m, spec.n), generator=generator) * scale
+    E = torch.randn((spec.m, spec.n), generator=generator, device=generator.device) * scale
     return E.to(device=device, dtype=dtype)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,12 +56,12 @@ class EpLayerConfig:
 # ---------------------------------------------------------------------------
 def init_linear(generator: torch.Generator, M: int, N: int, cfg: EpLayerConfig,
                 *, bias: bool = False, dtype=torch.float32, device="cuda") -> dict:
-    """Weights drawn on the CPU from ``generator``, then moved to device."""
+    """Weights drawn on the generator's device, then moved to ``device``."""
     p = {}
     if cfg.is_epitome:
         p["E"] = init_epitome(generator, cfg.spec, dtype=dtype, device=device)
     else:
-        W = torch.randn((M, N), generator=generator) / math.sqrt(M)
+        W = torch.randn((M, N), generator=generator, device=generator.device) / math.sqrt(M)
         p["W"] = W.to(device=device, dtype=dtype)
     if bias:
         p["b"] = torch.zeros((N,), dtype=dtype, device=device)
@@ -154,13 +154,41 @@ def _dispatch_epitome_matmul(params: dict, x: torch.Tensor,
     raise ValueError(f"unknown mode {cfg.mode}")
 
 
+def prepack_tree(params, layer_configs: Mapping[str, EpLayerConfig], prefix: str = ""):
+    """Tree variant of ``prepack_linear`` for the LM's nested parameter dicts.
+
+    Walks ``params`` and packs every linear-layer subdict whose '/'-joined
+    path (under ``prefix``) names a kernel x quant epitome entry of
+    ``layer_configs``; everything else passes through untouched.  The port
+    keeps one dict per group rather than stacking leaves over a group axis,
+    so nothing is vmapped: the caller walks each group with prefix ""."""
+    if not isinstance(params, dict):
+        return params
+    if "E" in params or "W" in params:       # a linear/conv layer subdict
+        cfg = layer_configs.get(prefix)
+        return params if cfg is None else prepack_linear(params, cfg)
+    return {k: prepack_tree(v, layer_configs, f"{prefix}/{k}" if prefix else k)
+            for k, v in params.items()}
+
+
+def exact_dot(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``x @ W.to(x.dtype)`` as the reference's ``exact_dot`` computes it:
+    for a compute dtype narrower than float32, both operands are rounded to
+    it, multiplied in float32 and the product rounded once; float32 (and
+    wider) takes the plain product."""
+    if x.dtype.is_floating_point and torch.finfo(x.dtype).bits < 32:
+        Wb = W.to(x.dtype)
+        return (x.to(torch.float32) @ Wb.to(torch.float32)).to(x.dtype)
+    return x @ W.to(x.dtype)
+
+
 def apply_linear(params: dict, x: torch.Tensor, cfg: EpLayerConfig) -> torch.Tensor:
     """y = x @ W (+ b), with W possibly epitome-backed and quantized."""
     if not cfg.is_epitome:
         W = params["W"]
         if cfg.quant is not None:
             W = fake_quant(W, None, cfg.quant)
-        y = x @ W.to(x.dtype)
+        y = exact_dot(x, W)
     else:
         y = _dispatch_epitome_matmul(params, x, cfg)
     if "b" in params:

@@ -1,11 +1,14 @@
-"""The epitome matmul kernels, hand-written in CUDA C++ for Hopper (sm_90a).
+"""The kernels, hand-written in CUDA C++ for Hopper (sm_90a).
 
 epitome_matmul        — y = x_folded @ E, column blocks steered by the OFAT
                         table (``csrc/epitome_matmul.cu``)
 quant_epitome_matmul  — the same over int8 codes with per-block (scale,
-                        zero) dequantized inside the kernel, and a variant
-                        that folds the activation inside the kernel
-                        (``csrc/quant_epitome_matmul.cu``)
+                        zero) dequantized inside the kernel, float32 or
+                        bfloat16 activations, and a variant that folds the
+                        activation inside the kernel
+                        (``csrc/quant_epitome_matmul{,_bf16}.cu``)
+wkv6                  — the chunked RWKV6 WKV with a carried state
+                        (``csrc/wkv6.cu``)
 ref                   — the plain PyTorch version of each kernel
 ops                   — the public wrappers: fold, block picks, padding, trim
 
@@ -17,11 +20,13 @@ them to 0.  The sources are compiled with nvcc at first use
 from .epitome_matmul import epitome_matmul_blocks
 from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
                                    quant_epitome_matmul_fused_fold)
+from .wkv6 import wkv6_chunked
 
 KERNELS = {
     "quant_epitome_matmul_blocks": quant_epitome_matmul_blocks,
     "quant_epitome_matmul_fused_fold": quant_epitome_matmul_fused_fold,
     "epitome_matmul_blocks": epitome_matmul_blocks,
+    "wkv6_chunked": wkv6_chunked,
 }
 
 

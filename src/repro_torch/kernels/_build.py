@@ -37,6 +37,12 @@ LIBRARIES = {
         "quant_epitome_matmul_blocks_launch": [_P] * 6 + [_I] * 7 + [_P],
         "quant_epitome_matmul_fused_fold_launch": [_P] * 7 + [_I] * 10 + [_P],
     }),
+    "quant_epitome_matmul_bf16": ("quant_epitome_matmul_bf16.cu", {
+        "quant_epitome_matmul_blocks_bf16_launch": [_P] * 6 + [_I] * 7 + [_P],
+    }),
+    "wkv6": ("wkv6.cu", {
+        "wkv6_chunked_launch": [_P] * 8 + [_I] * 5 + [_P],
+    }),
 }
 
 _lock = threading.Lock()
@@ -131,10 +137,13 @@ def require_cuda(kernel: str, ref: torch.Tensor, **tensors: torch.Tensor) -> Non
             raise ValueError(f"{kernel}: {arg} must be contiguous")
 
 
-def require_dtype(kernel: str, arg: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{kernel}: {arg} must be {dtype}, got {t.dtype} (the "
-                        f"CUDA kernel computes in float32; bfloat16 is not ported)")
+def require_dtype(kernel: str, arg: str, t: torch.Tensor, *dtypes: torch.dtype) -> None:
+    """Raise unless ``t`` has one of ``dtypes`` (the kernel's only types)."""
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d) for d in dtypes)
+        note = ("; this kernel computes in float32 only, bfloat16 is not ported"
+                if t.dtype == torch.bfloat16 else "")
+        raise TypeError(f"{kernel}: {arg} must be {names}, got {t.dtype}{note}")
 
 
 def stream_of(t: torch.Tensor) -> int:

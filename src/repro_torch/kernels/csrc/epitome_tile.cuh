@@ -13,7 +13,7 @@
 // kernels apart (MODE):
 //
 //   kFp       A = x_folded (T, m) fp32,  W = E (m, n) fp32
-//   kQuant    A = x_folded (T, m) fp32,  W = (q + z) * s dequantized from
+//   kQuant    A = x_folded (T, m) fp32 or bf16, W = (q + z) * s dequantized from
 //             int8 codes while staged; (s, z) are looked up by the *pack*
 //             block, s[k / bk, cb[j]], so the tile sizes here are free of
 //             the pack's bk
@@ -22,12 +22,18 @@
 //             i*bm + (k - ro[i]) that sample it.  Only the BK x BM slice of
 //             the folded activation that this step contracts is ever built.
 //
+// The activation and the output share one element type XT, float or bf16:
+// a bf16 activation converts to float32 while the A tile is staged, the
+// sum stays float32, and the result rounds once to XT (to nearest even) at
+// the store.
+//
 // Ragged edges are masked: rows t >= T, epitome rows k >= m and columns
 // c >= bn stage as zero and are not stored, so no caller has to pad.
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace epim {
@@ -40,21 +46,31 @@ constexpr int MAX_GM = 1024;  // fused fold: row-offset table held in shared mem
 
 enum Mode { kFp = 0, kQuant = 1, kFusedFold = 2 };
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename XT> __device__ __forceinline__ XT from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
+
 struct TileArgs {
-  const float* x;       // kFp/kQuant: x_folded (T, m); kFusedFold: x (T, M); row stride ldx
+  const void* x;        // XT; kFp/kQuant: x_folded (T, m); kFusedFold: x (T, M); row stride ldx
   const float* e;       // kFp: E (m, n)
   const int8_t* q;      // kQuant/kFusedFold: codes (m, n)
   const float* scales;  // kQuant/kFusedFold: (ceil(m / bk), s_cols)
   const float* zeros;
   const int* cb;        // (gn,) epitome column block of output block j
   const int* ro;        // kFusedFold: (gm,) epitome row offset of virtual row block i
-  float* y;             // (T, gn * bn)
+  void* y;              // XT, (T, gn * bn)
   int T, m, n, gn, bn, bk, s_cols, ldx;
   int M, bm, gm;        // kFusedFold only
 };
 
-template <int MODE>
+template <int MODE, typename XT>
 __global__ void __launch_bounds__(THREADS) epitome_tile_kernel(TileArgs a) {
+  const XT* x = static_cast<const XT*>(a.x);
+  XT* y = static_cast<XT*>(a.y);
   __shared__ __align__(16) float As[BK][BM + 4];  // A^T tile, padded rows
   __shared__ __align__(16) float Bs[BK][BN];
   __shared__ int ro_s[MODE == kFusedFold ? MAX_GM : 1];
@@ -91,15 +107,15 @@ __global__ void __launch_bounds__(THREADS) epitome_tile_kernel(TileArgs a) {
       const int t = row0 + r, k = k0 + kk;
       float v = 0.f;
       if (t < a.T && k < a.m) {
-        const float* xrow = a.x + (size_t)t * a.ldx;
+        const XT* xrow = x + (size_t)t * a.ldx;
         if (MODE == kFusedFold) {
           for (int i = 0; i < a.gm; ++i) {  // ascending virtual block order
             const int d = k - ro_s[i];
             const int u = i * a.bm + d;
-            if (d >= 0 && d < a.bm && u < a.M) v += xrow[u];
+            if (d >= 0 && d < a.bm && u < a.M) v += to_f32(xrow[u]);
           }
         } else {
-          v = xrow[k];
+          v = to_f32(xrow[k]);
         }
       }
       As[kk][r] = v;
@@ -141,22 +157,22 @@ __global__ void __launch_bounds__(THREADS) epitome_tile_kernel(TileArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int t = row0 + ty * 4 + i;
     if (t >= a.T) continue;
-    float* yrow = a.y + (size_t)t * ldy + ycol0;
+    XT* yrow = y + (size_t)t * ldy + ycol0;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int c = tx * 4 + jj;
-      if (c0 + c < a.bn) yrow[c] = acc[i][jj];
+      if (c0 + c < a.bn) yrow[c] = from_f32<XT>(acc[i][jj]);
     }
   }
 }
 
 // Launches on the caller's stream and returns cudaGetLastError(), so a
 // launch the card refuses is reported to the caller right away.
-template <int MODE>
+template <int MODE, typename XT = float>
 inline int launch_tile(const TileArgs& a, void* stream) {
   if (a.T == 0 || a.gn == 0) return 0;
   const dim3 grid(a.gn * ((a.bn + BN - 1) / BN), (a.T + BM - 1) / BM);
-  epitome_tile_kernel<MODE><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  epitome_tile_kernel<MODE, XT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

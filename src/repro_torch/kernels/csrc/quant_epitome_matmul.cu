@@ -29,12 +29,12 @@ extern "C" int quant_epitome_matmul_blocks_launch(
     const void* cb, void* y, int T, int m, int n, int gn, int bn, int bk,
     int s_cols, void* stream) {
   epim::TileArgs a = {};
-  a.x = static_cast<const float*>(x);
+  a.x = x;
   a.q = static_cast<const int8_t*>(q);
   a.scales = static_cast<const float*>(scales);
   a.zeros = static_cast<const float*>(zeros);
   a.cb = static_cast<const int*>(cb);
-  a.y = static_cast<float*>(y);
+  a.y = y;
   a.T = T; a.m = m; a.n = n; a.gn = gn; a.bn = bn; a.bk = bk;
   a.s_cols = s_cols; a.ldx = m;
   return epim::launch_tile<epim::kQuant>(a, stream);
@@ -46,13 +46,13 @@ extern "C" int quant_epitome_matmul_fused_fold_launch(
     int gn, int gm, int bm, int bn, int bk, int s_cols, void* stream) {
   if (gm > epim::MAX_GM) return static_cast<int>(cudaErrorInvalidValue);
   epim::TileArgs a = {};
-  a.x = static_cast<const float*>(x);
+  a.x = x;
   a.q = static_cast<const int8_t*>(q);
   a.scales = static_cast<const float*>(scales);
   a.zeros = static_cast<const float*>(zeros);
   a.cb = static_cast<const int*>(cb);
   a.ro = static_cast<const int*>(ro);
-  a.y = static_cast<float*>(y);
+  a.y = y;
   a.T = T; a.m = m; a.n = n; a.gn = gn; a.bn = bn; a.bk = bk;
   a.s_cols = s_cols; a.ldx = M; a.M = M; a.bm = bm; a.gm = gm;
   return epim::launch_tile<epim::kFusedFold>(a, stream);

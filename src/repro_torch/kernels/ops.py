@@ -3,7 +3,8 @@
 ``epitome_matmul`` is what core/layers.py mode="kernel" calls: it folds the
 activations into epitome-row space (the IFRT analogue), runs the kernel with
 the static OFAT column-block table, and trims the result to the virtual
-width.  ``quant_epitome_matmul`` does the same through the int8 kernels.
+width.  ``quant_epitome_matmul`` does the same through the int8 kernels and
+returns x's dtype; ``wkv6`` is the RWKV6 recurrence of the LM's prefill.
 Block picks, padding and trimming follow ``repro.kernels.ops`` integer for
 integer, since they feed plan provenance.
 
@@ -24,6 +25,7 @@ from ..core.quant import QuantConfig, quantize_epitome_packed
 from .epitome_matmul import epitome_matmul_blocks
 from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
                                    quant_epitome_matmul_fused_fold)
+from .wkv6 import wkv6_chunked
 
 
 def kernel_col_blocks(spec: EpitomeSpec,
@@ -52,10 +54,23 @@ def col_blocks_splittable(spec: EpitomeSpec, bn: int) -> bool:
 
 
 class SpecTables(NamedTuple):
-    """A spec's static index tables as int32 tensors on one device."""
-    rows: torch.Tensor          # (M,) row_index_map: virtual row -> epitome row
-    col_blocks: torch.Tensor    # (gn*spec.bn/bn,) kernel_col_blocks(spec, bn)
-    row_offsets: torch.Tensor   # (gm,) row_offsets
+    """A spec's static index tables as tensors on one device."""
+    fold: torch.Tensor          # (c*m,) int64 fold_table(spec), column by column
+    col_blocks: torch.Tensor    # (gn*spec.bn/bn,) int32 kernel_col_blocks(spec, bn)
+    row_offsets: torch.Tensor   # (gm,) int32 row_offsets
+
+
+def fold_table(spec: EpitomeSpec) -> np.ndarray:
+    """(m, c) table of the virtual rows that fold into each epitome row,
+    ascending, c the most any row receives; the padding points at row M,
+    which ``fold_rows`` makes a zero column."""
+    rmap = spec.row_index_map()
+    order = np.argsort(rmap, kind="stable")
+    counts = np.bincount(rmap, minlength=spec.m)
+    rows = rmap[order]
+    table = np.full((spec.m, counts.max()), spec.M, dtype=np.int64)
+    table[rows, np.arange(spec.M) - (np.cumsum(counts) - counts)[rows]] = order
+    return table
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,14 +80,22 @@ def spec_tables(spec: EpitomeSpec, bn: int, device: torch.device) -> SpecTables:
     stall the host on every layer."""
     def put(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
-    return SpecTables(put(spec.row_index_map()), put(kernel_col_blocks(spec, bn)),
-                      put(spec.row_offsets()))
+    return SpecTables(torch.as_tensor(fold_table(spec).T.reshape(-1), device=device),
+                      put(kernel_col_blocks(spec, bn)), put(spec.row_offsets()))
 
 
 def fold_rows(x: torch.Tensor, spec: EpitomeSpec) -> torch.Tensor:
-    """IFRT analogue: scatter-add virtual fan-in into epitome rows."""
-    rmap = spec_tables(spec, spec.bn, x.device).rows
-    return x.new_zeros(*x.shape[:-1], spec.m).index_add_(-1, rmap, x)
+    """IFRT analogue: sum the virtual fan-in into epitome rows.
+
+    Each epitome row gathers the virtual rows that sample it and sums them
+    in float32, whatever x's dtype; a bfloat16 x gets its fold rounded once.
+    A gather and a sum repeat bit for bit on the card, where a scatter-add
+    (``index_add_``) adds with atomics in an order that changes from run to
+    run: in float32 that moved one last bit now and then, enough to move a
+    32-layer bf16 LM's logits by 0.4 between identical prefills."""
+    xp = F.pad(x, (0, 1))                               # column M is the zero
+    gathered = xp.index_select(-1, spec_tables(spec, spec.bn, x.device).fold)
+    return gathered.unflatten(-1, (-1, spec.m)).sum(-2, dtype=torch.float32).to(x.dtype)
 
 
 def epitome_matmul(x: torch.Tensor, E: torch.Tensor, spec: EpitomeSpec, *,
@@ -144,6 +167,18 @@ def _pad_contraction(folded: torch.Tensor, w_rows: torch.Tensor, bk: int) -> tup
         folded = F.pad(folded, (0, pad))
         w_rows = F.pad(w_rows, (0, 0, 0, pad))
     return folded, w_rows
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+         u: torch.Tensor, state: Optional[torch.Tensor] = None,
+         chunk: int = 64) -> tuple:
+    """Chunked RWKV6 WKV.  r/k/v/logw: (B, S, H, K), logw <= 0; u: (H, K);
+    state: (B, H, K, K) or None (zero).  Returns (o (B, S, H, K), final
+    state), both float32: the inputs are cast to float32 first, as
+    ``ssm.rwkv_chunked`` casts them, and the caller casts o back."""
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    return wkv6_chunked(f32(r), f32(k), f32(v), f32(logw), f32(u),
+                        None if state is None else f32(state), chunk=chunk)
 
 
 # ---------------------------------------------------------------------------

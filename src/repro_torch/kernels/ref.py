@@ -1,10 +1,14 @@
-"""Plain PyTorch versions of the three epitome matmul kernels, shape for
-shape the oracles of ``repro.kernels.ref``.  The kernel wrappers run these
-for tensors on the CPU; on the card they are what each kernel is held
+"""Plain PyTorch versions of the kernels, shape for shape the oracles of
+``repro.kernels.ref`` (and, for the WKV, the chunked arithmetic of
+``repro.models.ssm.rwkv_chunked``).  The kernel wrappers run these for
+tensors on the CPU; on the card they are what each kernel is held
 against."""
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+import torch.nn.functional as F
 
 from ..core.quant import dequantize_packed
 
@@ -54,3 +58,64 @@ def quant_epitome_matmul_fused_fold_ref(x: torch.Tensor, q: torch.Tensor,
     folded = fold_blocks_ref(x.to(torch.float32), row_offsets, bm, q.shape[0])
     return quant_epitome_matmul_blocks_ref(folded, q, scales, zeros,
                                            col_blocks, bk, bn)
+
+
+def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor,
+                     state: Optional[torch.Tensor] = None, *,
+                     chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked WKV of ``ssm.rwkv_chunked``, op for op.  r/k/v/logw:
+    (B, S, H, K), logw <= 0; u: (H, K); state: (B, H, K, K) or None (zero).
+    Returns (o (B, S, H, K), final state), float32; the sequence is
+    zero-padded to whole chunks of min(chunk, S)."""
+    B, S, H, K = r.shape
+    L = max(1, min(chunk, S))
+    n = -(-S // L)
+
+    def chunks(t):
+        return F.pad(t.float(), (0, 0, 0, 0, 0, n * L - S)).reshape(B, n, L, H, K)
+
+    rf, kf, vf, lw = chunks(r), chunks(k), chunks(v), chunks(logw)
+    uf = u.float()
+    S_c = (torch.zeros((B, H, K, K), device=r.device) if state is None
+           else state.float())
+    tri = torch.ones((L, L), dtype=torch.bool, device=r.device).tril(-1)
+    outs = []
+    for c in range(n):
+        rc, kc, vc, lwc = rf[:, c], kf[:, c], vf[:, c], lw[:, c]    # (B,L,H,K)
+        cs = lwc.cumsum(1)                                          # <= 0
+        cs_prev = cs - lwc
+        o = torch.einsum("blhk,bhkv->blhv", rc * cs_prev.exp(), S_c)
+        expo = (cs_prev[:, :, None] - cs[:, None, :]).clamp_max(0.0)  # (B,t,i,H,K)
+        scores = torch.einsum("bthk,btihk,bihk->bthi", rc, expo.exp(), kc)
+        scores = scores * tri[None, :, None, :]
+        o = o + torch.einsum("bthi,bihv->bthv", scores, vc)
+        bonus = torch.einsum("blhk,blhk->blh", rc * uf, kc)
+        o = o + bonus[..., None] * vc
+        cs_L = cs[:, -1:]
+        k_dec = kc * (cs_L - cs).exp()
+        S_c = S_c * cs_L[:, 0].exp()[..., None] + torch.einsum("blhk,blhv->bhkv", k_dec, vc)
+        outs.append(o)
+    return torch.stack(outs, 1).reshape(B, n * L, H, K)[:, :S], S_c
+
+
+def wkv6_naive_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   logw: torch.Tensor, u: torch.Tensor,
+                   state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The token-by-token recurrence of ``repro.kernels.ref.wkv6_ref`` in
+    the model's (B, S, H, K) layout, with a state in and out:
+    o_t = r_t (S + diag(u) k_t^T v_t), S <- diag(w_t) S + k_t^T v_t."""
+    B, S, H, K = r.shape
+    rf, kf, vf = r.float(), k.float(), v.float()
+    w = logw.float().exp()
+    uf = u.float()[None, :, :, None]
+    S_c = (torch.zeros((B, H, K, K), device=r.device) if state is None
+           else state.float())
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]           # (B,H,K,V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], S_c + uf * kv))
+        S_c = S_c * w[:, t, :, :, None] + kv
+    o = torch.stack(outs, 1) if outs else rf.new_zeros((B, 0, H, K))
+    return o, S_c

@@ -1,0 +1,108 @@
+"""Serving entry point: batched prefill, then decode, with a recurrent state.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --epitome kernel-q3 --smoke --device cpu
+
+(counterpart of ``repro.launch.serve``).  Parameters are drawn from
+``--seed`` on the serving device and, for a kernel x quant variant such as
+``kernel-q3``, prepacked once into int8 codes, so every forward feeds the
+fused kernel stored codes.  Greedy decoding follows the reference token for
+token: prefill, argmax, then max_new_tokens - 1 decode steps.  Sampled
+decoding (``--temperature`` > 0) draws from a ``torch.Generator`` seeded
+from ``--seed``; its bits cannot match the reference's gumbel draws from a
+JAX key, so only greedy tokens are comparable across the two packages.
+The continuous-batching engine, paging and ``--decode-block`` come with the
+engine slice.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import torch
+
+from ..models import lm
+
+
+def _select(logits: torch.Tensor, temperature: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """(B, vocab) logits -> (B, 1) int32 tokens: argmax when temperature is
+    0, else one draw from softmax(logits / temperature)."""
+    if temperature > 0:
+        probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+        tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    else:
+        tok = torch.argmax(logits, dim=-1)
+    return tok.to(torch.int32)[:, None]
+
+
+def generate(params, cfg, prompts: torch.Tensor, max_len: int, gen: int,
+             temperature: float = 0.0, generator: Optional[torch.Generator] = None):
+    """prompts: (B, P) int.  Returns (tokens (B, gen) int32, final state).
+    ``max_len`` sizes attention caches (unused by the recurrent kinds);
+    ``generator`` draws the sampled tokens (on the prompts' device)."""
+    B, P = prompts.shape
+    with torch.no_grad():
+        state = lm.init_decode_state(cfg, B, max_len, device=prompts.device)
+        logits, state = lm.prefill(params, prompts, state, cfg)
+        tok = _select(logits[:, -1], temperature, generator)
+        toks = [tok]
+        for i in range(gen - 1):
+            logits, state = lm.decode_step(params, state, tok, P + i, cfg)
+            tok = _select(logits[:, -1], temperature, generator)
+            toks.append(tok)
+    return torch.cat(toks, dim=1), state
+
+
+def build_model(arch: str, epitome: str, smoke: bool, seed: int, device="cuda"):
+    """(cfg, params) as the CLI serves them: drawn from ``seed`` on
+    ``device`` and prepacked when the variant runs the fused int8 kernel."""
+    from ..configs import get_config, get_smoke_config
+    cfg = get_smoke_config(arch, epitome) if smoke else get_config(arch, epitome)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = lm.init_params(gen, cfg, device)
+    if lm.needs_prepack(cfg):
+        params = lm.prepack_params(params, cfg)
+    return cfg, params
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--epitome", default="off")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; > 0 samples every generated token")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    device = torch.device(args.device)
+    cfg, params = build_model(args.arch, args.epitome, args.smoke, args.seed, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    prompts = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),
+                            generator=gen, device=device)
+    max_len = args.prompt_len + args.max_new_tokens + 1
+    t0 = time.perf_counter()
+    toks, _ = generate(params, cfg, prompts, max_len, args.max_new_tokens,
+                       temperature=args.temperature, generator=gen)
+    toks = toks.cpu()          # waits for the device
+    dt = time.perf_counter() - t0
+    print(f"[serve] {args.arch} epitome={args.epitome}"
+          f"{' (prepacked)' if lm.needs_prepack(cfg) else ''} on {device}: generated "
+          f"{tuple(toks.shape)} in {dt:.2f}s "
+          f"({args.requests * args.max_new_tokens / dt:.1f} tok/s)")
+    print("[serve] sample:", toks[0, :16].tolist())
+    return toks
+
+
+if __name__ == "__main__":
+    main()

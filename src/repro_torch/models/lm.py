@@ -1,0 +1,112 @@
+"""Full language model: init, prepack, forward, prefill and decode
+(counterpart of ``repro.models.lm``).
+
+The reference stacks every group's leaves over a leading group axis and
+``lax.scan``s over it.  The port keeps ``params["groups"]`` as a list of
+per-group dicts (and the decode state as a list of per-group states) and
+loops over them in Python: PyTorch runs eagerly, so a scan buys nothing,
+and per-group tensors need no slicing.  ``convert.lm_params_from_jax``
+unstacks the reference's tree into this layout.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..core.layers import EpLayerConfig, prepack_tree
+from .blocks import apply_group, decode_group, init_group, init_group_state, prefill_group
+from .common import embed_lookup, init_rms_norm, rms_norm, unembed
+from .config import ModelConfig
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device="cuda") -> Dict[str, Any]:
+    """Random parameters drawn from ``generator`` on its own device (a CUDA
+    generator draws a full-size model on the card), placed on ``device``."""
+    def randn(*shape):
+        t = torch.randn(shape, generator=generator, device=generator.device)
+        return (t / math.sqrt(cfg.d_model)).to(device=device, dtype=cfg.pdtype)
+
+    params = {"embed": randn(cfg.vocab, cfg.d_model),
+              "groups": [init_group(generator, cfg, device) for _ in range(cfg.n_groups)],
+              "final_norm": init_rms_norm(cfg.d_model, cfg.pdtype, device)}
+    if not cfg.tie_embeddings:
+        params["head"] = randn(cfg.d_model, cfg.vocab)
+    return params
+
+
+def lm_layer_configs(cfg: ModelConfig) -> Dict[str, EpLayerConfig]:
+    """Every projection site's EpLayerConfig, keyed by param-tree path,
+    enumerated from pim.workloads.lm_layers — the sites init, forward and
+    prepack resolve by name."""
+    from ..pim.workloads import lm_layers
+    return {l.name: cfg.ep(l.rows, l.cols, l.name) for l in lm_layers(cfg)}
+
+
+def needs_prepack(cfg: ModelConfig) -> bool:
+    """True iff any projection runs the fused kernel x quant path."""
+    return any(lc.is_epitome and lc.quant is not None and lc.mode == "kernel"
+               for lc in lm_layer_configs(cfg).values())
+
+
+def prepack_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """Pack every kernel x quant epitome once (int8 codes + per-block scale
+    and zero beside E), so every forward feeds the kernel stored codes."""
+    configs = lm_layer_configs(cfg)
+    with torch.no_grad():
+        groups = [prepack_tree(g, configs) for g in params["groups"]]
+    return {**params, "groups": groups}
+
+
+def _embed(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token ids (B, S) -> scaled embeddings (the modality stubs' embedding
+    inputs come with the attention architectures that use them)."""
+    x = embed_lookup(params["embed"], tokens, cfg.cdtype)
+    # the scale rounded to the compute dtype first, as jnp.asarray(..., cdtype)
+    return x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype))
+
+
+def _logits(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["head"] if "head" in params else params["embed"].T
+    return unembed(x, head, cfg.logit_softcap)
+
+
+def forward(params: Dict[str, Any], inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """inputs: (B, S) int token ids.  Returns logits (B, S, vocab)."""
+    x = _embed(params, inputs, cfg)
+    for group in params["groups"]:
+        x = apply_group(group, x, cfg)
+    return _logits(params, x, cfg)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device="cuda") -> List[Dict[str, Any]]:
+    """One decode state per group."""
+    return [init_group_state(cfg, batch, max_len, device) for _ in range(cfg.n_groups)]
+
+
+def prefill(params: Dict[str, Any], inputs: torch.Tensor, state: List[Dict[str, Any]],
+            cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+    """Run the prompt and fill the decode state.  Returns (last-token
+    logits (B, 1, vocab), new state)."""
+    x = _embed(params, inputs, cfg)
+    new_state = []
+    for group, st in zip(params["groups"], state):
+        x, st = prefill_group(group, st, x, cfg)
+        new_state.append(st)
+    return _logits(params, x[:, -1:], cfg), new_state
+
+
+def decode_step(params: Dict[str, Any], state: List[Dict[str, Any]], token: torch.Tensor,
+                pos, cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+    """token: (B, 1) int; pos: the token's sequence position.  Returns
+    (logits (B, 1, vocab), new state)."""
+    x = _embed(params, token, cfg)
+    new_state = []
+    for group, st in zip(params["groups"], state):
+        x, st = decode_group(group, st, x, pos, cfg)
+        new_state.append(st)
+    return _logits(params, x, cfg), new_state

@@ -1,8 +1,10 @@
 """Kernel-exact (bn-aligned) epitome spec design for a layer inventory.
 
-The part of ``repro.pim.plan`` that the ResNet path reads: the spec
-designer behind ``get_resnet`` and ``tiny_resnet(specs="auto")``.  Plan
-artifacts, legalization and search are not ported yet.
+The parts of ``repro.pim.plan`` that the ResNet and LM paths read: the spec
+designer behind ``get_resnet`` and ``tiny_resnet(specs="auto")``, the
+one-spec legalizer behind ``models.config.EpitomeSettings.layer_config``,
+and the packed scale-grid shape.  Plan artifacts and search are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -38,6 +40,40 @@ def _aligned_candidates(M: int, N: int, area: float,
             if m * n >= M * N:          # not actually smaller -> not a spec
                 continue
             yield EpitomeSpec(M=M, N=N, m=m, n=n, bm=bm, bn=bn)
+
+
+def legalize_spec(layer: LayerShape, spec: Optional[EpitomeSpec],
+                  patch: Tuple[int, int]
+                  ) -> Tuple[Optional[EpitomeSpec], float]:
+    """Snap one searched spec to the nearest kernel-exact family at the
+    execution patch.  Returns (legal spec, relative epitome-area change).
+    Dense stays dense; a layer with no legal compressed family goes dense
+    with the area growth reported as its snap error."""
+    if spec is None:
+        return None, 0.0
+    M, N = layer.rows, layer.cols
+    area = spec.m * spec.n
+    best, best_err = None, math.inf
+    for cand in _aligned_candidates(M, N, area, patch):
+        err = abs(cand.m * cand.n - area) / area
+        if err < best_err:
+            best, best_err = cand, err
+    if best is None:
+        return None, abs(M * N - area) / area
+    assert is_kernel_exact(best), best
+    return best, best_err
+
+
+def pack_grid(spec: EpitomeSpec, tile: int = 256) -> Tuple[int, int]:
+    """(ceil(m/bk), n/bn) shape of a packed epitome's Es/Ez scale grids: a
+    mirror of ``kernels.ops.pack_blocks`` that needs no kernel module,
+    including ``_pick_bk_quant``'s prime/odd-m fallback (the largest
+    standard block not exceeding min(tile, m))."""
+    blocks = (256, 128, 64, 32, 16, 8)
+    bk = next((b for b in blocks if b <= tile and spec.m % b == 0), None)
+    if bk is None:
+        bk = next((b for b in blocks if b <= min(tile, spec.m)), spec.m)
+    return -(-spec.m // bk), -(-spec.n // spec.bn)
 
 
 def plan_conv_specs(layers: Sequence[LayerShape], target_cr: float = 2.0,

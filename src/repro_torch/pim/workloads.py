@@ -2,8 +2,9 @@
 
 Every conv is described by its PIM mapping [13]: rows = c_in*kh*kw (word
 lines), cols = c_out (bit lines), plus the output spatial size that sets the
-number of crossbar activation rounds.  A copy of the ResNet inventories of
-``repro.pim.workloads``, so the two packages build the same networks.
+number of crossbar activation rounds.  A copy of the ResNet and LM
+inventories of ``repro.pim.workloads``, so the two packages build the same
+networks.
 """
 from __future__ import annotations
 
@@ -74,6 +75,50 @@ def resnet50_layers() -> List[LayerShape]:
 
 def resnet101_layers() -> List[LayerShape]:
     return _resnet([3, 4, 23, 3])
+
+
+def lm_layers(cfg) -> List[LayerShape]:
+    """Per-super-block projection inventory of an LM config (crossbar space).
+
+    ``cfg`` is duck-typed (a ``models.config.ModelConfig`` or anything with
+    the same geometry attributes).  One LayerShape per attention/ffn
+    projection site of the super-block, named exactly as the parameter tree
+    path (``L{i}/mixer/wq``, ``L{i}/ffn/w_gate``, ...) so per-layer configs
+    and the tree prepack key on the same names.  rows/cols are the
+    projection's virtual (fan-in, fan-out); kind="fc".  Norms, LoRAs, mu's,
+    conv buffers and stacked MoE expert tensors are not epitome sites."""
+    d = cfg.d_model
+    hd = cfg.head_dim or d // cfg.n_heads
+    ff = cfg.d_ff
+    fc = lambda name, rows, cols: LayerShape(name, 1, 1, rows, cols, 1,
+                                             kind="fc")
+    out: List[LayerShape] = []
+    for i, (kind, ffn_kind) in enumerate(cfg.full_pattern):
+        p = f"L{i}/mixer"
+        if kind in ("attn", "attn_local"):
+            out += [fc(f"{p}/wq", d, cfg.n_heads * hd),
+                    fc(f"{p}/wk", d, cfg.n_kv_heads * hd),
+                    fc(f"{p}/wv", d, cfg.n_kv_heads * hd),
+                    fc(f"{p}/wo", cfg.n_heads * hd, d)]
+        elif kind == "rwkv":
+            out += [fc(f"{p}/{w}", d, d)
+                    for w in ("wr", "wk", "wv", "wg", "wo")]
+        elif kind == "mamba":
+            di = cfg.mamba_expand * d
+            ds = cfg.mamba_d_state
+            dt_rank = max(1, d // 16)
+            out += [fc(f"{p}/in_proj", d, 2 * di),
+                    fc(f"{p}/x_proj", di, dt_rank + 2 * ds),
+                    fc(f"{p}/dt_proj", dt_rank, di),
+                    fc(f"{p}/out_proj", di, d)]
+        q = f"L{i}/ffn"
+        if ffn_kind == "dense":
+            out += [fc(f"{q}/w_gate", d, ff), fc(f"{q}/w_up", d, ff),
+                    fc(f"{q}/w_down", ff, d)]
+        elif ffn_kind == "rwkv_ffn":
+            out += [fc(f"{q}/wk", d, ff), fc(f"{q}/wv", ff, d),
+                    fc(f"{q}/wr", d, d)]
+    return out
 
 
 def tiny_resnet_layers() -> List[LayerShape]:

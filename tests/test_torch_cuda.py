@@ -17,10 +17,13 @@ from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 from repro_torch.kernels.epitome_matmul import epitome_matmul_blocks
 from repro_torch.kernels.quant_epitome_matmul import (
     quant_epitome_matmul_blocks, quant_epitome_matmul_fused_fold)
+from repro_torch.kernels.wkv6 import wkv6_chunked
 
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=2e-4, atol=2e-4)        # fp32, tests/test_kernels.py:17-18
+BF16 = dict(rtol=2e-2, atol=2e-2)       # bf16, tests/test_kernels.py:17-18
+WKV = dict(rtol=1e-3, atol=1e-3)        # wkv6, tests/test_kernels.py:85
 
 # two of ResNet-50's kernel shapes at batch 32 x 224^2: a 3x3 conv with pack
 # bk 32, and fc with m=2000 (pack bk 16) and 4 output blocks trimmed to 1000
@@ -28,6 +31,11 @@ SHAPES = [
     ((1152, 128, 288, 128, 256, 128), 25088),
     ((2048, 1000, 2000, 256, 256, 256), 32),
 ]
+
+
+# rwkv6-7b kernel-q3's three projection shapes (M, N, m, n, bm, bn)
+LM_SHAPES = [(4096, 4096, 1024, 4096, 256, 256), (4096, 14336, 1024, 14336, 256, 256),
+             (14336, 4096, 3584, 4096, 256, 256)]
 
 
 @pytest.fixture
@@ -125,3 +133,80 @@ def test_tiny_resnet_on_card_matches_cpu(cuda_device):
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.detach().to(device)
             for k, v in tree.items()}
+
+
+def test_bf16_activation_through_quant_epitome_matmul(cuda_device):
+    """A bfloat16 activation runs on the card and comes back bfloat16,
+    within the reference's bf16 tolerance of the same call on the CPU."""
+    spec, E, x, p, _ = _case(LM_SHAPES[0], 8, cuda_device)
+    xb = x.bfloat16()
+    y = ops.quant_epitome_matmul(xb, None, spec, packed=p)
+    cpu = ops.quant_epitome_matmul(xb.cpu(), None, spec,
+                                   packed=ops.PackedEpitome(*(t.cpu() for t in p[:3]), p.bk, p.bn))
+    assert y.dtype == cpu.dtype == torch.bfloat16
+    torch.testing.assert_close(y.cpu().float(), cpu.float(), **BF16)
+
+
+@pytest.mark.parametrize("T", [4, 1024])
+@pytest.mark.parametrize("args", LM_SHAPES)
+def test_bf16_quant_epitome_matmul_blocks_kernel_at_lm_shapes(args, T, cuda_device):
+    spec, _, x, p, cb = _case(args, T, cuda_device)
+    folded = ops.fold_rows(x.bfloat16(), spec)
+    y = quant_epitome_matmul_blocks(folded, p.q, p.scales, p.zeros, cb, bk=p.bk, bn=p.bn)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    plain = ref.quant_epitome_matmul_blocks_ref(folded, p.q, p.scales, p.zeros, cb, p.bk, p.bn)
+    torch.testing.assert_close(y.float(), plain.float(), **BF16)
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", [(2, 80, 4, 16, 64), (4, 200, 8, 64, 64),
+                                           (2, 50, 2, 8, 16)])
+def test_wkv6_kernel_with_state_at_ragged_length(B, S, H, K, chunk, cuda_device):
+    g = torch.Generator().manual_seed(S)
+    f = lambda *s: torch.randn(s, generator=g).to(cuda_device)
+    r, k, v = f(B, S, H, K), f(B, S, H, K), f(B, S, H, K)
+    lw, u, h0 = -torch.exp(f(B, S, H, K) * 0.5), f(H, K) * 0.1, f(B, H, K, K) * 0.5
+    reset_launch_counts()
+    o, hT = wkv6_chunked(r, k, v, lw, u, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["wkv6_chunked"] == 1
+    o_ref, h_ref = ref.wkv6_chunked_ref(r, k, v, lw, u, h0, chunk=chunk)
+    torch.testing.assert_close(o, o_ref, **WKV)
+    torch.testing.assert_close(hT, h_ref, **WKV)
+    o0, _ = wkv6_chunked(r, k, v, lw, u, chunk=chunk)        # zero state
+    torch.testing.assert_close(o0, ref.wkv6_chunked_ref(r, k, v, lw, u, chunk=chunk)[0], **WKV)
+    strong, h = wkv6_chunked(r, k, v, torch.full_like(lw, -20.0), u, h0, chunk=chunk)
+    assert torch.isfinite(strong).all() and torch.isfinite(h).all()
+
+
+def test_smoke_lm_on_card_matches_cpu(cuda_device):
+    """The rwkv6-7b smoke config at kernel-q3 in float32: the card's
+    prefill logits and greedy tokens against the plain versions on the CPU,
+    with every projection and the prefill recurrence launched as kernels."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config("rwkv6-7b", "kernel-q3"), compute_dtype="float32")
+    gpu = lm.prepack_params(lm.init_params(torch.Generator().manual_seed(0), cfg, cuda_device), cfg)
+    cpu = lm.prepack_params(lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 80), generator=torch.Generator().manual_seed(1))
+    reset_launch_counts()
+    toks, _ = serve.generate(gpu, cfg, prompts.to(cuda_device), 90, 4)
+    counts = launch_counts()
+    assert counts["quant_epitome_matmul_blocks"] == 8 * cfg.n_layers * 4
+    assert counts["wkv6_chunked"] == cfg.n_layers
+    ref_toks, _ = serve.generate(cpu, cfg, prompts, 90, 4)
+    assert torch.equal(toks.cpu(), ref_toks)
+
+
+def test_fold_repeats_bit_for_bit(cuda_device):
+    """The fold gathers and sums, so it repeats exactly on the card (a
+    scatter-add's atomics would not), and agrees with the CPU's."""
+    spec, _, x, _, _ = _case(LM_SHAPES[2], 1024, cuda_device)
+    for dtype, tol in ((torch.bfloat16, BF16), (torch.float32, TOL)):
+        xd = x.to(dtype)
+        first = ops.fold_rows(xd, spec)
+        assert all(torch.equal(ops.fold_rows(xd, spec), first) for _ in range(10))
+        torch.testing.assert_close(first.cpu().float(), ops.fold_rows(xd.cpu(), spec).float(),
+                                   **tol)

@@ -172,3 +172,38 @@ def test_fused_quant_path_refuses_training():
     y = tl.apply_linear({"E": E}, torch.from_numpy(_images((4, SPEC[0]))), tcfg)
     with pytest.raises(NotImplementedError, match="inference-only"):
         y.sum().backward()
+
+
+@pytest.mark.parametrize("dtype,jdtype,tol", [
+    (torch.float32, jnp.float32, 2e-4), (torch.bfloat16, jnp.bfloat16, 2e-2)])
+def test_exact_dot_and_dense_linear_in_compute_dtype(dtype, jdtype, tol):
+    """The dense branch rounds both operands to a narrow compute dtype and
+    multiplies in float32, as the reference's exact_dot does."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((5, 48)).astype(np.float32)
+    W = (rng.standard_normal((48, 24)) / 7).astype(np.float32)
+    a = tl.exact_dot(torch.from_numpy(x).to(dtype), torch.from_numpy(W))
+    b = jl.exact_dot(jnp.asarray(x, jdtype), jnp.asarray(W))
+    assert a.dtype == dtype
+    np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        xb, Wb = torch.from_numpy(x).bfloat16(), torch.from_numpy(W).bfloat16()
+        assert torch.equal(a, (xb.float() @ Wb.float()).bfloat16())
+    jcfg, tcfg = _cfgs(None, "wrapped", None)
+    y = tl.apply_linear({"W": torch.from_numpy(W)}, torch.from_numpy(x).to(dtype), tcfg)
+    ref = jl.apply_linear({"W": jnp.asarray(W)}, jnp.asarray(x, jdtype), jcfg)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(ref, np.float32), rtol=tol, atol=tol)
+
+
+def test_prepack_tree_packs_named_kernel_quant_sites_only():
+    jcfg, tcfg = _cfgs(SPEC, "kernel", 3)
+    _, fold_cfg = _cfgs(SPEC, "folded", 3)
+    E = torch.from_numpy(_images((SPEC[2], SPEC[3]), seed=2) / 12.0)
+    tree = {"L0": {"mixer": {"wr": {"E": E}, "wk": {"E": E}, "mu": torch.ones(3)},
+                   "norm1": torch.zeros(3)}}
+    out = tl.prepack_tree(tree, {"L0/mixer/wr": tcfg, "L0/mixer/wk": fold_cfg})
+    assert set(out["L0"]["mixer"]["wr"]) == {"E", "Eq", "Es", "Ez"}
+    assert out["L0"]["mixer"]["wk"] is tree["L0"]["mixer"]["wk"]
+    assert out["L0"]["norm1"] is tree["L0"]["norm1"]
+    ref = jl.prepack_linear({"E": jnp.asarray(E.numpy())}, jcfg)
+    np.testing.assert_array_equal(out["L0"]["mixer"]["wr"]["Eq"].numpy(), np.asarray(ref["Eq"]))

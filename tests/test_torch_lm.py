@@ -1,0 +1,292 @@
+"""Port parity: the RWKV6 LM of repro_torch (configs, per-site epitome specs,
+prepack, prefill, decode, generate) against the JAX reference, with the
+reference's parameters carried across by ``convert.lm_params_from_jax``.
+
+The reference's kernel-q3 path runs its Pallas kernels in interpret mode,
+which look up ``pltpu.TPUCompilerParams`` (renamed ``CompilerParams`` in
+jax 0.9): the module-scoped ``reference`` fixture aliases it while this
+file's reference runs are built, and clears jax's caches after."""
+import dataclasses
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as J_ARCHS
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke
+from repro.kernels import ops as jops
+from repro.launch import serve as jserve
+from repro.models import common as jcommon
+from repro.models import lm as jlm
+from repro.models import ssm as jssm
+from repro.pim import plan as jplan
+from repro.pim import workloads as jworkloads
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.kernels import launch_counts, ops as tops
+from repro_torch.launch import serve
+from repro_torch.models import common, lm, ssm
+from repro_torch.models.config import EpitomeSettings
+from repro_torch.pim import plan as tplan
+from repro_torch.pim import workloads as tworkloads
+
+# float32: the reference's fp32 kernel tolerance (tests/test_kernels.py:17-18)
+# taken relative to the logits' scale; measured ~3e-6 on logits of ~2.5.
+F32_TOL = 1e-4
+# bfloat16 rounds every activation to 8 bits of mantissa (ulp 2^-8 of the
+# value); the two frameworks round at different places through 2 x 8
+# projections and the recurrences, which moved logits of ~2.5 by up to 3 ulp
+# (0.047) in the CPU runs, so 5e-2 of the logits' scale.
+BF16_TOL = 5e-2
+PROMPT, NEW = 80, 6         # one full 64-token chunk and a ragged 16-token tail
+
+
+def _close(a, ref, tol):
+    ref = np.asarray(ref, np.float32)
+    a = a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
+    scale = max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(a - ref).max())
+    assert err <= tol * scale, f"max |diff| {err:.3e} > {tol} * {scale:.3f}"
+
+
+def _numpy_params(cfg):
+    """Reference init from a key, with the zero-initialised LoRA B's and
+    decay B drawn non-zero so every input of the time mix matters."""
+    tree = jax.tree.map(np.asarray, jlm.init_params(jax.random.PRNGKey(3), cfg))
+    rng = np.random.default_rng(5)
+    mixer = tree["groups"]["L0"]["mixer"]
+    for name in ("lora_B", "wd_B"):
+        mixer[name] = (mixer[name] + 0.05 * rng.standard_normal(mixer[name].shape)
+                       ).astype(np.float32)
+    return tree
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """{dtype: (jax cfg, port cfg, jax prepacked params, port prepacked
+    params, prompts)} for the rwkv6-7b smoke config at kernel-q3."""
+    from jax.experimental.pallas import tpu as pltpu
+    rng = np.random.default_rng(0)
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
+        for dtype in ("float32", "bfloat16"):
+            jc = dataclasses.replace(jget_smoke("rwkv6-7b", "kernel-q3"), compute_dtype=dtype)
+            tc = dataclasses.replace(get_smoke_config("rwkv6-7b", "kernel-q3"),
+                                     compute_dtype=dtype)
+            tree = _numpy_params(jc)
+            jp = jlm.prepack_params(jax.tree.map(jnp.asarray, tree), jc)
+            tp = lm.prepack_params(lm_params_from_jax(tree, tc, "cpu"), tc)
+            prompts = rng.integers(0, tc.vocab, (2, PROMPT)).astype(np.int32)
+            out[dtype] = (jc, tc, jp, tp, prompts)
+        out["runs"] = {}
+        for dtype in ("float32", "bfloat16"):
+            jc, _, jp, _, prompts = out[dtype]
+            logits, st = jlm.prefill(jp, jnp.asarray(prompts), jlm.init_decode_state(jc, 2, 100), jc)
+            tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)[:, None]
+            logits2, _ = jlm.decode_step(jp, st, tok, jnp.int32(PROMPT), jc)
+            toks = None
+            if dtype == "float32":
+                toks, _ = jserve.generate(jp, jc, jnp.asarray(prompts), 100, NEW)
+            out["runs"][dtype] = jax.tree.map(np.array, (logits, tok, logits2, toks))
+    jax.clear_caches()
+    return out
+
+
+# -- configuration: integer artifacts match exactly ---------------------------
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_equal(arch):
+    assert ARCHS == J_ARCHS
+    for port, ref in ((get_config(arch, "kernel-q3"), jget_config(arch, "kernel-q3")),
+                      (get_smoke_config(arch, "folded"), jget_smoke(arch, "folded"))):
+        mine, theirs = dataclasses.asdict(port), dataclasses.asdict(ref)
+        assert set(theirs) - set(mine) == {"seq_shard_residual", "remat_policy",
+                                           "kv_cache_bits", "moe_decode_dispatch"}
+        assert mine == {k: theirs[k] for k in mine}
+        assert port.n_groups == ref.n_groups and port.hd == ref.hd
+        assert port.full_pattern == ref.full_pattern
+        assert ssm.recurrence_alignment(port) == jssm.recurrence_alignment(ref)
+        assert port.cdtype == getattr(torch, str(ref.cdtype))
+        assert [dataclasses.astuple(l) for l in tworkloads.lm_layers(port)] == \
+            [dataclasses.astuple(l) for l in jworkloads.lm_layers(ref)]
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_site_specs_and_pack_blocks_equal(smoke):
+    """Every projection site's spec (after the kernel-exact snap) and its
+    pack blocks, at full width and in the smoke config."""
+    get_p, get_r = (get_smoke_config, jget_smoke) if smoke else (get_config, jget_config)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")         # the snaps; see the test below
+        port = lm.lm_layer_configs(get_p("rwkv6-7b", "kernel-q3"))
+        ref = jlm.lm_layer_configs(get_r("rwkv6-7b", "kernel-q3"))
+    assert list(port) == list(ref) and len(port) == 8
+    for name, lc in port.items():
+        r = ref[name]
+        assert dataclasses.astuple(lc.spec) == dataclasses.astuple(r.spec), name
+        assert (lc.mode, lc.quant.bits) == (r.mode, r.quant.bits) == ("kernel", 3)
+        assert dataclasses.asdict(lc.quant) == dataclasses.asdict(r.quant)
+        assert tops.pack_blocks(lc.spec, lc.quant) == jops.pack_blocks(r.spec, r.quant)
+        assert tplan.pack_grid(lc.spec) == jplan.pack_grid(r.spec)
+    if not smoke:
+        assert {(lc.spec.m, lc.spec.n) for lc in port.values()} == \
+            {(1024, 4096), (1024, 14336), (3584, 4096)}
+        assert lm.needs_prepack(get_config("rwkv6-7b", "kernel-q3"))
+        assert not lm.needs_prepack(get_config("rwkv6-7b", "folded-q3"))
+
+
+def test_legalize_spec_matches_reference():
+    from repro.core.epitome import plan_epitome as jplan_epitome
+    from repro_torch.core.epitome import plan_epitome as tplan_epitome
+    for M, N in [(4096, 4096), (4096, 14336), (14336, 4096), (768, 512), (96, 64)]:
+        layer_t = tworkloads.LayerShape("x", 1, 1, M, N, 1, kind="fc")
+        layer_j = jworkloads.LayerShape("x", 1, 1, M, N, 1, kind="fc")
+        for patch in ((256, 256), (32, 32)):
+            ts = tplan_epitome(M, N, 4.0, patch=patch)
+            js = jplan_epitome(M, N, 4.0, patch=patch)
+            a, ea = tplan.legalize_spec(layer_t, ts, patch)
+            b, eb = jplan.legalize_spec(layer_j, js, patch)
+            assert (a is None) == (b is None) and ea == eb
+            if a is not None:
+                assert dataclasses.astuple(a) == dataclasses.astuple(b)
+
+
+def test_settings_warn_when_they_snap_a_spec():
+    ep = EpitomeSettings(enabled=True, mode="kernel", quant_bits=3)
+    with pytest.warns(UserWarning, match="snapped 4096x1024 -> 1024x4096"):
+        lc = ep.layer_config(4096, 4096)
+    assert (lc.spec.m, lc.spec.n) == (1024, 4096)
+    assert EpitomeSettings(enabled=True).layer_config(64, 64).spec is None   # < min_params
+
+
+def test_plans_and_other_layer_kinds_wait_for_their_slices():
+    with pytest.raises(NotImplementedError, match="plan slice"):
+        get_config("rwkv6-7b", "kernel-q3", plan="plan.json")
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match="attention slice"):
+        lm.init_params(g, get_smoke_config("qwen2-72b"), "cpu")
+    with pytest.raises(NotImplementedError, match="Mamba slice"):
+        lm.init_decode_state(get_smoke_config("jamba-1.5-large-398b"), 1, 8, "cpu")
+
+
+# -- parameters and prepack ----------------------------------------------------
+def test_prepack_codes_equal(reference):
+    """int8 codes exactly; scales and zeros to one float32 ulp (the
+    reference packs inside a jitted vmap, ROADMAP.md section 3)."""
+    jc, tc, jp, tp, _ = reference["float32"]
+    sites = lm.lm_layer_configs(tc)
+    assert len(tp["groups"]) == tc.n_groups == 2
+    for g in range(tc.n_groups):
+        for name in sites:
+            layer, kind, w = name.split("/")
+            a, b = tp["groups"][g][layer][kind][w], jp["groups"][layer][kind][w]
+            np.testing.assert_array_equal(a["Eq"].numpy(), np.asarray(b["Eq"][g]))
+            np.testing.assert_array_equal(a["E"].numpy(), np.asarray(b["E"][g]))
+            for s in ("Es", "Ez"):
+                np.testing.assert_allclose(a[s].numpy(), np.asarray(b[s][g]), rtol=1e-6, atol=0)
+
+
+def test_converter_keeps_every_leaf_and_rejects_unknown_ones(reference):
+    jc, tc, jp, tp, _ = reference["float32"]
+    n_ref = sum(int(np.prod(np.shape(l))) for l in jax.tree.leaves(jp))
+    n_port = sum(t.numel() for t in jax.tree.leaves(tp))
+    assert n_port == n_ref
+    bad = {"embed": np.zeros((2, 2)), "groups": {"L0": {"mystery": np.zeros((2, 3))}}}
+    with pytest.raises(KeyError, match="mystery"):
+        lm_params_from_jax(bad, tc, "cpu")
+
+
+# -- logits and tokens -----------------------------------------------------------
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
+def test_prefill_and_decode_logits(reference, dtype, tol):
+    _, tc, _, tp, prompts = reference[dtype]
+    jl, jtok, jl2, _ = reference["runs"][dtype]
+    before = launch_counts()
+    logits, st = lm.prefill(tp, torch.from_numpy(prompts), lm.init_decode_state(tc, 2, 100, "cpu"), tc)
+    assert logits.dtype == tc.cdtype and tuple(logits.shape) == (2, 1, tc.vocab)
+    _close(logits, jl, tol)
+    logits2, _ = lm.decode_step(tp, st, torch.from_numpy(jtok), PROMPT, tc)
+    _close(logits2, jl2, tol)
+    assert launch_counts() == before          # CPU tensors run the plain versions
+
+
+def test_greedy_tokens_equal_reference_generate(reference):
+    _, tc, _, tp, prompts = reference["float32"]
+    toks, state = serve.generate(tp, tc, torch.from_numpy(prompts), 100, NEW)
+    assert toks.dtype == torch.int32 and tuple(toks.shape) == (2, NEW)
+    np.testing.assert_array_equal(toks.numpy(), reference["runs"]["float32"][3])
+    assert len(state) == tc.n_groups
+
+
+def test_decode_matches_own_forward(reference):
+    """prefill + one decode step == the forward's logits at that position
+    (tests/test_models.py:64 for the reference)."""
+    _, tc, _, tp, prompts = reference["float32"]
+    seq = torch.from_numpy(prompts[:, :41])
+    with torch.no_grad():
+        ref = lm.forward(tp, seq, tc)[:, 40]
+        _, st = lm.prefill(tp, seq[:, :40], lm.init_decode_state(tc, 2, 48, "cpu"), tc)
+        l2, _ = lm.decode_step(tp, st, seq[:, 40:41], 40, tc)
+    torch.testing.assert_close(l2[:, 0], ref, rtol=2e-4, atol=2e-4)
+
+
+def test_forward_matches_reference(reference):
+    jc, tc, jp, tp, prompts = reference["float32"]
+    from jax.experimental.pallas import tpu as pltpu
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
+        ref = jlm.forward(jp, jnp.asarray(prompts[:, :20]), jc, remat=False)
+    jax.clear_caches()
+    with torch.no_grad():
+        _close(lm.forward(tp, torch.from_numpy(prompts[:, :20]), tc), ref, F32_TOL)
+
+
+def test_sampled_decode_follows_its_generator(reference):
+    _, tc, _, tp, prompts = reference["float32"]
+    p = torch.from_numpy(prompts[:, :16])
+    draw = lambda seed: serve.generate(tp, tc, p, 40, 5, temperature=0.8,
+                                       generator=torch.Generator().manual_seed(seed))[0]
+    a, b = draw(1), draw(1)
+    assert torch.equal(a, b) and int(a.min()) >= 0 and int(a.max()) < tc.vocab
+
+
+def test_serve_cli_on_cpu(capsys):
+    toks = serve.main(["--arch", "rwkv6-7b", "--smoke", "--epitome", "kernel-q3",
+                       "--device", "cpu", "--requests", "2", "--prompt-len", "8",
+                       "--max-new-tokens", "3"])
+    assert tuple(toks.shape) == (2, 3) and int(toks.max()) < 192
+    out = capsys.readouterr().out
+    assert "(prepacked)" in out and "tok/s" in out and "[serve] sample:" in out
+
+
+# -- shared pieces ---------------------------------------------------------------
+def test_common_pieces_match_reference():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 3, 16)).astype(np.float32)
+    w = (rng.standard_normal(16) * 0.1).astype(np.float32)
+    np.testing.assert_allclose(common.rms_norm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+                               np.asarray(jcommon.rms_norm(jnp.asarray(x), jnp.asarray(w))),
+                               rtol=1e-6, atol=1e-6)
+    for name in ("silu", "gelu", "relu"):
+        np.testing.assert_allclose(common.act_fn(name)(torch.from_numpy(x)).numpy(),
+                                   np.asarray(jcommon.act_fn(name)(jnp.asarray(x))),
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(common.softcap(torch.from_numpy(x) * 40, 30.0).numpy(),
+                               np.asarray(jcommon.softcap(jnp.asarray(x) * 40, 30.0)),
+                               rtol=1e-6, atol=1e-5)
+    table = rng.standard_normal((10, 16)).astype(np.float32)
+    ids = np.array([[1, 9, 3]], np.int32)
+    np.testing.assert_array_equal(
+        common.embed_lookup(torch.from_numpy(table), torch.from_numpy(ids), torch.bfloat16).float().numpy(),
+        np.asarray(jcommon.embed_lookup(jnp.asarray(table), jnp.asarray(ids), jnp.bfloat16), np.float32))
+    head = rng.standard_normal((16, 10)).astype(np.float32)
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        a = common.unembed(torch.from_numpy(x).to(dt), torch.from_numpy(head))
+        b = jcommon.unembed(jnp.asarray(x, jdt), jnp.asarray(head))
+        assert a.dtype == dt
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32),
+                                   rtol=1e-5 if dt == torch.float32 else 1e-2, atol=1e-5)

@@ -182,3 +182,60 @@ def test_non_cpu_non_cuda_tensor_raises():
         quant_epitome_matmul_blocks(x, q, s, s, cb, bk=8, bn=8)
     with pytest.raises(ValueError, match="CUDA"):
         quant_epitome_matmul_fused_fold(x, q, s, s, cb, cb, bm=8, bk=8, bn=8)
+
+
+# rows-only folding at CR 4 (the LM's projections, cut in width) and a wrap
+BF16_SPECS = [(1024, 512, 256, 512, 256, 256), SPECS[1]]
+BF16 = dict(rtol=2e-2, atol=2e-2)       # tests/test_kernels.py:17-18
+
+
+@pytest.mark.parametrize("args", BF16_SPECS)
+def test_bf16_quant_epitome_matmul_vs_pallas_interpret(args, pallas_compat):
+    """A bfloat16 activation through the port's plain path and the
+    reference's Pallas kernel in interpret mode: both return bfloat16."""
+    js, ts, E, x = _case(args, T=12)
+    jp = jops.pack_epitome(jnp.asarray(E), js, jq.QuantConfig(bits=3))
+    tp = tops.pack_epitome(torch.from_numpy(E), ts, tq.QuantConfig(bits=3))
+    y = tops.quant_epitome_matmul(torch.from_numpy(x).bfloat16(), None, ts, packed=tp)
+    ref = jops.quant_epitome_matmul(jnp.asarray(x, jnp.bfloat16), None, js, packed=jp,
+                                    interpret=True)
+    assert y.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(ref, np.float32), **BF16)
+
+
+def test_bf16_fold_sums_in_float32_and_rounds_once():
+    js, ts, _, x = _case(BF16_SPECS[0], T=9)
+    xb = torch.from_numpy(x).bfloat16()
+    folded = tops.fold_rows(xb, ts)
+    assert folded.dtype == torch.bfloat16
+    assert torch.equal(folded, tops.fold_rows(xb.float(), ts).bfloat16())
+    ref = jops.fold_rows(jnp.asarray(x, jnp.bfloat16), js)       # bf16 segment_sum
+    np.testing.assert_allclose(folded.float().numpy(), np.asarray(ref, np.float32), **BF16)
+
+
+def test_bf16_plain_blocks_round_a_float32_product_once():
+    js, ts, E, x = _case(SPECS[0], T=6)
+    p = tops.pack_epitome(torch.from_numpy(E), ts, tq.QuantConfig(bits=3))
+    cb = tops.kernel_col_blocks(ts)
+    folded = tops.fold_rows(torch.from_numpy(x), ts).bfloat16()
+    y = quant_epitome_matmul_blocks(folded, p.q, p.scales, p.zeros, cb, bk=p.bk, bn=p.bn)
+    f32 = quant_epitome_matmul_blocks(folded.float(), p.q, p.scales, p.zeros, cb,
+                                      bk=p.bk, bn=p.bn)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, f32.bfloat16())
+
+
+@pytest.mark.parametrize("args", SPECS)
+def test_fold_table_gathers_every_virtual_row_once(args):
+    """The gather-and-sum fold against a scatter-add of the same rows: each
+    virtual row lands in exactly one epitome row, in ascending order."""
+    js, ts, _, x = _case(args, T=7)
+    table = tops.fold_table(ts)
+    real = table[table < ts.M]
+    assert sorted(real.tolist()) == list(range(ts.M))
+    assert all((np.diff(r[r < ts.M]) > 0).all() for r in table)
+    assert (ts.row_index_map()[table[:, 0][table[:, 0] < ts.M]] ==
+            np.arange(ts.m)[table[:, 0] < ts.M]).all()
+    xt = torch.from_numpy(x).double()
+    scatter = xt.new_zeros(7, ts.m).index_add_(-1, torch.as_tensor(ts.row_index_map()), xt)
+    np.testing.assert_allclose(tops.fold_rows(torch.from_numpy(x), ts).numpy(),
+                               scatter.numpy(), rtol=1e-6, atol=1e-6)

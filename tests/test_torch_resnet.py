@@ -112,7 +112,7 @@ def test_fused_quant_model_refuses_training():
 
 
 def test_plan_driven_variants_wait_for_slice_2():
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="plan slice"):
         get_resnet("tiny-resnet", "evo-latency-q3", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="plan slice"):
         get_resnet("tiny-resnet", "kernel-q3", plan="plan.json", device="cpu")
