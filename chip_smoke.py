@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
-Two main paths, each at the full width of its model:
+Three main paths, each at the full width of its model:
 
 * EPIM-ResNet-50 at 3-bit epitome-aware quantization,
   ``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
@@ -11,7 +11,11 @@ Two main paths, each at the full width of its model:
 * serving rwkv6-7b at kernel-q3 in bf16, ``get_config("rwkv6-7b",
   "kernel-q3")`` -> ``lm.init_params`` -> ``lm.prepack_params`` ->
   ``serve.generate``: 32 layers, each 8 launches of the fused int8 kernel
-  per forward and one launch of the WKV kernel per prefill.
+  per forward and one launch of the WKV kernel per prefill;
+* a searched EPIM-ResNet-50 plan, ``get_resnet("resnet50",
+  "evo-latency-q3")``: the Algorithm-1 search legalized to the kernel-exact
+  families, 38 epitomized layers; and kernel #5, the dense int8
+  ``ops.quant_matmul``, at rwkv6-7b's projection shapes.
 
 Phases:
 
@@ -43,8 +47,22 @@ Phases:
 6. LM card vs CPU — the same config in float32 cut to 2 layers: prefill and
              decode logits and greedy tokens of one 80-token prompt on the
              card against the plain versions on the CPU.
-7. times   — each kernel's times and bound summed over the launches of
-             the main paths (one ResNet forward, one LM generate).
+7. quant_matmul — kernel #5 through ``ops.quant_matmul`` at rwkv6-7b's
+             three dense projection shapes, float32 and bf16, prefill and
+             decode rows, and a ragged T = 7 with leading dims: one launch
+             per call, held against its plain version, then timed; then at
+             the reference test's code scales, float32, each shape held
+             against the float64 product, no less accurate than cuBLAS.
+8. plan    — ``get_resnet("resnet50", "evo-latency-q3")``: the searched,
+             legalized plan saved under build/ and reloaded with ``plan=``
+             (identical per-layer configs); each of its kernel shapes against
+             the plain versions and timed; the batch-32 forward with exactly
+             38 launches of the int8 kernel, and the same plan with every
+             fold inside the kernel (38 launches of that kernel only), each
+             timed and held against the CPU at batch 2.
+9. times   — each kernel's times and bound summed over the launches of
+             the main paths (the ResNet forwards, one LM generate, the
+             quant_matmul calls).
 
 Any failure exits nonzero.  The line before the last is a JSON object
 listing the kernels; the last line is ``{"ok": true, "device": ...}``.
@@ -89,6 +107,9 @@ KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "wkv6_chunked": (
         "src/repro_torch/kernels/csrc/wkv6.cu",
         "src/repro/kernels/wkv6.py:58"),
+    "quant_matmul": (
+        "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "src/repro/kernels/quant_matmul.py:41"),
 }
 QUANT = "quant_epitome_matmul_blocks"
 
@@ -143,7 +164,10 @@ def device_breakdown(torch, fn) -> list:
 
 
 def max_err(torch, y, ref, tol: float, what: str) -> float:
-    y, ref = y.float(), ref.float()
+    """Largest |y - ref|; raises if y is not finite or any element is past
+    tol + tol |ref|.  Compares in float32, or in float64 for a float64 ref."""
+    dt = torch.float64 if ref.dtype == torch.float64 else torch.float32
+    y, ref = y.to(dt), ref.to(dt)
     err = (y - ref).abs()
     bad = err > tol + tol * ref.abs()
     if not torch.isfinite(y).all() or bool(bad.any()):
@@ -226,52 +250,12 @@ def main() -> int:
     launches, forwards = {}, []
     for variant, tuned, kernel in paths:
         label = variant + ("+fused_fold" if tuned else "")
-        model = get_resnet("resnet50", variant, tuned=tuned).init(
-            torch.Generator().manual_seed(SEED)).prepack()
-        with torch.no_grad():
-            reset_launch_counts()
-            logits = model.apply(images)
-            torch.cuda.synchronize()
-            counts = launch_counts()
-            expect = {k: (45 if k == kernel else 0) for k in counts}
-            if counts != expect:
-                raise AssertionError(f"{label}: launches {counts}, expected {expect}")
-            if logits.shape != (BATCH, 1000) or not torch.isfinite(logits).all():
-                raise AssertionError(f"{label}: logits {tuple(logits.shape)} not finite")
-            launches[kernel] = counts[kernel]
-            times, host = [], []
-            torch.cuda.reset_peak_memory_stats()
-            for _ in range(5):
-                t0 = time.perf_counter()
-                model.apply(images)
-                host.append(1e3 * (time.perf_counter() - t0))   # until apply returns
-                torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - t0))
-            peak = torch.cuda.max_memory_allocated()
-            breakdown = device_breakdown(torch, lambda: model.apply(images))
-            y2 = model.apply(small).cpu()
-            cpu = get_resnet("resnet50", variant, tuned=tuned, device="cpu").load_params(
-                _to_cpu(model.params()))
-            r2 = cpu.apply(small.cpu())
-        scale = max(1.0, float(r2.abs().max()))
-        err = float((y2 - r2).abs().max())
-        if not err <= LOGIT_TOL * scale:
-            raise AssertionError(f"{label}: batch-2 logits on the card differ from the "
-                                 f"CPU by {err:.3e} (> {LOGIT_TOL} * {scale:.3f})")
-        fwd = dict(path=label, kernel=kernel, launches=counts[kernel],
-                   forward_ms_median=statistics.median(times), forward_ms=times,
-                   host_ms=host, device_breakdown=breakdown,
-                   peak_bytes=peak, logits_max_abs=float(logits.abs().max()),
-                   b2_card_vs_cpu_max_abs_err=err, b2_ref_max_abs=scale)
+        fwd = resnet_forward(
+            torch, label, lambda device: get_resnet("resnet50", variant, tuned=tuned,
+                                                    device=device),
+            kernel, 45, images, small, launch_counts, reset_launch_counts)
+        launches[kernel] = fwd["launches"]
         forwards.append(fwd)
-        log(f"[forward] {label}: {kernel} launches={counts[kernel]} "
-            f"b{BATCH} forward median {fwd['forward_ms_median']:.2f} ms "
-            f"(runs {', '.join(f'{t:.2f}' for t in times)}; host returns after "
-            f"{statistics.median(host):.2f}) peak {peak / 2**30:.2f} GiB; "
-            f"b2 card vs cpu max|dy|={err:.3e} (max|y|={scale:.3f})")
-        for name, ms, n in breakdown[:8]:
-            log(f"[profile] {label}: {ms:9.3f} ms  x{n:<4d} {name[:90]}")
-        del model, cpu
     torch.cuda.empty_cache()
     report["resnet_s"] = time.perf_counter() - t_start
 
@@ -290,7 +274,26 @@ def main() -> int:
     lm_cpu = lm_card_vs_cpu(torch, dev, lm, get_config)
     report["lm_s"] = time.perf_counter() - t_start - report["resnet_s"]
 
-    # -- 7. times per kernel, summed over the main paths' launches -----------
+    # -- 7. kernel #5 through ops.quant_matmul --------------------------------
+    t0 = time.perf_counter()
+    qm_rows, qm_f64 = quant_matmul_phase(torch, dev, gen, ops, ref, WRAPPERS,
+                                          launch_counts, reset_launch_counts)
+    rows += qm_rows
+    launches["quant_matmul"] = sum(r["count"] for r in qm_rows)
+    torch.cuda.empty_cache()
+    report["quant_matmul_s"] = time.perf_counter() - t0
+
+    # -- 8. a searched plan drives the ResNet path -----------------------------
+    t0 = time.perf_counter()
+    plan_rows, plan_run = plan_phase(torch, dev, gen, ops, ref, WRAPPERS, get_resnet,
+                                     images, small, launch_counts, reset_launch_counts)
+    rows += plan_rows
+    for fwd in plan_run["forwards"]:
+        launches[fwd["kernel"]] += fwd["launches"]
+    forwards += plan_run["forwards"]
+    report["plan_s"] = time.perf_counter() - t0
+
+    # -- 9. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
@@ -326,18 +329,76 @@ def main() -> int:
                         f"{_ms(v['library_ms'])})" for p, v in paths_of.items()))
 
     report.update(kernels=summary, shapes=rows, forwards=forwards, lm=lm_run,
-                  lm_card_vs_cpu=lm_cpu, fold_probe=fold, total_s=time.perf_counter() - t_start,
-                  card_end=card_line())
+                  lm_card_vs_cpu=lm_cpu, fold_probe=fold, plan=plan_run["plan"],
+                  quant_matmul_vs_f64=qm_f64,
+                  total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['total_s']:.1f} s (ResNet {report['resnet_s']:.1f}, "
-        f"LM {report['lm_s']:.1f})")
+        f"LM {report['lm_s']:.1f}, quant_matmul {report['quant_matmul_s']:.1f}, "
+        f"plan {report['plan_s']:.1f})")
     log(report["card_end"])
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def resnet_forward(torch, label, build, kernel, n_launches, images, small,
+                   launch_counts, reset_launch_counts, repeats: int = 5) -> dict:
+    """One ResNet-50 path at full width: ``build(device)`` gives the model,
+    initialized from SEED and prepacked on the card; one batch forward must
+    launch ``kernel`` exactly ``n_launches`` times and nothing else, then
+    the forward is timed and profiled, and batch-2 logits on the card are
+    held against the CPU (plain versions) at LOGIT_TOL."""
+    model = build(images.device).init(torch.Generator().manual_seed(SEED)).prepack()
+    with torch.no_grad():
+        reset_launch_counts()
+        logits = model.apply(images)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect = {k: (n_launches if k == kernel else 0) for k in counts}
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected {expect}")
+        if logits.shape != (BATCH, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{label}: logits {tuple(logits.shape)} not finite")
+        times, host = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            model.apply(images)
+            host.append(1e3 * (time.perf_counter() - t0))   # until apply returns
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        breakdown = device_breakdown(torch, lambda: model.apply(images))
+        y2 = model.apply(small).cpu()
+        cpu = build("cpu").load_params(_to_cpu(model.params()))
+        r2 = cpu.apply(small.cpu())
+    scale = max(1.0, float(r2.abs().max()))
+    err = float((y2 - r2).abs().max())
+    if not err <= LOGIT_TOL * scale:
+        raise AssertionError(f"{label}: batch-2 logits on the card differ from the "
+                             f"CPU by {err:.3e} (> {LOGIT_TOL} * {scale:.3f})")
+    fwd = dict(path=label, kernel=kernel, launches=counts[kernel],
+               forward_ms_median=statistics.median(times), forward_ms=times,
+               host_ms=host, device_breakdown=breakdown,
+               device_busy_ms=sum(ms for _, ms, _ in breakdown),
+               device_kernels=sum(n for _, _, n in breakdown),
+               peak_bytes=peak, logits_max_abs=float(logits.abs().max()),
+               b2_card_vs_cpu_max_abs_err=err, b2_ref_max_abs=scale)
+    log(f"[forward] {label}: {kernel} launches={counts[kernel]} "
+        f"b{BATCH} forward median {fwd['forward_ms_median']:.2f} ms "
+        f"(runs {', '.join(f'{t:.2f}' for t in times)}; host returns after "
+        f"{statistics.median(host):.2f}) peak {peak / 2**30:.2f} GiB; device busy "
+        f"{fwd['device_busy_ms']:.2f} ms in {fwd['device_kernels']} kernels; "
+        f"b2 card vs cpu max|dy|={err:.3e} (max|y|={scale:.3f})")
+    for name, ms, n in breakdown[:8]:
+        log(f"[profile] {label}: {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+    del model, cpu
+    torch.cuda.empty_cache()
+    return fwd
 
 
 def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
@@ -628,10 +689,205 @@ def lm_card_vs_cpu(torch, dev, lm, get_config) -> dict:
     return dict(steps=steps, tokens=[int(t) for t in ref_toks], cpu_s=cpu_s)
 
 
-def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T):
-    """The three kernels at one main-path shape: each against its plain
-    version on the same inputs, then timed beside its plain version and the
-    yardstick, with the least time the card could take."""
+QM_SHAPES = ((4096, 4096), (4096, 14336), (14336, 4096))   # rwkv6-7b's projections
+QM_ROWS = (LM_REQUESTS * LM_PROMPT, LM_REQUESTS)             # prefill and decode rows
+# the phase's weights at the scale of a model's layer, std about 1/sqrt(M) as
+# the LM rows draw E (randn / sqrt(M)): a code std of 73.6 times a mean scale
+# of 5.5e-3, divided by this times sqrt(M)
+QM_CODE_STD = 73.6 * 5.5e-3
+
+
+def quant_matmul_phase(torch, dev, gen, ops, ref, wrappers, launch_counts,
+                       reset_launch_counts) -> tuple:
+    """Kernel #5's path, ``ops.quant_matmul``, at rwkv6-7b's three dense
+    projection shapes in float32 and bf16, at prefill and decode rows, and
+    one ragged T = 7 with leading dims, with weights at a layer's scale
+    (QM_CODE_STD): each call must launch the kernel once and nothing else,
+    and agree with the plain version on the same inputs; then the kernel
+    is timed beside its plain version, the yardstick (cuBLAS float32, TF32
+    off, on the pre-dequantized weight) and the bound.  Returns the rows
+    and the float64 check of ``quant_matmul_vs_f64``."""
+    from repro_torch.core.quant import dequantize_packed
+    cases = [(M, N, (T,), dt) for M, N in QM_SHAPES for T in QM_ROWS
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(4096, 4096, (1, 7), dt) for dt in (torch.float32, torch.bfloat16)]
+    rows, weights = [], {}
+    for M, N, lead, dtype in cases:
+        if (M, N) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            q, s, z = _codes(torch, dev, gen, M, N, QM_CODE_STD * math.sqrt(M))
+            W = dequantize_packed(q, s, z, (256, 256))                    # (q + z) * s
+            weights[(M, N)] = (q, s, z, W)
+        q, s, z, W = weights[(M, N)]
+        x = torch.randn(*lead, M, device=dev, generator=gen).to(dtype)
+        reset_launch_counts()
+        y = ops.quant_matmul(x, q, s, z)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect = {k: int(k == "quant_matmul") for k in counts}
+        if counts != expect:
+            raise AssertionError(f"ops.quant_matmul: launches {counts}, expected {expect}")
+        dname = str(dtype).replace("torch.", "")
+        T = x.numel() // M
+        if tuple(y.shape) != (*lead, N) or y.dtype != dtype:
+            raise AssertionError(f"quant_matmul: {tuple(y.shape)} {y.dtype} out")
+        tol = KERNEL_TOL if dtype == torch.float32 else BF16_TOL
+        err = max_err(torch, y, ref.quant_matmul_ref(x, q, s, z), tol,
+                      f"quant_matmul {dname} ({M},{N}) x{tuple(x.shape)}")
+        xp, _ = ops._pad_rows(x.reshape(-1, M))     # what ops hands the kernel
+        xp = xp.contiguous()
+        xf = xp.float()
+        esz = x.element_size()
+        nbytes = esz * T * M + M * N + 8.0 * s.numel() + esz * T * N
+        row = timed_row(torch, "quant_matmul",
+                        lambda: wrappers["quant_matmul"](xp, q, s, z),
+                        lambda: ref.quant_matmul_ref(xp, q, s, z),
+                        lambda: torch.matmul(xf, W), nbytes, 2.0 * T * M * N)
+        row.update(M=M, N=N, T=T, x_shape=list(x.shape), dtype=dname, max_abs_err=err,
+                   path="quant_matmul", count=1)
+        rows.append(row)
+        log(f"[quant_matmul] {dname} ({M},{N}) x{tuple(x.shape)}: launches 1, "
+            f"max_err={err:.2e} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']})")
+    return rows, quant_matmul_vs_f64(torch, dev, gen, ref, wrappers)
+
+
+def _codes(torch, dev, gen, M, N, s_div):
+    """int8 codes over the whole range, zeros round(U(-3, 3)) and scales
+    U(1e-3, 1e-2) / s_div per 256 x 256 tile, as tests/test_kernels.py:101-104
+    draws them for s_div = 1."""
+    q = torch.randint(-127, 128, (M, N), device=dev, generator=gen, dtype=torch.int8)
+    s = (torch.rand(M // 256, N // 256, device=dev, generator=gen) * 9e-3 + 1e-3) / s_div
+    z = torch.round(torch.rand(M // 256, N // 256, device=dev, generator=gen) * 6 - 3)
+    return q, s, z
+
+
+def quant_matmul_vs_f64(torch, dev, gen, ref, wrappers) -> list:
+    """Kernel #5 and its plain version, each against the float64 product of
+    the same float32 inputs, at the reference test's code scales (s_div = 1,
+    outputs up to ~240) in float32, at each of rwkv6-7b's projection shapes
+    and at prefill and decode rows.  Gated: every element of the kernel
+    within the reference's tolerance of the float64 product, and the
+    kernel's largest error no larger than the plain version's (cuBLAS), so
+    that its fp32 sum order is held to the library's accuracy.  These are
+    comparison launches and count for no path."""
+    from repro_torch.core.quant import dequantize_packed
+    out = []
+    for M, N in QM_SHAPES:
+        torch.cuda.empty_cache()
+        q, s, z = _codes(torch, dev, gen, M, N, 1.0)
+        W64 = dequantize_packed(q, s, z, (256, 256)).double()
+        for T in QM_ROWS:
+            x = torch.randn(T, M, device=dev, generator=gen)
+            y, plain = wrappers["quant_matmul"](x, q, s, z), ref.quant_matmul_ref(x, q, s, z)
+            exact = x.double() @ W64
+            what = f"quant_matmul float32 ({M},{N}) T={T} against float64"
+            kernel_err = max_err(torch, y, exact, KERNEL_TOL, what)
+            plain_err = float((plain.double() - exact).abs().max())
+            row = dict(M=M, N=N, T=T, max_abs_ref=float(exact.abs().max()),
+                       kernel_vs_f64=kernel_err, plain_vs_f64=plain_err,
+                       ratio=kernel_err / plain_err,
+                       kernel_rms_vs_f64=float((y.double() - exact).pow(2).mean().sqrt()),
+                       plain_rms_vs_f64=float((plain.double() - exact).pow(2).mean().sqrt()),
+                       kernel_vs_plain=float((y - plain).abs().max()))
+            log(f"[quant_matmul] {what} (max|y| {row['max_abs_ref']:.1f}): max error "
+                f"kernel {kernel_err:.3e}, plain {plain_err:.3e} (ratio {row['ratio']:.3f}); "
+                f"rms kernel {row['kernel_rms_vs_f64']:.3e}, plain "
+                f"{row['plain_rms_vs_f64']:.3e}; kernel vs plain {row['kernel_vs_plain']:.3e}")
+            if kernel_err > plain_err:
+                raise AssertionError(f"{what}: the kernel's max error {kernel_err:.3e} "
+                                     f"exceeds the plain version's {plain_err:.3e}")
+            out.append(row)
+        del q, s, z, W64
+    return out
+
+
+def plan_phase(torch, dev, gen, ops, ref, wrappers, get_resnet, images, small,
+               launch_counts, reset_launch_counts) -> tuple:
+    """A searched plan drives the ResNet path: ``get_resnet("resnet50",
+    "evo-latency-q3")`` (Algorithm-1 search, legalized), its plan saved
+    under build/ and reloaded with ``plan=``, which must give identical
+    per-layer configs; every kernel shape of the plan checked against its
+    plain version and timed; then the batch-32 forward with one launch of
+    kernel #1 per epitomized layer, and the same plan with a tuned_blocks
+    provenance that folds inside the kernel on every epitomized layer
+    (kernel #2 only)."""
+    import dataclasses
+    from repro_torch.configs.registry import _evo_variant
+    from repro_torch.core.quant import QuantConfig
+    t0 = time.perf_counter()
+    searched = get_resnet("resnet50", "evo-latency-q3", device="cpu")
+    plan = _evo_variant("resnet50", "evo-latency-q3")
+    search_s = time.perf_counter() - t0
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    path = out / "plan_resnet50_evo-latency-q3.json"
+    plan.save(str(path))
+    reloaded = get_resnet("resnet50", plan=str(path), device="cpu")
+    if reloaded.cfgs != searched.cfgs or reloaded.specs != searched.specs:
+        raise AssertionError("the reloaded plan builds other per-layer configs")
+    n_ep = plan.n_epitomized
+    if n_ep != 38 or plan.uniform_mode() != "kernel" or set(plan.bits()) != {3}:
+        raise AssertionError(f"evo-latency-q3: {n_ep} epitomized layers, mode "
+                             f"{plan.uniform_mode()}, bits {set(plan.bits())}")
+    shapes = {}
+    for l, spec in zip(searched.layers, searched.specs):
+        if spec is not None:
+            T = BATCH * (l.out_hw ** 2 if l.kind == "conv" else 1)
+            shapes.setdefault((spec, T), []).append(l.name)
+    # the same plan, folding inside the kernel on every epitomized layer:
+    # the heuristic blocks, written as a tuner would write them
+    tuned = {}
+    for (spec, T), names in shapes.items():
+        bk, bn = ops.pack_blocks(spec, QuantConfig(bits=3))
+        for n in names:
+            tuned[n] = {"bt": ops._pick_bt(T), "bk": bk, "bn": bn, "fused_fold": True}
+    fused_plan = dataclasses.replace(plan, provenance={**plan.provenance,
+                                                        "tuned_blocks": tuned})
+    fused_path = out / "plan_resnet50_evo-latency-q3_fused_fold.json"
+    fused_plan.save(str(fused_path))
+    log(f"[plan] resnet50 evo-latency-q3: searched and legalized in {search_s:.2f} s; "
+        f"{n_ep} epitomized of {len(plan.layers)} layers in {len(shapes)} kernel shapes, "
+        f"snap error max {plan.snap_err_max:.3f}; best_curve "
+        f"{plan.provenance['best_curve'][0]:.4f} -> {plan.provenance['best_curve'][-1]:.4f}; "
+        f"predicted {plan.predicted['latency_s'] * 1e3:.3f} ms / "
+        f"{plan.predicted['energy_j'] * 1e3:.3f} mJ / {plan.predicted['xbars']} XBs; "
+        f"saved {path.relative_to(ROOT)}, reloaded with identical per-layer configs")
+    rows = []
+    for (spec, T), names in shapes.items():
+        for r in check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T,
+                                names=(QUANT, "quant_epitome_matmul_fused_fold")):
+            r.update(layers=names, count=len(names), path="resnet50 evo-latency-q3")
+            rows.append(r)
+            log(f"[plan-kernels] {r['kernel']} ({spec.M},{spec.N})->({spec.m},{spec.n}) "
+                f"bm={spec.bm} bn={spec.bn} T={T} bk={r['pack_bk']} x{len(names)}: "
+                f"max_err={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+        torch.cuda.empty_cache()
+    forwards = [
+        resnet_forward(torch, "evo-latency-q3",
+                       lambda device: get_resnet("resnet50", plan=str(path), device=device),
+                       QUANT, n_ep, images, small, launch_counts, reset_launch_counts),
+        resnet_forward(torch, "evo-latency-q3+fused_fold",
+                       lambda device: get_resnet("resnet50", plan=str(fused_path),
+                                                 device=device),
+                       "quant_epitome_matmul_fused_fold", n_ep, images, small,
+                       launch_counts, reset_launch_counts)]
+    info = dict(search_s=search_s, n_epitomized=n_ep, n_layers=len(plan.layers),
+                kernel_shapes=len(shapes), snap_err_max=plan.snap_err_max,
+                predicted=plan.predicted, best_curve=plan.provenance["best_curve"],
+                plan_path=str(path.relative_to(ROOT)))
+    return rows, dict(plan=info, forwards=forwards)
+
+
+def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T, names=None):
+    """The three kernels (or those in ``names``) at one main-path shape:
+    each against its plain version on the same inputs, then timed beside its
+    plain version and the yardstick, with the least time the card could
+    take."""
     from repro_torch.core.quant import QuantConfig, dequantize_packed
     E = torch.randn(spec.m, spec.n, device=dev, generator=gen) / math.sqrt(spec.M)
     x = torch.randn(T, spec.M, device=dev, generator=gen)
@@ -679,6 +935,8 @@ def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T):
             "epitome_matmul_blocks": (4.0 * (ffold.numel() + fE.numel() + gn) + out_b, flops)}
     rows = []
     for name, (kernel, plain, library) in calls.items():
+        if names is not None and name not in names:
+            continue
         err = max_err(torch, kernel(), plain(), KERNEL_TOL, f"{name} {spec} T={T}")
         t_bytes = work[name][0] / HBM_BYTES_S * 1e3
         t_ops = work[name][1] / FP32_FLOPS * 1e3

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 from ..models.config import EpitomeSettings, ModelConfig
 from .archs import BUILDERS
@@ -33,11 +34,37 @@ def epitome_settings(variant: str) -> EpitomeSettings:
     }[variant]
 
 
-def _no_plans(plan, epitome: str) -> None:
-    if plan is not None or epitome.startswith("evo-"):
-        raise NotImplementedError(
-            "plan-driven models (plan=, evo-* variants) come with the plan "
-            "slice of the port: the EpitomePlan stack is not ported yet")
+@functools.lru_cache(maxsize=None)
+def _evo_variant(arch: str, epitome: str):
+    """Plan-pipeline registry names: ``evo-<objective>[-q<bits>]`` (e.g.
+    ``evo-latency-q3``) runs the Algorithm-1 search, legalizes the result
+    to the kernel-exact families, and returns that plan.  Cached: the
+    search is deterministic under its fixed seed."""
+    from ..pim.evo import EvoConfig
+    from ..pim.plan import legalize_plan, search_plan
+    parts = epitome[len("evo-"):].split("-")
+    bits = None
+    if parts and parts[-1].startswith("q") and parts[-1][1:].isdigit():
+        bits = int(parts.pop()[1:])
+    objective = "-".join(parts)
+    if objective not in ("latency", "energy", "edp"):
+        raise KeyError(f"unknown evo variant {epitome!r} "
+                       "(expected evo-{latency|energy|edp}[-q<bits>])")
+    plan = search_plan(arch, objective=objective, weight_bits=bits,
+                       act_bits=9 if bits else None,
+                       evo=EvoConfig(population=16, iterations=8, seed=0))
+    return legalize_plan(plan)
+
+
+def _load_plan(plan, expected_arch: str):
+    """An EpitomePlan, or one loaded from a saved plan JSON path, checked
+    to target ``expected_arch``."""
+    from ..pim.plan import EpitomePlan
+    if isinstance(plan, str):
+        plan = EpitomePlan.load(plan)
+    if plan.arch != expected_arch:
+        raise ValueError(f"plan is for {plan.arch!r}, requested {expected_arch!r}")
+    return plan
 
 
 RESNET_ARCHS = ("tiny-resnet", "resnet50", "resnet101")
@@ -51,12 +78,19 @@ def get_resnet(arch: str = "tiny-resnet", epitome: str = "off", plan=None, *,
     tiny-resnet plans (8, 8) patches at CR 2 so its reduced layers still
     epitomize; the full networks use crossbar-sized (256, 256) patches at
     the variant's target CR.  Other keywords (``tuned=``) go to
-    ResNetModel."""
-    from ..models.resnet import resnet50, resnet101, tiny_resnet
+    ResNetModel.
+
+    Plan pipeline entry points: ``plan=`` (an EpitomePlan or a saved plan
+    JSON path) builds exactly that design, and ``epitome="evo-latency-q3"``
+    etc. build the searched and legalized design (``_evo_variant``)."""
+    from ..models.resnet import ResNetModel, resnet50, resnet101, tiny_resnet
     from ..pim.plan import plan_conv_specs
     from ..pim.workloads import (resnet50_layers, resnet101_layers,
                                  tiny_resnet_layers)
-    _no_plans(plan, epitome)
+    if plan is not None:
+        return ResNetModel.from_plan(_load_plan(plan, arch), device=device, **kw)
+    if epitome.startswith("evo-"):
+        return ResNetModel.from_plan(_evo_variant(arch, epitome), device=device, **kw)
     build, inventory = {
         "tiny-resnet": (tiny_resnet, tiny_resnet_layers),
         "resnet50": (resnet50, resnet50_layers),
@@ -71,13 +105,34 @@ def get_resnet(arch: str = "tiny-resnet", epitome: str = "off", plan=None, *,
     return build(specs, quant_bits=ep.quant_bits, mode=ep.mode, device=device, **kw)
 
 
+def _plan_layer_config(plan, expected_arch: str):
+    """Load and check an LM EpitomePlan for ``ModelConfig.layer_config``.
+    Kernel-mode specs must be kernel-exact (bn-aligned): a searched but
+    unlegalized plan would sample snapped, inexact geometry in the fused
+    kernels, so it is refused with a pointer at the legalizer."""
+    from ..pim.plan import is_kernel_exact
+    plan = _load_plan(plan, expected_arch)
+    for lp in plan.layers:
+        if lp.spec is not None and lp.mode == "kernel" \
+                and not is_kernel_exact(lp.spec):
+            raise ValueError(
+                f"plan layer {lp.name!r} spec is not kernel-exact; run "
+                f"`python -m repro_torch.launch.plan legalize` before "
+                f"building a model from it")
+    return plan.layer_configs()
+
+
 def get_config(arch: str, epitome: str = "off", plan=None,
                **overrides) -> ModelConfig:
     """The full published config of ``arch`` with a named epitome variant;
     ``overrides`` replace fields (e.g. ``compute_dtype="float32"``,
-    ``n_layers=2``)."""
-    _no_plans(plan, epitome)
+    ``n_layers=2``).  ``plan`` (an EpitomePlan or plan JSON path for this
+    arch) installs per-layer {spec, bits, mode} through
+    ``ModelConfig.layer_config``; the variant then governs only layers the
+    plan does not name."""
     cfg = BUILDERS[arch](epitome_settings(epitome))
+    if plan is not None:
+        cfg = dataclasses.replace(cfg, layer_config=_plan_layer_config(plan, arch))
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
@@ -87,15 +142,18 @@ def get_smoke_config(arch: str, epitome: str = "off",
                      plan=None) -> ModelConfig:
     """Reduced same-family config: two super-block repeats, narrow dims,
     with small epitomes still planned (min_params 0, CR 2, 32 x 32
-    patches)."""
-    _no_plans(plan, epitome)
+    patches).  ``plan`` must target the matching '<arch>-smoke' plan
+    arch."""
     full = get_config(arch, epitome)
     ep = epitome_settings(epitome)
     if ep.enabled:
         ep = dataclasses.replace(ep, min_params=0, target_cr=2.0, patch=(32, 32))
+    layer_config = ()
+    if plan is not None:
+        layer_config = _plan_layer_config(plan, f"{arch}-smoke")
     return dataclasses.replace(
         full,
-        layer_config=(),
+        layer_config=layer_config,
         n_layers=2 * len(full.pattern),
         d_model=64,
         n_heads=4,

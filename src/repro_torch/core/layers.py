@@ -32,6 +32,7 @@ from ..kernels.ops import (PackedEpitome, epitome_matmul, pack_blocks,
                            pack_epitome, quant_epitome_matmul)
 from .epitome import (EpitomeSpec, epitome_matmul_ref, folded_matmul,
                       init_epitome, reconstruct, wrapped_matmul)
+from .placement import LayerPlacement
 from .quant import QuantConfig, dequantize_packed, fake_quant
 
 
@@ -41,6 +42,7 @@ class EpLayerConfig:
     spec: Optional[EpitomeSpec] = None       # None -> dense layer
     mode: str = "wrapped"                    # reconstruct | wrapped | folded | kernel
     quant: Optional[QuantConfig] = None      # None -> fp weights
+    placement: Optional[LayerPlacement] = None   # carried from the plan; None -> role default
     # autotuned kernel blocks (bt, bk, bn); None -> the ops.py heuristics.
     # fused_fold selects the kernel that folds the activation itself.
     blocks: Optional[Tuple[int, int, int]] = None

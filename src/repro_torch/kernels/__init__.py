@@ -9,6 +9,9 @@ quant_epitome_matmul  — the same over int8 codes with per-block (scale,
                         (``csrc/quant_epitome_matmul{,_bf16}.cu``)
 wkv6                  — the chunked RWKV6 WKV with a carried state
                         (``csrc/wkv6.cu``)
+quant_matmul          — a dense int8 dequant matmul with one (scale, zero)
+                        per 256 x 256 crossbar tile, float32 or bfloat16
+                        activations (``csrc/quant_matmul.cu``)
 ref                   — the plain PyTorch version of each kernel
 ops                   — the public wrappers: fold, block picks, padding, trim
 
@@ -20,6 +23,7 @@ them to 0.  The sources are compiled with nvcc at first use
 from .epitome_matmul import epitome_matmul_blocks
 from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
                                    quant_epitome_matmul_fused_fold)
+from .quant_matmul import quant_matmul
 from .wkv6 import wkv6_chunked
 
 KERNELS = {
@@ -27,6 +31,7 @@ KERNELS = {
     "quant_epitome_matmul_fused_fold": quant_epitome_matmul_fused_fold,
     "epitome_matmul_blocks": epitome_matmul_blocks,
     "wkv6_chunked": wkv6_chunked,
+    "quant_matmul": quant_matmul,
 }
 
 

@@ -40,6 +40,10 @@ LIBRARIES = {
     "quant_epitome_matmul_bf16": ("quant_epitome_matmul_bf16.cu", {
         "quant_epitome_matmul_blocks_bf16_launch": [_P] * 6 + [_I] * 7 + [_P],
     }),
+    "quant_matmul": ("quant_matmul.cu", {
+        "quant_matmul_launch": [_P] * 5 + [_I] * 3 + [_P],
+        "quant_matmul_bf16_launch": [_P] * 5 + [_I] * 3 + [_P],
+    }),
     "wkv6": ("wkv6.cu", {
         "wkv6_chunked_launch": [_P] * 8 + [_I] * 5 + [_P],
     }),

@@ -25,6 +25,7 @@ from ..core.quant import QuantConfig, quantize_epitome_packed
 from .epitome_matmul import epitome_matmul_blocks
 from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
                                    quant_epitome_matmul_fused_fold)
+from .quant_matmul import quant_matmul as _quant_matmul
 from .wkv6 import wkv6_chunked
 
 
@@ -179,6 +180,20 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     f32 = lambda t: t.to(torch.float32).contiguous()
     return wkv6_chunked(f32(r), f32(k), f32(v), f32(logw), f32(u),
                         None if state is None else f32(state), chunk=chunk)
+
+
+def quant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                 zeros: torch.Tensor) -> torch.Tensor:
+    """x @ ((q + z) * s) with one (scale, zero) per 256 x 256 tile of the
+    (M, N) int8 codes.  Leading dims of x are free-form and flatten to
+    (T, M) rows, padded to the row block and trimmed back, as the
+    reference pads them."""
+    *lead, M = x.shape
+    x2 = x.reshape(-1, M)
+    T = x2.shape[0]
+    x2, _ = _pad_rows(x2)
+    y = _quant_matmul(x2.contiguous(), q, scales, zeros)
+    return y[:T].reshape(*lead, q.shape[1])
 
 
 # ---------------------------------------------------------------------------

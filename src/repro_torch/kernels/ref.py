@@ -35,6 +35,17 @@ def quant_epitome_matmul_blocks_ref(x_folded: torch.Tensor, q: torch.Tensor,
                                      col_blocks, bn).to(x_folded.dtype)
 
 
+def quant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                     zeros: torch.Tensor, tile: int = 256) -> torch.Tensor:
+    """x @ ((q + z) * s) with per-(tile x tile) scale/zero; the sum in
+    float32, the result in x's dtype."""
+    M, N = q.shape
+    s_full = scales.repeat_interleave(tile, 0).repeat_interleave(tile, 1)[:M, :N]
+    z_full = zeros.repeat_interleave(tile, 0).repeat_interleave(tile, 1)[:M, :N]
+    W = (q.to(torch.float32) + z_full) * s_full
+    return (x.to(torch.float32) @ W).to(x.dtype)
+
+
 def fold_blocks_ref(x: torch.Tensor, row_offsets, bm: int, m: int) -> torch.Tensor:
     """Fold the unfolded activation x (T, M) into epitome-row space (T, m):
     virtual row block i (rows [i*bm, (i+1)*bm), the last one possibly short)

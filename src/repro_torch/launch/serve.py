@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --epitome kernel-q3 --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --plan plan_legal.json --smoke --device cpu     # a '<arch>-smoke' plan
 
 (counterpart of ``repro.launch.serve``).  Parameters are drawn from
 ``--seed`` on the serving device and, for a kernel x quant variant such as
@@ -55,11 +57,15 @@ def generate(params, cfg, prompts: torch.Tensor, max_len: int, gen: int,
     return torch.cat(toks, dim=1), state
 
 
-def build_model(arch: str, epitome: str, smoke: bool, seed: int, device="cuda"):
+def build_model(arch: str, epitome: str, smoke: bool, seed: int, device="cuda",
+                plan=None):
     """(cfg, params) as the CLI serves them: drawn from ``seed`` on
-    ``device`` and prepacked when the variant runs the fused int8 kernel."""
+    ``device`` and prepacked when a layer runs the fused int8 kernel.
+    ``plan`` (an EpitomePlan or plan JSON path; arch '<arch>-smoke' with
+    ``smoke``) sets the per-layer specs, bits and modes."""
     from ..configs import get_config, get_smoke_config
-    cfg = get_smoke_config(arch, epitome) if smoke else get_config(arch, epitome)
+    cfg = (get_smoke_config(arch, epitome, plan=plan) if smoke
+           else get_config(arch, epitome, plan=plan))
     gen = torch.Generator(device=device).manual_seed(seed)
     params = lm.init_params(gen, cfg, device)
     if lm.needs_prepack(cfg):
@@ -72,6 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="rwkv6-7b")
     ap.add_argument("--epitome", default="off")
+    ap.add_argument("--plan", default="",
+                    help="EpitomePlan JSON driving per-layer epitome "
+                         "specs/bits/mode (arch '<arch>-smoke' with --smoke)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -86,7 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = torch.device(args.device)
-    cfg, params = build_model(args.arch, args.epitome, args.smoke, args.seed, device)
+    cfg, params = build_model(args.arch, args.epitome, args.smoke, args.seed, device,
+                              plan=args.plan or None)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),
                             generator=gen, device=device)
@@ -96,7 +106,7 @@ def main(argv=None):
                        temperature=args.temperature, generator=gen)
     toks = toks.cpu()          # waits for the device
     dt = time.perf_counter() - t0
-    print(f"[serve] {args.arch} epitome={args.epitome}"
+    print(f"[serve] {args.arch} epitome={args.plan or args.epitome}"
           f"{' (prepacked)' if lm.needs_prepack(cfg) else ''} on {device}: generated "
           f"{tuple(toks.shape)} in {dt:.2f}s "
           f"({args.requests * args.max_new_tokens / dt:.1f} tok/s)")

@@ -6,6 +6,10 @@ Layer geometry comes from the ``pim.workloads`` inventories, as in
 ladder via their im2col patch matrix — with mode="kernel" and 3-bit quant,
 every epitomized conv is one launch of the fused int8 kernel.
 
+Deployment designs arrive as ``pim.plan.EpitomePlan`` artifacts:
+``ResNetModel.from_plan`` builds exactly the plan's per-layer specs, bits
+and tuned blocks.
+
 The public layout is NHWC, as the reference's: ``apply`` takes
 (N, H, W, 3) images.  BatchNorm uses batch statistics with the population
 variance.
@@ -22,7 +26,7 @@ from ..core.epitome import EpitomeSpec
 from ..core.layers import (EpLayerConfig, apply_conv, apply_linear, init_conv,
                            init_linear, pad_nchw, prepack_linear)
 from ..core.quant import QuantConfig
-from ..pim.plan import plan_conv_specs
+from ..pim.plan import EpitomePlan, inventory_for, plan_conv_specs
 from ..pim.workloads import (LayerShape, resnet50_layers, resnet101_layers,
                              tiny_resnet_layers)
 
@@ -108,6 +112,20 @@ class ResNetModel(nn.Module):
         names = [l.name for l in self.layers if l.name not in ("conv1", "fc")]
         self._blocks: List[str] = sorted({n.rsplit(".", 1)[0] for n in names},
                                          key=lambda b: names.index(b + ".conv1"))
+
+    @classmethod
+    def from_plan(cls, plan: EpitomePlan, **kw) -> "ResNetModel":
+        """Build the model an EpitomePlan describes: specs, weight bits,
+        mode and tuned kernel blocks exactly as the plan records them (the
+        execute end of the plan -> legalize -> execute pipeline)."""
+        layers = inventory_for(plan.arch)()
+        names = [l.name for l in layers]
+        got = [lp.name for lp in plan.layers]
+        if names != got:
+            raise ValueError(f"plan layers {got} do not match the "
+                             f"{plan.arch} inventory {names}")
+        return cls(layers, plan.specs(), quant_bits=plan.bits(),
+                   mode=plan.uniform_mode(), tuned=plan.tuned_blocks(), **kw)
 
     # -- parameters ----------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None,

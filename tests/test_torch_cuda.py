@@ -210,3 +210,60 @@ def test_fold_repeats_bit_for_bit(cuda_device):
         assert all(torch.equal(ops.fold_rows(xd, spec), first) for _ in range(10))
         torch.testing.assert_close(first.cpu().float(), ops.fold_rows(xd.cpu(), spec).float(),
                                    **tol)
+
+
+def _quant_matmul_case(T, M, N, device, lead=()):
+    g = torch.Generator().manual_seed(M + N + T)
+    q = torch.randint(-127, 128, (M, N), generator=g, dtype=torch.int8)
+    s = torch.rand(M // 256, N // 256, generator=g) * 9e-3 + 1e-3
+    z = torch.round(torch.rand(M // 256, N // 256, generator=g) * 6 - 3)
+    x = torch.randn(*lead, T, M, generator=g)
+    return tuple(t.to(device) for t in (x, q, s, z))
+
+
+@pytest.mark.parametrize("T,M,N", [(8, 256, 256), (7, 512, 768), (130, 1024, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_kernel(T, M, N, dtype, cuda_device):
+    """Kernel #5 against its plain version on the card, through ops (rows
+    padded to the row block and trimmed), in x's dtype."""
+    x, q, s, z = _quant_matmul_case(T, M, N, cuda_device)
+    x = x.to(dtype)
+    reset_launch_counts()
+    y = ops.quant_matmul(x, q, s, z)
+    torch.cuda.synchronize()
+    assert launch_counts()["quant_matmul"] == 1 and y.dtype == dtype
+    torch.testing.assert_close(y.float(), ref.quant_matmul_ref(x, q, s, z).float(),
+                               **(TOL if dtype == torch.float32 else BF16))
+
+
+def test_quant_matmul_leading_dims_and_refusals(cuda_device):
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    x, q, s, z = _quant_matmul_case(5, 512, 256, cuda_device, lead=(2, 3))
+    y = ops.quant_matmul(x, q, s, z)
+    assert tuple(y.shape) == (2, 3, 5, 256)
+    torch.testing.assert_close(y.cpu(), ops.quant_matmul(*(t.cpu() for t in (x, q, s, z))),
+                               **TOL)
+    x2 = x.reshape(-1, 512)
+    with pytest.raises(ValueError, match="multiples of 256"):
+        quant_matmul(x2[:, :384].contiguous(), q[:384], s, z)
+    with pytest.raises(ValueError, match="scales/zeros"):
+        quant_matmul(x2, q, s[:1], z[:1])
+    with pytest.raises(ValueError, match="q is on cpu"):
+        quant_matmul(x2, q.cpu(), s, z)
+    with pytest.raises(TypeError, match="int8"):
+        quant_matmul(x2, q.float(), s, z)
+
+
+@pytest.mark.parametrize("T", [4, 256])
+def test_quant_matmul_long_contraction_vs_float64(T, cuda_device):
+    """At rwkv6-7b's longest contraction (M = 14336) and the reference
+    test's code scales, kernel #5 stays within the reference's fp32
+    tolerance of the float64 product and is no further from it than the
+    plain version (cuBLAS float32)."""
+    from repro_torch.core.quant import dequantize_packed
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    x, q, s, z = _quant_matmul_case(T, 14336, 1024, cuda_device)
+    exact = x.double() @ dequantize_packed(q, s, z, (256, 256)).double()
+    y, plain = quant_matmul(x, q, s, z), ref.quant_matmul_ref(x, q, s, z)
+    torch.testing.assert_close(y.double(), exact, **TOL)
+    assert (y.double() - exact).abs().max() <= (plain.double() - exact).abs().max()

@@ -164,8 +164,11 @@ def test_settings_warn_when_they_snap_a_spec():
 
 
 def test_plans_and_other_layer_kinds_wait_for_their_slices():
-    with pytest.raises(NotImplementedError, match="plan slice"):
-        get_config("rwkv6-7b", "kernel-q3", plan="plan.json")
+    # plans no longer wait: plan= installs the plan's per-site configs
+    plan = tplan.auto_plan("rwkv6-7b", target_cr=4.0, weight_bits=3)
+    cfg = get_config("rwkv6-7b", "off", plan=plan)
+    assert dict(cfg.layer_config) == dict(plan.layer_configs())
+    assert lm.lm_layer_configs(cfg)["L0/ffn/wv"] == dict(plan.layer_configs())["L0/ffn/wv"]
     g = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="attention slice"):
         lm.init_params(g, get_smoke_config("qwen2-72b"), "cpu")

@@ -112,7 +112,13 @@ def test_fused_quant_model_refuses_training():
 
 
 def test_plan_driven_variants_wait_for_slice_2():
-    with pytest.raises(NotImplementedError, match="plan slice"):
-        get_resnet("tiny-resnet", "evo-latency-q3", device="cpu")
-    with pytest.raises(NotImplementedError, match="plan slice"):
-        get_resnet("tiny-resnet", "kernel-q3", plan="plan.json", device="cpu")
+    """The plan-driven variants, which waited for the plan slice, now build:
+    an evo-* name runs the search and legalizer, and plan= takes the plan
+    itself (parity with the reference is in test_torch_plan.py)."""
+    from repro_torch.configs.registry import _evo_variant
+    m = get_resnet("tiny-resnet", "evo-latency-q3", device="cpu")
+    plan = _evo_variant("tiny-resnet", "evo-latency-q3")
+    assert m.specs == plan.specs() and m.mode == "kernel" and set(m.layer_bits) == {3}
+    assert get_resnet("tiny-resnet", "kernel-q3", plan=plan, device="cpu").specs == m.specs
+    with pytest.raises(KeyError, match="unknown evo variant"):
+        get_resnet("tiny-resnet", "evo-speed", device="cpu")
