@@ -20,24 +20,39 @@ Three main paths, each at the full width of its model:
 Phases:
 
 1. build   — nvcc builds the kernels from ``src/repro_torch/kernels/csrc``;
-             prints ptxas' registers and shared memory, and the card's name
-             and power limit as nvidia-smi gives them.
+             prints ptxas' registers, shared memory and spills, and the
+             card's name and power limit as nvidia-smi gives them.
 2. kernels — each of the three kernels at each of ResNet-50's 16 distinct
              kernel shapes (batch 32, 224x224) against its plain PyTorch
-             version on the card, then timed (CUDA events) beside its plain
-             version and the torch.matmul yardstick, with its bound.
+             version on the card, then timed beside its plain version and
+             the torch.matmul yardstick, with its bounds; kernel #1's rows
+             also time the fold (ops.fold_rows) that kernel #2 takes inside.
+             Kernel and yardstick times are device times: 20 calls captured
+             in a CUDA graph and replayed, timed by CUDA events (the eager
+             time, host included, is kept beside them); the plain version is
+             timed eagerly.  Bounds: the larger of the bytes over 3.35 TB/s
+             and the operations over the peak of their type, the bf16 tensor
+             cores (989 TFLOP/s) for the int8-code kernels #1, #2 and #5,
+             fp32 (67 TFLOP/s) for #3 and #4; the fp32-rate bound is kept
+             beside it for every kernel.
 3. forward — ResNet-50 kernel-q3, kernel and kernel-q3 with every layer's
              fold inside the kernel (fused_fold), from seeded weights at
              batch 32: each launch counter must rise by exactly 45 per
              forward; then the same model at batch 2 on the card against
              the plain versions on the CPU.
-   The batch-32 forward is timed and its peak memory recorded.
+   The batch-32 forward is timed and its peak memory recorded; the batch-2
+   check of kernel-q3, unfused and fused, is made again at four more seeds
+   (weights and images) and its largest reading and margin logged.
 4. LM kernels — the int8 kernel in bf16 and float32 at rwkv6-7b's three
              projection shapes, at prefill rows (4 x 256) and decode rows
              (4), and the WKV kernel at 4 x 256 tokens x 64 heads of 64 from
              a non-zero state, each against its plain version and timed;
-             the WKV kernel under strong decay (log w = -20) must stay
-             finite.
+             the bf16 rows also against a bf16 yardstick (bf16 x times the
+             bf16-dequantized weight); the decode rows three times bit for
+             bit, and timed L2-cold too (over copies of the codes and of the
+             yardstick's weight past 64 MB, as a decode step reads 256
+             distinct weights); the WKV kernel under strong decay (log w =
+             -20) must stay finite.
 5. LM path — rwkv6-7b kernel-q3 (bf16, 32 layers, full width) from seeded
              weights on the card: generate 32 greedy tokens for 4 prompts
              of 256 with exactly 8192 launches of the int8 kernel and 32 of
@@ -60,9 +75,10 @@ Phases:
              38 launches of the int8 kernel, and the same plan with every
              fold inside the kernel (38 launches of that kernel only), each
              timed and held against the CPU at batch 2.
-9. times   — each kernel's times and bound summed over the launches of
+9. times   — each kernel's times and bounds summed over the launches of
              the main paths (the ResNet forwards, one LM generate, the
-             quant_matmul calls).
+             quant_matmul calls); kernel #2 beside kernel #1 plus the fold
+             on each ResNet path.
 
 Any failure exits nonzero.  The line before the last is a JSON object
 listing the kernels; the last line is ``{"ok": true, "device": ...}``.
@@ -70,6 +86,7 @@ Details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -81,6 +98,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BATCH, IMAGE, SEED = 32, 224, 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_TC_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
+# kernels whose operands are int8 codes, exact in bf16: their bound is at the
+# tensor-core rate (beside the fp32 one, kept for earlier rows); kernels #3
+# (fp32 E) and #4 (the WKV) keep the fp32 rate
+TC_KERNELS = ("quant_epitome_matmul_blocks", "quant_epitome_matmul_fused_fold", "quant_matmul")
+L2_COLD_BYTES = 64 << 20    # code buffers rotated past the 50 MB L2 for cold timings
 HBM_BYTES_S = 3.35e12       # H100 SXM HBM3
 KERNEL_TOL = 2e-4           # |y - ref| <= tol + tol*|ref|, fp32 (tests/test_kernels.py:17-18)
 BF16_TOL = 2e-2             # the same in bf16 (tests/test_kernels.py:17-18)
@@ -92,6 +115,7 @@ WKV_TOL = 1e-3              # the WKV, fp32 (tests/test_kernels.py:85)
 # The LM's card-vs-CPU check keeps it: float32 through 2 layers of 8
 # projections and the WKV recurrence, summed in other orders on the card.
 LOGIT_TOL = 1e-4
+LOGIT_SEEDS = (1, 2, 3, 4)   # more seeds for the ResNet logits check, beside SEED
 LM_ARCH, LM_REQUESTS, LM_PROMPT, LM_NEW = "rwkv6-7b", 4, 256, 32
 CPU_LAYERS, CPU_PROMPT, CPU_NEW = 2, 80, 4   # 80 = one 64-token chunk + a ragged 16
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
@@ -141,6 +165,33 @@ def time_ms(torch, fn, budget_ms: float = 40.0) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_SIDE = {}
+
+
+def graph_ms(torch, fn, calls: int = 20) -> float:
+    """Device time of one fn() with the host out of the way: ``calls`` calls
+    captured in one CUDA graph, the graph replayed and timed by CUDA events
+    (time_ms), per call.  A kernel faster than its wrapper's host work (the
+    decode rows) is timed eagerly at the host's pace, not its own."""
+    fn()
+    # one warm-up stream for every call: cuBLAS keeps a workspace per stream
+    # it has run on, which would otherwise pile up in the memory readings
+    if "stream" not in _SIDE:
+        _SIDE["stream"] = torch.cuda.Stream()
+    side = _SIDE["stream"]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(torch, graph.replay) / calls
+    del graph
+    return ms
 
 
 def device_breakdown(torch, fn) -> list:
@@ -206,9 +257,11 @@ def main() -> int:
     built = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(built)} libraries in {report['build_s']:.1f} s (sm_90a)")
+    report["ptxas"] = []
     for name, text in _build.build_log.items():
         for line in text.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
+                report["ptxas"].append(f"{name}: {line.strip()}")
                 log(f"[build] {name}: {line.strip()}")
 
     # -- the ResNet path's kernel shapes -----------------------------------
@@ -234,9 +287,10 @@ def main() -> int:
             rows.append(r)
             log(f"[kernels] {r['kernel']} ({spec.M},{spec.N})->({spec.m},{spec.n}) T={T} "
                 f"bk={r['pack_bk']} x{len(names)}: max_err={r['max_abs_err']:.2e} "
-                f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"ms={r['ms']:.4f} (eager {r['ms_eager']:.4f}) plain_ms={r['plain_ms']:.4f} "
                 f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                f"({r['bound_by']})")
+                f"({r['bound_by']}) bound_fp32_ms={r['bound_fp32_ms']:.4f} "
+                f"bound_tc_ms={_ms(r['bound_tc_ms'], 4)}" + _fold_note(r))
         torch.cuda.empty_cache()
 
     # -- 3. the ResNet path, full width -------------------------------------
@@ -257,6 +311,9 @@ def main() -> int:
         launches[kernel] = fwd["launches"]
         forwards.append(fwd)
     torch.cuda.empty_cache()
+    report["logit_seeds"] = logits_over_seeds(
+        torch, dev, get_resnet, forwards,
+        [(variant, tuned) for variant, tuned, kernel in paths if kernel != "epitome_matmul_blocks"])
     report["resnet_s"] = time.perf_counter() - t_start
 
     # -- 4-6. the LM path -----------------------------------------------------
@@ -301,14 +358,17 @@ def main() -> int:
         per_run = lambda key: sum(r[key] * r["count"] for r in counted)
         by = {b: sum(r["bound_ms"] * r["count"] for r in counted if r["bound_by"] == b)
               for b in ("bytes", "operations")}
+        tc = name in TC_KERNELS
         lib = [r["library_ms"] for r in counted]
         paths_of = {}
         for r in counted:
-            p = paths_of.setdefault(r["path"], dict(launches=0, ms=0.0, bound_ms=0.0,
-                                                    plain_ms=0.0, library_ms=0.0))
+            p = paths_of.setdefault(r["path"], dict(
+                launches=0, ms=0.0, bound_ms=0.0, bound_fp32_ms=0.0, bound_tc_ms=0.0,
+                plain_ms=0.0, library_ms=0.0, fold_ms=0.0))
             p["launches"] += r["count"]
-            for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
-                p[key] = (None if r[key] is None or p[key] is None
+            for key in ("ms", "bound_ms", "bound_fp32_ms", "bound_tc_ms", "plain_ms",
+                        "library_ms", "fold_ms"):
+                p[key] = (None if r.get(key) is None or p[key] is None
                           else p[key] + r[key] * r["count"])
         summary.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -317,16 +377,36 @@ def main() -> int:
             "ms": per_run("ms"), "plain_ms": per_run("plain_ms"),
             "bound_ms": per_run("bound_ms"), "bound_by": max(by, key=by.get),
             "library_ms": None if None in lib else per_run("library_ms"),
+            "bound_fp32_ms": per_run("bound_fp32_ms"),
+            "bound_tc_ms": per_run("bound_tc_ms") if tc else None,
             "paths": paths_of})
         if sum(p["launches"] for p in paths_of.values()) != launches[name]:
             raise AssertionError(f"{name}: the timed shapes cover "
                                  f"{sum(p['launches'] for p in paths_of.values())} "
                                  f"launches, the main paths made {launches[name]}")
         log(f"[times] {name}: over the main paths' {launches[name]} launches "
-            f"{summary[-1]['ms']:.3f} ms, bound {summary[-1]['bound_ms']:.3f} ms; "
+            f"{summary[-1]['ms']:.3f} ms, bound {summary[-1]['bound_ms']:.3f} ms "
+            f"(fp32 rate {summary[-1]['bound_fp32_ms']:.3f}, tensor cores "
+            f"{_ms(summary[-1]['bound_tc_ms'])}); "
             + "; ".join(f"{p}: {v['launches']} launches {v['ms']:.3f} ms (bound "
-                        f"{v['bound_ms']:.3f}, plain {v['plain_ms']:.3f}, library "
-                        f"{_ms(v['library_ms'])})" for p, v in paths_of.items()))
+                        f"{v['bound_ms']:.3f}, fp32 rate {v['bound_fp32_ms']:.3f}, tensor "
+                        f"cores {_ms(v['bound_tc_ms'] if tc else None)}, plain "
+                        f"{v['plain_ms']:.3f}, library {_ms(v['library_ms'])})"
+                        for p, v in paths_of.items()))
+    # kernel #2 against kernel #1 plus the fold it saves (ops.fold_rows timed
+    # at each shape of the unfused path)
+    fused_vs = {}
+    for path in ("resnet50", "resnet50 evo-latency-q3"):
+        k1 = next(k for k in summary if k["name"] == QUANT)["paths"].get(path)
+        k2 = next(k for k in summary
+                  if k["name"] == "quant_epitome_matmul_fused_fold")["paths"].get(path)
+        if k1 and k2:
+            fused_vs[path] = dict(fused_fold_ms=k2["ms"], blocks_ms=k1["ms"],
+                                  fold_ms=k1["fold_ms"], library_ms=k2["library_ms"])
+            log(f"[times] {path}: fused fold {k2['ms']:.3f} ms against blocks "
+                f"{k1['ms']:.3f} + fold {k1['fold_ms']:.3f} = "
+                f"{k1['ms'] + k1['fold_ms']:.3f} ms; library {_ms(k2['library_ms'])}")
+    report["fused_fold_vs_blocks_plus_fold"] = fused_vs
 
     report.update(kernels=summary, shapes=rows, forwards=forwards, lm=lm_run,
                   lm_card_vs_cpu=lm_cpu, fold_probe=fold, plan=plan_run["plan"],
@@ -339,7 +419,13 @@ def main() -> int:
         f"LM {report['lm_s']:.1f}, quant_matmul {report['quant_matmul_s']:.1f}, "
         f"plan {report['plan_s']:.1f})")
     log(report["card_end"])
-    print(json.dumps({"kernels": summary}))
+    # the kernels line holds measured numbers and bound_ms only: the fp32-rate
+    # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
+    own = ("bound_fp32_ms", "bound_tc_ms")
+    drop = lambda d: {key: val for key, val in d.items() if key not in own}
+    line = [dict(drop(k), paths={p: drop(v) for p, v in k["paths"].items()})
+            for k in summary]
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -401,6 +487,44 @@ def resnet_forward(torch, label, build, kernel, n_launches, images, small,
     return fwd
 
 
+def logits_over_seeds(torch, dev, get_resnet, forwards, paths) -> dict:
+    """The batch-2 logits check of each ResNet-50 path in ``paths``
+    [(variant, tuned)] again at the seeds LOGIT_SEEDS (weights and images),
+    each held at LOGIT_TOL; with phase 3's reading at SEED, the largest
+    reading of each path and its margin, the gate over it."""
+    out = {}
+    for variant, tuned in paths:
+        label = variant + ("+fused_fold" if tuned else "")
+        build = lambda device: get_resnet("resnet50", variant, tuned=tuned, device=device)
+        first = next(f for f in forwards if f["path"] == label)
+        reads = [(SEED, first["b2_card_vs_cpu_max_abs_err"], first["b2_ref_max_abs"])]
+        for seed in LOGIT_SEEDS:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            images = torch.randn(2, IMAGE, IMAGE, 3, device=dev, generator=g)
+            model = build(dev).init(torch.Generator().manual_seed(seed)).prepack()
+            with torch.no_grad():
+                y = model.apply(images).cpu()
+                cpu = build("cpu").load_params(_to_cpu(model.params()))
+                r = cpu.apply(images.cpu())
+            scale = max(1.0, float(r.abs().max()))
+            err = float((y - r).abs().max())
+            if not torch.isfinite(y).all() or not err <= LOGIT_TOL * scale:
+                raise AssertionError(f"{label} seed {seed}: batch-2 logits on the card "
+                                     f"differ from the CPU by {err:.3e} (> {LOGIT_TOL} "
+                                     f"* {scale:.3f})")
+            reads.append((seed, err, scale))
+            del model, cpu
+        worst = max(reads, key=lambda r: r[1] / r[2])
+        out[label] = dict(reads=reads, worst_seed=worst[0], worst_err=worst[1],
+                          margin=LOGIT_TOL * worst[2] / max(worst[1], 1e-30))
+        log(f"[seeds] {label}: b2 card vs cpu max|dy| "
+            + ", ".join(f"seed {sd} {e:.3e} (max|y| {sc:.3f})" for sd, e, sc in reads)
+            + f"; largest {worst[1]:.3e} at seed {worst[0]}, gate "
+            f"{LOGIT_TOL * worst[2]:.3e}, margin {out[label]['margin']:.2f}x")
+    torch.cuda.empty_cache()
+    return out
+
+
 def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
     """The int8 kernel at the LM's three projection shapes, bf16 (the path's
     dtype, counted) and float32 (checked), at prefill and decode rows; the
@@ -423,14 +547,20 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
         cols = torch.cat([torch.arange(c * bn, (c + 1) * bn, device=dev)
                           for c in ops.kernel_col_blocks(spec, bn).tolist()])
         W = dequantize_packed(p.q, p.scales, p.zeros, (p.bk, bn))[:, cols].contiguous()
+        Wb = W.bfloat16()
+        # distinct copies of the codes (and of the yardstick's weight) to
+        # rotate through past the L2, as a decode step reads 256 weights
+        n_cold = -(-L2_COLD_BYTES // p.q.numel()) + 1
+        q_cold = [p.q.clone() for _ in range(n_cold)]
+        W_cold = [W.clone() for _ in range(-(-L2_COLD_BYTES // (4 * W.numel())) + 1)]
         for T, count in ((LM_REQUESTS * LM_PROMPT, k * n_layers),
                          (LM_REQUESTS, k * n_layers * (LM_NEW - 1))):
             x = torch.randn(T, spec.M, device=dev, generator=gen)
             for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, KERNEL_TOL)):
                 folded = ops.fold_rows(x.to(dtype), spec)
                 f32 = folded.float()
-                kernel = lambda: wrappers[QUANT](folded, p.q, p.scales, p.zeros, cb,
-                                                 bk=p.bk, bn=bn)
+                kernel = lambda q=p.q: wrappers[QUANT](folded, q, p.scales, p.zeros, cb,
+                                                       bk=p.bk, bn=bn)
                 plain = lambda: ref.quant_epitome_matmul_blocks_ref(
                     folded, p.q, p.scales, p.zeros, cb, p.bk, bn)
                 # yardstick: one cuBLAS float32 product (TF32 off) of the same
@@ -449,12 +579,33 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
                 row.update(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bn=bn, T=T,
                            pack_bk=p.bk, dtype=dname, max_abs_err=err, path=LM_ARCH,
                            count=count if dtype == cfg.cdtype else 0)
+                if dtype == torch.bfloat16:   # the bf16 yardstick: bf16 x, bf16 weight
+                    row["library_bf16_ms"] = graph_ms(torch, lambda: torch.matmul(folded, Wb))
+                if T == LM_REQUESTS:
+                    # decode rows: three launches bit for bit, and L2-cold times
+                    again = [kernel() for _ in range(3)]
+                    if not all(torch.equal(a, again[0]) for a in again):
+                        raise AssertionError(f"{QUANT} {dname} T={T}: three decode launches "
+                                             f"differ")
+                    qc, wc = itertools.cycle(q_cold), itertools.cycle(W_cold)
+                    row.update(
+                        repeat_bit_for_bit=3,
+                        ms_cold=graph_ms(torch, lambda: kernel(next(qc))),
+                        library_ms_cold=graph_ms(torch, lambda: torch.matmul(f32, next(wc))),
+                        cold_buffers=[n_cold, len(W_cold)])
                 rows.append(row)
                 log(f"[lm-kernels] {QUANT} {dname} ({spec.M},{spec.N})->({spec.m},{spec.n}) "
                     f"T={T} x{row['count']}: max_err={err:.2e} ms={row['ms']:.4f} "
-                    f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-                    f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
-        del W
+                    f"(eager {row['ms_eager']:.4f}) plain_ms={row['plain_ms']:.4f} "
+                    f"library_ms={row['library_ms']:.4f} (eager {row['library_ms_eager']:.4f}) "
+                    f"library_bf16_ms={_ms(row.get('library_bf16_ms'), 4)} "
+                    f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                    f"bound_fp32_ms={row['bound_fp32_ms']:.4f} "
+                    f"bound_tc_ms={_ms(row['bound_tc_ms'], 4)}"
+                    + (f"; L2-cold ms={row['ms_cold']:.4f} library_ms={row['library_ms_cold']:.4f}"
+                       f" ({n_cold} code copies); 3 launches bit for bit"
+                       if T == LM_REQUESTS else ""))
+        del W, Wb, q_cold, W_cold
     rows_fold = fold_probe(torch, dev, gen, ops, next(iter(per_layer)))
     # the WKV at the prefill's shape, from a non-zero state
     B, S, H, K, L = LM_REQUESTS, LM_PROMPT, cfg.n_heads, cfg.hd, cfg.rwkv_chunk
@@ -476,7 +627,7 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
     rows.append(row)
     log(f"[lm-kernels] wkv6_chunked B={B} S={S} H={H} K={K} chunk={L} x{row['count']}: "
         f"max_err={err:.2e} (o and state) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-        f"library_ms=none bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); "
+        f"library_ms=none bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, fp32 rate); "
         f"log w = -20 stays finite")
     return rows, rows_fold
 
@@ -503,15 +654,29 @@ def fold_probe(torch, dev, gen, ops, spec, runs: int = 20) -> dict:
     return out
 
 
-def timed_row(torch, name, kernel, plain, library, nbytes, flops) -> dict:
-    """Kernel, plain and yardstick times with the bound: the larger of the
-    bytes over the memory rate and the operations over fp32's peak."""
+def bounds(name, nbytes, flops) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak of their type, the bf16
+    tensor cores for the int8-code kernels (TC_KERNELS), else fp32; the
+    fp32-rate bound is kept beside it for every kernel."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return dict(kernel=name, ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
-                library_ms=None if library is None else time_ms(torch, library),
-                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes > t_ops else "operations")
+    t_fp32 = flops / FP32_FLOPS * 1e3
+    t_tc = flops / BF16_TC_FLOPS * 1e3 if name in TC_KERNELS else None
+    t_ops = t_fp32 if t_tc is None else t_tc
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                bound_fp32_ms=max(t_bytes, t_fp32),
+                bound_tc_ms=None if t_tc is None else max(t_bytes, t_tc))
+
+
+def timed_row(torch, name, kernel, plain, library, nbytes, flops) -> dict:
+    """Kernel and yardstick times on the device (graph_ms) and eager (host
+    included), the plain version's eager time, and the bounds."""
+    return dict(kernel=name, ms=graph_ms(torch, kernel), ms_eager=time_ms(torch, kernel),
+                plain_ms=time_ms(torch, plain),
+                library_ms=None if library is None else graph_ms(torch, library),
+                library_ms_eager=None if library is None else time_ms(torch, library),
+                **bounds(name, nbytes, flops))
 
 
 def wkv6_ops(B, S, H, K, L) -> float:
@@ -735,8 +900,7 @@ def quant_matmul_phase(torch, dev, gen, ops, ref, wrappers, launch_counts,
         tol = KERNEL_TOL if dtype == torch.float32 else BF16_TOL
         err = max_err(torch, y, ref.quant_matmul_ref(x, q, s, z), tol,
                       f"quant_matmul {dname} ({M},{N}) x{tuple(x.shape)}")
-        xp, _ = ops._pad_rows(x.reshape(-1, M))     # what ops hands the kernel
-        xp = xp.contiguous()
+        xp = x.reshape(-1, M).contiguous()     # what ops hands the kernel
         xf = xp.float()
         esz = x.element_size()
         nbytes = esz * T * M + M * N + 8.0 * s.numel() + esz * T * N
@@ -750,7 +914,8 @@ def quant_matmul_phase(torch, dev, gen, ops, ref, wrappers, launch_counts,
         log(f"[quant_matmul] {dname} ({M},{N}) x{tuple(x.shape)}: launches 1, "
             f"max_err={err:.2e} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']})")
+            f"({row['bound_by']}) bound_fp32_ms={row['bound_fp32_ms']:.4f} "
+            f"bound_tc_ms={row['bound_tc_ms']:.4f}")
     return rows, quant_matmul_vs_f64(torch, dev, gen, ref, wrappers)
 
 
@@ -865,7 +1030,9 @@ def plan_phase(torch, dev, gen, ops, ref, wrappers, get_resnet, images, small,
                 f"bm={spec.bm} bn={spec.bn} T={T} bk={r['pack_bk']} x{len(names)}: "
                 f"max_err={r['max_abs_err']:.2e} ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"bound_fp32_ms={r['bound_fp32_ms']:.4f} "
+                f"bound_tc_ms={_ms(r['bound_tc_ms'], 4)}" + _fold_note(r))
         torch.cuda.empty_cache()
     forwards = [
         resnet_forward(torch, "evo-latency-q3",
@@ -894,10 +1061,10 @@ def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T, names=None):
     p = ops.pack_epitome(E, spec, QuantConfig(bits=3))
     bn = spec.bn
     tables = ops.spec_tables(spec, bn, x.device)
-    cb, ro = tables.col_blocks, tables.row_offsets
-    # operands padded as ops.quant_epitome_matmul / ops.epitome_matmul pad them
-    q = torch.nn.functional.pad(p.q, (0, 0, 0, (-spec.m) % p.bk))
-    folded = torch.nn.functional.pad(ops.fold_rows(x, spec), (0, q.shape[0] - spec.m))
+    cb, ro, fold = tables.col_blocks, tables.row_offsets, tables.fold
+    # operands as ops.quant_epitome_matmul / ops.epitome_matmul hand them over
+    q = p.q
+    folded = ops.fold_rows(x, spec)
     ffold, fE = ops._pad_contraction(ops.fold_rows(x, spec), E, ops._pick_bk(spec.m))
     # the yardstick: one torch.matmul of the folded activation with the
     # pre-expanded (dequantized) weight; the port never calls it
@@ -915,7 +1082,7 @@ def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T, names=None):
             lambda: torch.matmul(folded, W_q)),
         "quant_epitome_matmul_fused_fold": (
             lambda: wrappers["quant_epitome_matmul_fused_fold"](
-                x, q, p.scales, p.zeros, cb, ro, bm=spec.bm, bk=p.bk, bn=bn),
+                x, q, p.scales, p.zeros, cb, ro, bm=spec.bm, bk=p.bk, bn=bn, fold=fold),
             lambda: ref.quant_epitome_matmul_fused_fold_ref(
                 x, q, p.scales, p.zeros, cb, ro, bm=spec.bm, bk=p.bk, bn=bn),
             lambda: torch.matmul(folded, W_q)),
@@ -938,19 +1105,21 @@ def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T, names=None):
         if names is not None and name not in names:
             continue
         err = max_err(torch, kernel(), plain(), KERNEL_TOL, f"{name} {spec} T={T}")
-        t_bytes = work[name][0] / HBM_BYTES_S * 1e3
-        t_ops = work[name][1] / FP32_FLOPS * 1e3
-        rows.append(dict(kernel=name, M=spec.M, N=spec.N, m=spec.m, n=spec.n, bm=spec.bm,
-                         bn=bn, T=T, pack_bk=p.bk, max_abs_err=err,
-                         ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
-                         library_ms=time_ms(torch, library),
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes > t_ops else "operations"))
+        row = timed_row(torch, name, kernel, plain, library, *work[name])
+        row.update(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bm=spec.bm, bn=bn, T=T,
+                   pack_bk=p.bk, max_abs_err=err)
+        if name == QUANT:   # the fold that kernel #2 takes inside: ops.fold_rows
+            row["fold_ms"] = graph_ms(torch, lambda: ops.fold_rows(x, spec))
+        rows.append(row)
     return rows
 
 
-def _ms(t) -> str:
-    return "none" if t is None else f"{t:.3f}"
+def _ms(t, digits: int = 3) -> str:
+    return "none" if t is None else f"{t:.{digits}f}"
+
+
+def _fold_note(r) -> str:
+    return f" fold_ms={r['fold_ms']:.4f}" if "fold_ms" in r else ""
 
 
 def _to_cpu(tree):

@@ -78,9 +78,8 @@ class _QuantKernel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, E, cfg: EpLayerConfig, packed: PackedEpitome):
-        bt = cfg.blocks[0] if cfg.blocks is not None else None
         return quant_epitome_matmul(x, None, cfg.spec, cfg.quant, packed=packed,
-                                    bt=bt, fused_fold=cfg.fused_fold)
+                                    fused_fold=cfg.fused_fold)
 
     @staticmethod
     def backward(ctx, g):

@@ -2,18 +2,20 @@
 
 epitome_matmul        — y = x_folded @ E, column blocks steered by the OFAT
                         table (``csrc/epitome_matmul.cu``)
-quant_epitome_matmul  — the same over int8 codes with per-block (scale,
-                        zero) dequantized inside the kernel, float32 or
-                        bfloat16 activations, and a variant that folds the
-                        activation inside the kernel
-                        (``csrc/quant_epitome_matmul{,_bf16}.cu``)
+quant_epitome_matmul  — the same over int8 codes with one (scale, zero)
+                        per pack block, float32 or bfloat16 activations,
+                        and a variant that folds the activation inside the
+                        kernel: bf16 tensor-core products on the codes,
+                        split-K at decode rows
+                        (``csrc/quant_epitome_matmul{,_bf16}.cu`` on
+                        ``csrc/epitome_mma.cuh``)
 wkv6                  — the chunked RWKV6 WKV with a carried state
                         (``csrc/wkv6.cu``)
 quant_matmul          — a dense int8 dequant matmul with one (scale, zero)
                         per 256 x 256 crossbar tile, float32 or bfloat16
                         activations (``csrc/quant_matmul.cu``)
 ref                   — the plain PyTorch version of each kernel
-ops                   — the public wrappers: fold, block picks, padding, trim
+ops                   — the public wrappers: fold, block picks, trim
 
 Each kernel wrapper counts its launches in a plain integer attribute
 ``launches``; ``launch_counts`` reads them and ``reset_launch_counts`` sets

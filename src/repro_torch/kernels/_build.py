@@ -34,11 +34,11 @@ LIBRARIES = {
         "epitome_matmul_blocks_launch": [_P] * 4 + [_I] * 5 + [_P],
     }),
     "quant_epitome_matmul": ("quant_epitome_matmul.cu", {
-        "quant_epitome_matmul_blocks_launch": [_P] * 6 + [_I] * 7 + [_P],
-        "quant_epitome_matmul_fused_fold_launch": [_P] * 7 + [_I] * 10 + [_P],
+        "quant_epitome_matmul_blocks_launch": [_P] * 8 + [_I] * 8 + [_P],
+        "quant_epitome_matmul_fused_fold_launch": [_P] * 9 + [_I] * 10 + [_P],
     }),
     "quant_epitome_matmul_bf16": ("quant_epitome_matmul_bf16.cu", {
-        "quant_epitome_matmul_blocks_bf16_launch": [_P] * 6 + [_I] * 7 + [_P],
+        "quant_epitome_matmul_blocks_bf16_launch": [_P] * 8 + [_I] * 8 + [_P],
     }),
     "quant_matmul": ("quant_matmul.cu", {
         "quant_matmul_launch": [_P] * 5 + [_I] * 3 + [_P],

@@ -19,10 +19,10 @@ extern "C" int epitome_matmul_blocks_launch(
     const void* x, const void* e, const void* cb, void* y,
     int T, int m, int n, int gn, int bn, void* stream) {
   epim::TileArgs a = {};
-  a.x = x;
+  a.x = static_cast<const float*>(x);
   a.e = static_cast<const float*>(e);
   a.cb = static_cast<const int*>(cb);
-  a.y = y;
+  a.y = static_cast<float*>(y);
   a.T = T; a.m = m; a.n = n; a.gn = gn; a.bn = bn; a.ldx = m;
-  return epim::launch_tile<epim::kFp>(a, stream);
+  return epim::launch_tile(a, stream);
 }

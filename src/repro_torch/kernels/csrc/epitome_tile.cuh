@@ -1,4 +1,7 @@
-// The tiled float32 SIMT matmul shared by the three epitome kernels.
+// The tiled float32 SIMT matmul of the epitome kernel #3
+// (epitome_matmul_blocks); kernel #5 (quant_matmul.cu) takes its tile
+// sizes and type helpers.  Kernels #1 and #2 have their own main loop,
+// epitome_mma.cuh.
 //
 //   y[:, j*bn + c] = sum_k A[:, k] * W[k, cb[j]*bn + c]
 //
@@ -9,23 +12,7 @@
 // BK epitome rows, a loop that replaces the TPU kernel's sequential k grid
 // axis.  Each step stages an activation tile and a weight tile in shared
 // memory; every thread then accumulates a 4 x 4 piece of the tile in
-// registers with fp32 FMAs.  How the two tiles are staged is what tells the
-// kernels apart (MODE):
-//
-//   kFp       A = x_folded (T, m) fp32,  W = E (m, n) fp32
-//   kQuant    A = x_folded (T, m) fp32 or bf16, W = (q + z) * s dequantized from
-//             int8 codes while staged; (s, z) are looked up by the *pack*
-//             block, s[k / bk, cb[j]], so the tile sizes here are free of
-//             the pack's bk
-//   kFusedFold A = fold of the unfolded x (T, M): for each staged epitome
-//             row k, the sum in ascending virtual block i of the rows
-//             i*bm + (k - ro[i]) that sample it.  Only the BK x BM slice of
-//             the folded activation that this step contracts is ever built.
-//
-// The activation and the output share one element type XT, float or bf16:
-// a bf16 activation converts to float32 while the A tile is staged, the
-// sum stays float32, and the result rounds once to XT (to nearest even) at
-// the store.
+// registers with fp32 FMAs (A = x_folded (T, m), W = E (m, n), float32).
 //
 // Ragged edges are masked: rows t >= T, epitome rows k >= m and columns
 // c >= bn stage as zero and are not stored, so no caller has to pad.
@@ -42,9 +29,6 @@ constexpr int BM = 64;        // activation rows per block
 constexpr int BN = 64;        // output columns per block
 constexpr int BK = 16;        // epitome rows per contraction step
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int MAX_GM = 1024;  // fused fold: row-offset table held in shared memory
-
-enum Mode { kFp = 0, kQuant = 1, kFusedFold = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -55,25 +39,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 struct TileArgs {
-  const void* x;        // XT; kFp/kQuant: x_folded (T, m); kFusedFold: x (T, M); row stride ldx
-  const float* e;       // kFp: E (m, n)
-  const int8_t* q;      // kQuant/kFusedFold: codes (m, n)
-  const float* scales;  // kQuant/kFusedFold: (ceil(m / bk), s_cols)
-  const float* zeros;
+  const float* x;       // x_folded (T, m), row stride ldx
+  const float* e;       // E (m, n)
   const int* cb;        // (gn,) epitome column block of output block j
-  const int* ro;        // kFusedFold: (gm,) epitome row offset of virtual row block i
-  void* y;              // XT, (T, gn * bn)
-  int T, m, n, gn, bn, bk, s_cols, ldx;
-  int M, bm, gm;        // kFusedFold only
+  float* y;             // (T, gn * bn)
+  int T, m, n, gn, bn, ldx;
 };
 
-template <int MODE, typename XT>
+// a template, so that a source that includes this header for its constants
+// does not build the kernel
+template <typename = void>
 __global__ void __launch_bounds__(THREADS) epitome_tile_kernel(TileArgs a) {
-  const XT* x = static_cast<const XT*>(a.x);
-  XT* y = static_cast<XT*>(a.y);
+  const float* x = a.x;
+  float* y = a.y;
   __shared__ __align__(16) float As[BK][BM + 4];  // A^T tile, padded rows
   __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ int ro_s[MODE == kFusedFold ? MAX_GM : 1];
 
   const int tid = threadIdx.x;
   const int tiles_per_block = (a.bn + BN - 1) / BN;
@@ -84,11 +64,6 @@ __global__ void __launch_bounds__(THREADS) epitome_tile_kernel(TileArgs a) {
   const size_t wcol0 = (size_t)cbj * a.bn + c0;
   const size_t ycol0 = (size_t)j * a.bn + c0;
   const size_t ldy = (size_t)a.gn * a.bn;
-
-  if (MODE == kFusedFold) {
-    for (int i = tid; i < a.gm; i += THREADS) ro_s[i] = a.ro[i];
-    __syncthreads();
-  }
 
   const int tx = tid % 16, ty = tid / 16;
   float acc[4][4];
@@ -105,20 +80,7 @@ __global__ void __launch_bounds__(THREADS) epitome_tile_kernel(TileArgs a) {
       const int idx = tid + e * THREADS;
       const int kk = idx % BK, r = idx / BK;
       const int t = row0 + r, k = k0 + kk;
-      float v = 0.f;
-      if (t < a.T && k < a.m) {
-        const XT* xrow = x + (size_t)t * a.ldx;
-        if (MODE == kFusedFold) {
-          for (int i = 0; i < a.gm; ++i) {  // ascending virtual block order
-            const int d = k - ro_s[i];
-            const int u = i * a.bm + d;
-            if (d >= 0 && d < a.bm && u < a.M) v += to_f32(xrow[u]);
-          }
-        } else {
-          v = to_f32(xrow[k]);
-        }
-      }
-      As[kk][r] = v;
+      As[kk][r] = (t < a.T && k < a.m) ? x[(size_t)t * a.ldx + k] : 0.f;
     }
     // Weight tile: 64 neighbouring threads read 64 neighbouring columns.
 #pragma unroll
@@ -126,17 +88,7 @@ __global__ void __launch_bounds__(THREADS) epitome_tile_kernel(TileArgs a) {
       const int idx = tid + e * THREADS;
       const int kk = idx / BN, c = idx % BN;
       const int k = k0 + kk;
-      float w = 0.f;
-      if (k < a.m && c0 + c < a.bn) {
-        const size_t off = (size_t)k * a.n + wcol0 + c;
-        if (MODE == kFp) {
-          w = a.e[off];
-        } else {
-          const int s = (k / a.bk) * a.s_cols + cbj;
-          w = ((float)a.q[off] + a.zeros[s]) * a.scales[s];
-        }
-      }
-      Bs[kk][c] = w;
+      Bs[kk][c] = (k < a.m && c0 + c < a.bn) ? a.e[(size_t)k * a.n + wcol0 + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -157,22 +109,21 @@ __global__ void __launch_bounds__(THREADS) epitome_tile_kernel(TileArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int t = row0 + ty * 4 + i;
     if (t >= a.T) continue;
-    XT* yrow = y + (size_t)t * ldy + ycol0;
+    float* yrow = y + (size_t)t * ldy + ycol0;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int c = tx * 4 + jj;
-      if (c0 + c < a.bn) yrow[c] = from_f32<XT>(acc[i][jj]);
+      if (c0 + c < a.bn) yrow[c] = acc[i][jj];
     }
   }
 }
 
 // Launches on the caller's stream and returns cudaGetLastError(), so a
 // launch the card refuses is reported to the caller right away.
-template <int MODE, typename XT = float>
 inline int launch_tile(const TileArgs& a, void* stream) {
   if (a.T == 0 || a.gn == 0) return 0;
   const dim3 grid(a.gn * ((a.bn + BN - 1) / BN), (a.T + BM - 1) / BM);
-  epitome_tile_kernel<MODE, XT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  epitome_tile_kernel<><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

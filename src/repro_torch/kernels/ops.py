@@ -5,8 +5,9 @@ activations into epitome-row space (the IFRT analogue), runs the kernel with
 the static OFAT column-block table, and trims the result to the virtual
 width.  ``quant_epitome_matmul`` does the same through the int8 kernels and
 returns x's dtype; ``wkv6`` is the RWKV6 recurrence of the LM's prefill.
-Block picks, padding and trimming follow ``repro.kernels.ops`` integer for
-integer, since they feed plan provenance.
+Block picks follow ``repro.kernels.ops`` integer for integer, since they
+feed plan provenance; the CUDA kernels mask ragged rows and contraction
+edges themselves, so no wrapper pads rows or codes before a launch.
 
 Tensors on the CPU run every kernel's plain version; tensors on a CUDA
 device launch the kernels.
@@ -100,21 +101,17 @@ def fold_rows(x: torch.Tensor, spec: EpitomeSpec) -> torch.Tensor:
 
 
 def epitome_matmul(x: torch.Tensor, E: torch.Tensor, spec: EpitomeSpec, *,
-                   bt: Optional[int] = None, bk: Optional[int] = None,
-                   bn: Optional[int] = None) -> torch.Tensor:
+                   bk: Optional[int] = None, bn: Optional[int] = None) -> torch.Tensor:
     """y = x @ W(E) via the epitome-space kernel.  Leading dims are free-form
-    and flatten to (T, M) rows; bt/bk/bn override the heuristic blocks; a bk
+    and flatten to (T, M) rows; bk/bn override the heuristic blocks; a bk
     that tiles m raggedly zero-pads the contraction dim (dot-neutral)."""
     *lead, M = x.shape
-    x2 = x.reshape(-1, M)
-    T = x2.shape[0]
     bk = _pick_bk(spec.m) if bk is None else bk
     bn = spec.bn if bn is None else bn
-    folded, bt = _pad_rows(fold_rows(x2, spec), bt)  # (Tp, m)
-    folded, E = _pad_contraction(folded, E.to(x.dtype), bk)
+    folded, E = _pad_contraction(fold_rows(x.reshape(-1, M), spec), E.to(x.dtype), bk)
     y = epitome_matmul_blocks(folded, E.contiguous(),
                               spec_tables(spec, bn, x.device).col_blocks, bn=bn)
-    return y[:T, :spec.N].reshape(*lead, spec.N)
+    return y[:, :spec.N].reshape(*lead, spec.N)
 
 
 _BT_BLOCKS = (256, 128, 64, 32, 16, 8)
@@ -133,8 +130,10 @@ def _pick_bt(T: int) -> int:
 
 
 def _pad_rows(x2: torch.Tensor, bt: Optional[int] = None) -> tuple:
-    """Zero-pad the row dim of (T, m) up to a multiple of the row block.
-    Returns (padded, bt); callers slice the output back to T rows."""
+    """Zero-pad the row dim of (T, m) up to a multiple of the row block, as
+    the reference pads for its TPU grid.  Returns (padded, bt).  No wrapper
+    here calls it: every kernel masks rows t >= T, and every plain version
+    takes any T."""
     T = x2.shape[0]
     bt = _pick_bt(T) if bt is None else bt
     pad = (-T) % bt
@@ -186,14 +185,10 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
                  zeros: torch.Tensor) -> torch.Tensor:
     """x @ ((q + z) * s) with one (scale, zero) per 256 x 256 tile of the
     (M, N) int8 codes.  Leading dims of x are free-form and flatten to
-    (T, M) rows, padded to the row block and trimmed back, as the
-    reference pads them."""
+    (T, M) rows."""
     *lead, M = x.shape
-    x2 = x.reshape(-1, M)
-    T = x2.shape[0]
-    x2, _ = _pad_rows(x2)
-    y = _quant_matmul(x2.contiguous(), q, scales, zeros)
-    return y[:T].reshape(*lead, q.shape[1])
+    y = _quant_matmul(x.reshape(-1, M).contiguous(), q, scales, zeros)
+    return y.reshape(*lead, q.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -244,35 +239,26 @@ def pack_epitome(E: torch.Tensor, spec: EpitomeSpec, qcfg: QuantConfig,
 def quant_epitome_matmul(x: torch.Tensor, E: Optional[torch.Tensor],
                          spec: EpitomeSpec, qcfg: Optional[QuantConfig] = None,
                          *, packed: Optional[PackedEpitome] = None,
-                         bt: Optional[int] = None,
                          fused_fold: bool = False) -> torch.Tensor:
     """y = x @ W(deq(Q(E))) via the fused int8-epitome kernels.
 
     Pass ``packed`` (from pack_epitome) to skip re-quantizing per call;
-    otherwise E is packed on the fly.  ``bt`` overrides the row block the
-    activation is padded to; ``fused_fold=True`` runs the fold inside the
-    kernel."""
+    otherwise E is packed on the fly.  ``fused_fold=True`` runs the fold
+    inside the kernel.  A ragged m (prime or odd) goes in as it is: the
+    kernels mask the last pack block's missing rows."""
     if packed is None:
         assert E is not None and qcfg is not None
         packed = pack_epitome(E, spec, qcfg)
     *lead, M = x.shape
     x2 = x.reshape(-1, M)
-    T = x2.shape[0]
-    bk, bn = packed.bk, packed.bn
-    q = packed.q
-    pad_m = (-spec.m) % bk          # ragged (prime/odd) epitome row count
-    if pad_m:
-        q = F.pad(q, (0, 0, 0, pad_m))
-    tables = spec_tables(spec, bn, x.device)
+    tables = spec_tables(spec, packed.bn, x.device)
+    kw = dict(bk=packed.bk, bn=packed.bn)
     if fused_fold:
-        x2p, bt = _pad_rows(x2.to(torch.float32), bt)
         y = quant_epitome_matmul_fused_fold(
-            x2p.contiguous(), q, packed.scales, packed.zeros, tables.col_blocks,
-            tables.row_offsets, bm=spec.bm, bk=bk, bn=bn).to(x.dtype)
-        return y[:T, :spec.N].reshape(*lead, spec.N)
-    folded, bt = _pad_rows(fold_rows(x2, spec), bt)  # (Tp, m)
-    if pad_m:
-        folded = F.pad(folded, (0, pad_m))
-    y = quant_epitome_matmul_blocks(folded.to(x.dtype), q, packed.scales,
-                                    packed.zeros, tables.col_blocks, bk=bk, bn=bn)
-    return y[:T, :spec.N].reshape(*lead, spec.N)
+            x2.to(torch.float32).contiguous(), packed.q, packed.scales, packed.zeros,
+            tables.col_blocks, tables.row_offsets, bm=spec.bm, fold=tables.fold,
+            **kw).to(x.dtype)
+    else:
+        y = quant_epitome_matmul_blocks(fold_rows(x2, spec).contiguous(), packed.q,
+                                        packed.scales, packed.zeros, tables.col_blocks, **kw)
+    return y[:, :spec.N].reshape(*lead, spec.N)

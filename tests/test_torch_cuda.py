@@ -80,9 +80,10 @@ def test_quant_epitome_matmul_blocks_kernel(args, T, cuda_device):
 @pytest.mark.parametrize("args,T", SHAPES)
 def test_quant_epitome_matmul_fused_fold_kernel(args, T, cuda_device):
     spec, _, x, p, cb = _case(args, T, cuda_device)
-    ro = ops.spec_tables(spec, p.bn, x.device).row_offsets
+    tables = ops.spec_tables(spec, p.bn, x.device)
+    ro = tables.row_offsets
     y = quant_epitome_matmul_fused_fold(x, p.q, p.scales, p.zeros, cb, ro,
-                                        bm=spec.bm, bk=p.bk, bn=p.bn)
+                                        bm=spec.bm, bk=p.bk, bn=p.bn, fold=tables.fold)
     torch.cuda.synchronize()
     torch.testing.assert_close(
         y, ref.quant_epitome_matmul_fused_fold_ref(x, p.q, p.scales, p.zeros, cb, ro,
@@ -100,6 +101,116 @@ def test_ragged_rows_and_prime_m(cuda_device):
                                ops.epitome_matmul(x.cpu(), E.cpu(), spec), **TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 4, 7, 16, 17, 32, 33, 64, 1024])
+def test_quant_blocks_kernel_around_the_decode_cut_over(T, dtype, cuda_device):
+    """Kernel #1 at one LM width on both sides of the cut-over between the
+    split-K decode loop (T <= 32) and the tensor-core loop: one launch per
+    call, against its plain version."""
+    from repro_torch.kernels.quant_epitome_matmul import DECODE_ROWS
+    assert DECODE_ROWS == 32
+    spec, _, x, p, cb = _case(LM_SHAPES[0], T, cuda_device)
+    folded = ops.fold_rows(x.to(dtype), spec)
+    reset_launch_counts()
+    y = quant_epitome_matmul_blocks(folded, p.q, p.scales, p.zeros, cb, bk=p.bk, bn=p.bn)
+    torch.cuda.synchronize()
+    assert launch_counts()["quant_epitome_matmul_blocks"] == 1 and y.dtype == dtype
+    plain = ref.quant_epitome_matmul_blocks_ref(folded, p.q, p.scales, p.zeros, cb, p.bk, p.bn)
+    torch.testing.assert_close(y.float(), plain.float(),
+                               **(TOL if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("T", [4, 100])
+@pytest.mark.parametrize("bk", [8, 16, 32, 64, 128, 256])
+def test_every_pack_bk_with_ragged_m_and_8bit_codes(bk, T, cuda_device):
+    """Every pack bk that pack_blocks makes, at a prime m (the last pack
+    block ragged) with 8-bit codes, through kernels #1 (fp32 and bf16) and
+    #2, at decode and prefill rows."""
+    spec = EpitomeSpec(512, 512, 251, 256, 128, 256)
+    g = torch.Generator().manual_seed(bk + T)
+    E = (torch.randn(spec.m, spec.n, generator=g) / spec.M ** 0.5).to(cuda_device)
+    x = torch.randn(T, spec.M, generator=g).to(cuda_device)
+    p = ops.pack_epitome(E, spec, QuantConfig(bits=8), blocks=(8, bk, spec.bn))
+    assert p.bk == bk and p.q.shape[0] == 251
+    tables = ops.spec_tables(spec, p.bn, cuda_device)
+    cb = tables.col_blocks
+    for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16)):
+        folded = ops.fold_rows(x.to(dtype), spec)
+        y = quant_epitome_matmul_blocks(folded, p.q, p.scales, p.zeros, cb, bk=bk, bn=p.bn)
+        plain = ref.quant_epitome_matmul_blocks_ref(folded, p.q, p.scales, p.zeros, cb,
+                                                    bk, p.bn)
+        torch.testing.assert_close(y.float(), plain.float(), **tol)
+    y = quant_epitome_matmul_fused_fold(x, p.q, p.scales, p.zeros, cb, tables.row_offsets,
+                                        bm=spec.bm, bk=bk, bn=p.bn, fold=tables.fold)
+    torch.testing.assert_close(
+        y, ref.quant_epitome_matmul_fused_fold_ref(x, p.q, p.scales, p.zeros, cb,
+                                                   tables.row_offsets, bm=spec.bm,
+                                                   bk=bk, bn=p.bn), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_rows_repeat_bit_for_bit(dtype, cuda_device):
+    """The split-K decode loop reduces its splits in a fixed order inside the
+    launch (no atomics on the output): three launches, the same bits."""
+    spec, _, x, p, cb = _case(LM_SHAPES[2], 4, cuda_device)
+    folded = ops.fold_rows(x.to(dtype), spec)
+    ys = [quant_epitome_matmul_blocks(folded, p.q, p.scales, p.zeros, cb, bk=p.bk, bn=p.bn)
+          for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, ys[0]) for y in ys)
+
+
+def test_split_launches_on_two_streams_at_once(cuda_device):
+    """Split-K launches on two streams at the same time (each stream has its
+    own ticket counters): every output equals the same launch made alone,
+    bit for bit, for kernel #1's decode loop and kernel #2's split
+    tensor-core loop."""
+    from repro_torch.kernels.quant_epitome_matmul import split_rows
+    spec, _, x, p, cb = _case(LM_SHAPES[2], 8, cuda_device)
+    tables = ops.spec_tables(spec, p.bn, cuda_device)
+    xr = torch.randn(64, spec.M, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    gn = cb.shape[0]
+    assert split_rows(64, spec.m, gn, p.bn, decode=False) > 0
+    calls = [lambda: quant_epitome_matmul_blocks(ops.fold_rows(x, spec), p.q, p.scales,
+                                                 p.zeros, cb, bk=p.bk, bn=p.bn),
+             lambda: quant_epitome_matmul_fused_fold(xr, p.q, p.scales, p.zeros, cb,
+                                                     tables.row_offsets, bm=spec.bm,
+                                                     bk=p.bk, bn=p.bn, fold=tables.fold)]
+    alone = [f() for f in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(calls[i]())
+                outs[i].append(calls[1 - i]())
+    torch.cuda.synchronize()
+    for i in range(2):
+        for k, y in enumerate(outs[i]):
+            assert torch.equal(y, alone[(i + k) % 2]), (i, k)
+
+
+def test_fused_fold_beyond_1024_row_blocks(cuda_device):
+    """gm = 1050 virtual row blocks (a row-offset table the first kernel #2
+    held in shared memory refused past 1024): the inverse fold table has no
+    such cap."""
+    spec = EpitomeSpec(4200, 128, 64, 128, 4, 128)
+    assert spec.gm > 1024
+    g = torch.Generator().manual_seed(5)
+    E = (torch.randn(spec.m, spec.n, generator=g) / spec.M ** 0.5).to(cuda_device)
+    x = torch.randn(100, spec.M, generator=g).to(cuda_device)
+    p = ops.pack_epitome(E, spec, QuantConfig(bits=3))
+    cpu = ops.quant_epitome_matmul(x.cpu(), E.cpu(), spec, QuantConfig(bits=3),
+                                   fused_fold=True)
+    reset_launch_counts()
+    y = ops.quant_epitome_matmul(x, None, spec, packed=p, fused_fold=True)
+    assert launch_counts()["quant_epitome_matmul_fused_fold"] == 1
+    torch.testing.assert_close(y.cpu(), cpu, **TOL)
+
+
 def test_cuda_tensors_launch_or_raise(cuda_device):
     spec, E, x, p, cb = _case(*SHAPES[1], cuda_device)
     reset_launch_counts()
@@ -113,6 +224,10 @@ def test_cuda_tensors_launch_or_raise(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         quant_epitome_matmul_blocks(folded.t().contiguous().t(), p.q, p.scales, p.zeros,
                                     cb, bk=p.bk, bn=p.bn)
+    ro = ops.spec_tables(spec, p.bn, x.device).row_offsets
+    with pytest.raises(ValueError, match="inverse table"):
+        quant_epitome_matmul_fused_fold(x, p.q, p.scales, p.zeros, cb, ro,
+                                        bm=spec.bm, bk=p.bk, bn=p.bn)
 
 
 def test_tiny_resnet_on_card_matches_cpu(cuda_device):
