@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
-Three main paths, each at the full width of its model:
+Four main paths, each at the full width of its model:
 
 * EPIM-ResNet-50 at 3-bit epitome-aware quantization,
   ``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
-  epitomized layers, each one launch of the fused int8 kernel;
+  epitomized layers, each one launch of the fused int8 kernel (and at
+  ``kernel``, 45 launches of the float32 epitome kernel);
 * serving rwkv6-7b at kernel-q3 in bf16, ``get_config("rwkv6-7b",
   "kernel-q3")`` -> ``lm.init_params`` -> ``lm.prepack_params`` ->
   ``serve.generate``: 32 layers, each 8 launches of the fused int8 kernel
   per forward and one launch of the WKV kernel per prefill;
+* the same at ``kernel``: each projection one launch of the epitome
+  kernel's bf16 entry;
 * a searched EPIM-ResNet-50 plan, ``get_resnet("resnet50",
   "evo-latency-q3")``: the Algorithm-1 search legalized to the kernel-exact
   families, 38 epitomized layers; and kernel #5, the dense int8
@@ -32,17 +35,18 @@ Phases:
              time, host included, is kept beside them); the plain version is
              timed eagerly.  Bounds: the larger of the bytes over 3.35 TB/s
              and the operations over the peak of their type, the bf16 tensor
-             cores (989 TFLOP/s) for the int8-code kernels #1, #2 and #5,
-             fp32 (67 TFLOP/s) for #3 and #4; the fp32-rate bound is kept
-             beside it for every kernel.
+             cores (989 TFLOP/s) for the int8-code kernels #1, #2 and #5 and
+             for #3's bf16 entry, three TF32 products for each FLOP (495
+             TFLOP/s, 3xTF32) for #3's float32 entry, fp32 (67 TFLOP/s) for
+             #4; the fp32-rate bound is kept beside it for every kernel.
 3. forward — ResNet-50 kernel-q3, kernel and kernel-q3 with every layer's
              fold inside the kernel (fused_fold), from seeded weights at
              batch 32: each launch counter must rise by exactly 45 per
              forward; then the same model at batch 2 on the card against
              the plain versions on the CPU.
    The batch-32 forward is timed and its peak memory recorded; the batch-2
-   check of kernel-q3, unfused and fused, is made again at four more seeds
-   (weights and images) and its largest reading and margin logged.
+   check of each path is made again at four more seeds (weights and
+   images) and its largest reading and margin logged.
 4. LM kernels — the int8 kernel in bf16 and float32 at rwkv6-7b's three
              projection shapes, at prefill rows (4 x 256) and decode rows
              (4), and the WKV kernel at 4 x 256 tokens x 64 heads of 64 from
@@ -62,10 +66,18 @@ Phases:
 6. LM card vs CPU — the same config in float32 cut to 2 layers: prefill and
              decode logits and greedy tokens of one 80-token prompt on the
              card against the plain versions on the CPU.
+6b. LM kernel — rwkv6-7b at ``kernel``: the epitome kernel's bf16 entry at
+             the three projection shapes, prefill and decode rows, against
+             its plain version and timed beside cuBLAS bf16 and the per-call
+             cast of E to bf16 (decode rows three times bit for bit, and
+             L2-cold); then phase 5 at ``kernel`` (8192 launches of the
+             epitome kernel, 32 of the WKV kernel, none of the int8 one),
+             and phase 6 at ``kernel``.
 7. quant_matmul — kernel #5 through ``ops.quant_matmul`` at rwkv6-7b's
              three dense projection shapes, float32 and bf16, prefill and
              decode rows, and a ragged T = 7 with leading dims: one launch
-             per call, held against its plain version, then timed; then at
+             per call, held against its plain version, then timed (the bf16
+             rows also beside cuBLAS bf16 on the bf16 weight); then at
              the reference test's code scales, float32, each shape held
              against the float64 product, no less accurate than cuBLAS.
 8. plan    — ``get_resnet("resnet50", "evo-latency-q3")``: the searched,
@@ -76,8 +88,8 @@ Phases:
              fold inside the kernel (38 launches of that kernel only), each
              timed and held against the CPU at batch 2.
 9. times   — each kernel's times and bounds summed over the launches of
-             the main paths (the ResNet forwards, one LM generate, the
-             quant_matmul calls); kernel #2 beside kernel #1 plus the fold
+             the main paths (the ResNet forwards, one LM generate at each
+             variant, the quant_matmul calls); kernel #2 beside kernel #1 plus the fold
              on each ResNet path.
 
 Any failure exits nonzero.  The line before the last is a JSON object
@@ -99,10 +111,13 @@ ROOT = Path(__file__).resolve().parent
 BATCH, IMAGE, SEED = 32, 224, 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 BF16_TC_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
+TF32_TC_FLOPS = 495e12      # H100 SXM TF32 tensor cores, dense
 # kernels whose operands are int8 codes, exact in bf16: their bound is at the
-# tensor-core rate (beside the fp32 one, kept for earlier rows); kernels #3
-# (fp32 E) and #4 (the WKV) keep the fp32 rate
+# bf16 tensor-core rate (beside the fp32 one, kept for earlier rows); kernel
+# #3 runs fp32 E as 3xTF32 (three TF32 products for each) and bf16 E as one
+# bf16 pass (tc_seconds); kernel #4 (the WKV) keeps the fp32 rate
 TC_KERNELS = ("quant_epitome_matmul_blocks", "quant_epitome_matmul_fused_fold", "quant_matmul")
+FP_KERNEL = "epitome_matmul_blocks"
 L2_COLD_BYTES = 64 << 20    # code buffers rotated past the 50 MB L2 for cold timings
 HBM_BYTES_S = 3.35e12       # H100 SXM HBM3
 KERNEL_TOL = 2e-4           # |y - ref| <= tol + tol*|ref|, fp32 (tests/test_kernels.py:17-18)
@@ -312,8 +327,7 @@ def main() -> int:
         forwards.append(fwd)
     torch.cuda.empty_cache()
     report["logit_seeds"] = logits_over_seeds(
-        torch, dev, get_resnet, forwards,
-        [(variant, tuned) for variant, tuned, kernel in paths if kernel != "epitome_matmul_blocks"])
+        torch, dev, get_resnet, forwards, [(variant, tuned) for variant, tuned, _ in paths])
     report["resnet_s"] = time.perf_counter() - t_start
 
     # -- 4-6. the LM path -----------------------------------------------------
@@ -324,12 +338,29 @@ def main() -> int:
     lm_rows, fold = lm_kernels(torch, dev, gen, ops, ref, WRAPPERS, lm, lm_cfg)
     rows += lm_rows
     torch.cuda.empty_cache()
-    lm_run = lm_path(torch, dev, lm, serve, lm_cfg, launch_counts, reset_launch_counts)
+    lm_run = lm_path(torch, dev, lm, serve, lm_cfg, "kernel-q3", QUANT, launch_counts,
+                     reset_launch_counts)
     launches.update({QUANT: launches[QUANT] + lm_run["launches"][QUANT],
                      "wkv6_chunked": lm_run["launches"]["wkv6_chunked"]})
     torch.cuda.empty_cache()
-    lm_cpu = lm_card_vs_cpu(torch, dev, lm, get_config)
+    lm_cpu = [lm_card_vs_cpu(torch, dev, lm, get_config, "kernel-q3")]
     report["lm_s"] = time.perf_counter() - t_start - report["resnet_s"]
+
+    # -- 6b. the LM at kernel: kernel #3's bf16 entry on every projection -----
+    t0 = time.perf_counter()
+    fp_cfg = get_config(LM_ARCH, "kernel")
+    rows += lm_fp_kernels(torch, dev, gen, ops, ref, WRAPPERS, lm, fp_cfg)
+    torch.cuda.empty_cache()
+    lm_fp_run = lm_path(torch, dev, lm, serve, fp_cfg, "kernel", FP_KERNEL, launch_counts,
+                        reset_launch_counts)
+    launches[FP_KERNEL] += lm_fp_run["launches"][FP_KERNEL]
+    launches["wkv6_chunked"] += lm_fp_run["launches"]["wkv6_chunked"]
+    # its WKV launches run at the shape timed with the kernel-q3 path's
+    wkv = next(r for r in lm_rows if r["kernel"] == "wkv6_chunked")
+    rows.append(dict(wkv, path=f"{LM_ARCH} kernel"))
+    torch.cuda.empty_cache()
+    lm_cpu.append(lm_card_vs_cpu(torch, dev, lm, get_config, "kernel"))
+    report["lm_kernel_s"] = time.perf_counter() - t0
 
     # -- 7. kernel #5 through ops.quant_matmul --------------------------------
     t0 = time.perf_counter()
@@ -358,7 +389,7 @@ def main() -> int:
         per_run = lambda key: sum(r[key] * r["count"] for r in counted)
         by = {b: sum(r["bound_ms"] * r["count"] for r in counted if r["bound_by"] == b)
               for b in ("bytes", "operations")}
-        tc = name in TC_KERNELS
+        tc = tc_seconds(name, 1.0, "float32") is not None
         lib = [r["library_ms"] for r in counted]
         paths_of = {}
         for r in counted:
@@ -408,7 +439,7 @@ def main() -> int:
                 f"{k1['ms'] + k1['fold_ms']:.3f} ms; library {_ms(k2['library_ms'])}")
     report["fused_fold_vs_blocks_plus_fold"] = fused_vs
 
-    report.update(kernels=summary, shapes=rows, forwards=forwards, lm=lm_run,
+    report.update(kernels=summary, shapes=rows, forwards=forwards, lm=lm_run, lm_kernel=lm_fp_run,
                   lm_card_vs_cpu=lm_cpu, fold_probe=fold, plan=plan_run["plan"],
                   quant_matmul_vs_f64=qm_f64,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
@@ -416,7 +447,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['total_s']:.1f} s (ResNet {report['resnet_s']:.1f}, "
-        f"LM {report['lm_s']:.1f}, quant_matmul {report['quant_matmul_s']:.1f}, "
+        f"LM {report['lm_s']:.1f}, LM kernel {report['lm_kernel_s']:.1f}, "
+        f"quant_matmul {report['quant_matmul_s']:.1f}, "
         f"plan {report['plan_s']:.1f})")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
@@ -525,6 +557,14 @@ def logits_over_seeds(torch, dev, get_resnet, forwards, paths) -> dict:
     return out
 
 
+def site_specs(lm, cfg) -> dict:
+    """{epitome spec: projections per layer} of the LM's 8 projections."""
+    out = {}
+    for lc in lm.lm_layer_configs(cfg).values():
+        out[lc.spec] = out.get(lc.spec, 0) + 1
+    return out
+
+
 def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
     """The int8 kernel at the LM's three projection shapes, bf16 (the path's
     dtype, counted) and float32 (checked), at prefill and decode rows; the
@@ -532,9 +572,7 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
     its plain version, then timed beside it, the yardstick and the bound."""
     from repro_torch.core.quant import dequantize_packed
     sites = lm.lm_layer_configs(cfg)
-    per_layer = {}
-    for lc in sites.values():
-        per_layer[lc.spec] = per_layer.get(lc.spec, 0) + 1
+    per_layer = site_specs(lm, cfg)
     n_layers = cfg.n_layers
     rows = []
     for spec, k in per_layer.items():
@@ -632,6 +670,63 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
     return rows, rows_fold
 
 
+def lm_fp_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg) -> list:
+    """Kernel #3's bf16 entry at the LM's three projection shapes, at prefill
+    rows (4 x 256) and decode rows (4), as rwkv6-7b ``kernel`` runs it: a
+    bf16 activation and the float32 epitome cast to bf16 by
+    ops.epitome_matmul.  Each against its plain version, then timed beside
+    it and cuBLAS bf16 on the same bf16 weight, with the decode rows three
+    times bit for bit and L2-cold (over copies of E past 64 MB); beside
+    them the time of the per-call cast E.to(bfloat16) of ops.epitome_matmul."""
+    rows = []
+    for spec, k in site_specs(lm, cfg).items():
+        E = torch.randn(spec.m, spec.n, device=dev, generator=gen) / math.sqrt(spec.M)
+        Eb = E.bfloat16()
+        bn = spec.bn
+        cb = ops.spec_tables(spec, bn, dev).col_blocks
+        gn = len(cb)
+        cols = torch.cat([torch.arange(c * bn, (c + 1) * bn, device=dev)
+                          for c in ops.kernel_col_blocks(spec, bn).tolist()])
+        Wb = Eb[:, cols].contiguous()
+        cast_ms = graph_ms(torch, lambda: E.to(torch.bfloat16))
+        E_cold = [Eb.clone() for _ in range(-(-L2_COLD_BYTES // (2 * Eb.numel())) + 1)]
+        for T, count in ((LM_REQUESTS * LM_PROMPT, k * cfg.n_layers),
+                         (LM_REQUESTS, k * cfg.n_layers * (LM_NEW - 1))):
+            x = torch.randn(T, spec.M, device=dev, generator=gen).bfloat16()
+            folded = ops.fold_rows(x, spec)
+            kernel = lambda e=Eb: wrappers[FP_KERNEL](folded, e, cb, bn=bn)
+            plain = lambda: ref.epitome_matmul_blocks_ref(folded, Eb, cb, bn)
+            library = lambda: torch.matmul(folded, Wb)     # cuBLAS bf16, the same values
+            y = kernel()
+            if y.dtype != torch.bfloat16:
+                raise AssertionError(f"{FP_KERNEL}: bfloat16 in, {y.dtype} out")
+            err = max_err(torch, y, plain(), BF16_TOL, f"{FP_KERNEL} bfloat16 {spec} T={T}")
+            nbytes = 2.0 * (folded.numel() + Eb.numel() + T * gn * bn) + 4.0 * gn
+            row = timed_row(torch, FP_KERNEL, kernel, plain, library, nbytes,
+                            2.0 * T * spec.m * gn * bn, "bfloat16")
+            row.update(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bn=bn, T=T, dtype="bfloat16",
+                       max_abs_err=err, path=f"{LM_ARCH} kernel", count=count,
+                       library_bf16_ms=row["library_ms"], cast_ms=cast_ms)
+            if T == LM_REQUESTS:
+                again = [kernel() for _ in range(3)]
+                if not all(torch.equal(a, again[0]) for a in again):
+                    raise AssertionError(f"{FP_KERNEL} bfloat16 T={T}: three launches differ")
+                ec = itertools.cycle(E_cold)
+                row.update(repeat_bit_for_bit=3, ms_cold=graph_ms(torch, lambda: kernel(next(ec))),
+                           cold_buffers=[len(E_cold)])
+            rows.append(row)
+            log(f"[lm-kernels] {FP_KERNEL} bfloat16 ({spec.M},{spec.N})->({spec.m},{spec.n}) "
+                f"T={T} x{count}: max_err={err:.2e} ms={row['ms']:.4f} "
+                f"(eager {row['ms_eager']:.4f}) plain_ms={row['plain_ms']:.4f} "
+                f"library_bf16_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                f"({row['bound_by']}) bound_fp32_ms={row['bound_fp32_ms']:.4f} "
+                f"bound_tc_ms={row['bound_tc_ms']:.4f}; E.to(bfloat16) cast_ms={cast_ms:.4f}"
+                + (f"; L2-cold ms={row['ms_cold']:.4f} ({len(E_cold)} copies of E); 3 "
+                   f"launches bit for bit" if T == LM_REQUESTS else ""))
+        del E, Eb, Wb, E_cold
+    return rows
+
+
 def fold_probe(torch, dev, gen, ops, spec, runs: int = 20) -> dict:
     """How a bf16 fold repeats on the card: the distinct results of ``runs``
     identical folds by scatter-add (index_add_) summed in bf16 (the
@@ -654,14 +749,27 @@ def fold_probe(torch, dev, gen, ops, spec, runs: int = 20) -> dict:
     return out
 
 
-def bounds(name, nbytes, flops) -> dict:
+def tc_seconds(name, flops, dtype):
+    """The tensor-core time of a kernel's FLOPs, None for one off the
+    tensor cores: the int8-code kernels at the bf16 rate, kernel #3 at
+    3 x FLOPs over the TF32 rate for float32 (3xTF32) or at the bf16 rate
+    for bf16."""
+    if name in TC_KERNELS or (name == FP_KERNEL and dtype == "bfloat16"):
+        return flops / BF16_TC_FLOPS
+    if name == FP_KERNEL:
+        return 3 * flops / TF32_TC_FLOPS
+    return None
+
+
+def bounds(name, nbytes, flops, dtype="float32") -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak of their type, the bf16
-    tensor cores for the int8-code kernels (TC_KERNELS), else fp32; the
+    memory rate and the operations over the peak of their type, the tensor
+    cores for kernels #1, #2, #3 and #5 (tc_seconds), fp32 for the WKV; the
     fp32-rate bound is kept beside it for every kernel."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_fp32 = flops / FP32_FLOPS * 1e3
-    t_tc = flops / BF16_TC_FLOPS * 1e3 if name in TC_KERNELS else None
+    t_tc = tc_seconds(name, flops, dtype)
+    t_tc = None if t_tc is None else t_tc * 1e3
     t_ops = t_fp32 if t_tc is None else t_tc
     return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations",
@@ -669,14 +777,14 @@ def bounds(name, nbytes, flops) -> dict:
                 bound_tc_ms=None if t_tc is None else max(t_bytes, t_tc))
 
 
-def timed_row(torch, name, kernel, plain, library, nbytes, flops) -> dict:
+def timed_row(torch, name, kernel, plain, library, nbytes, flops, dtype="float32") -> dict:
     """Kernel and yardstick times on the device (graph_ms) and eager (host
     included), the plain version's eager time, and the bounds."""
     return dict(kernel=name, ms=graph_ms(torch, kernel), ms_eager=time_ms(torch, kernel),
                 plain_ms=time_ms(torch, plain),
                 library_ms=None if library is None else graph_ms(torch, library),
                 library_ms_eager=None if library is None else time_ms(torch, library),
-                **bounds(name, nbytes, flops))
+                **bounds(name, nbytes, flops, dtype))
 
 
 def wkv6_ops(B, S, H, K, L) -> float:
@@ -691,9 +799,11 @@ def wkv6_ops(B, S, H, K, L) -> float:
     return float(B * H * -(-S // L) * per)
 
 
-def lm_path(torch, dev, lm, serve, cfg, launch_counts, reset_launch_counts) -> dict:
-    """rwkv6-7b kernel-q3 at full width and depth: generate with exact
-    launch counts, then prefill and decode timed and profiled."""
+def lm_path(torch, dev, lm, serve, cfg, variant, kernel, launch_counts,
+            reset_launch_counts) -> dict:
+    """rwkv6-7b at ``variant`` at full width and depth: generate with exact
+    launch counts (8 of ``kernel`` per layer and forward, one WKV per layer,
+    nothing else), then prefill and decode timed and profiled."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
@@ -710,7 +820,7 @@ def lm_path(torch, dev, lm, serve, cfg, launch_counts, reset_launch_counts) -> d
     generate_s = time.perf_counter() - t0
     counts = launch_counts()
     expect = {k: 0 for k in counts}
-    expect[QUANT] = 8 * cfg.n_layers * LM_NEW
+    expect[kernel] = 8 * cfg.n_layers * LM_NEW
     expect["wkv6_chunked"] = cfg.n_layers
     if counts != expect:
         raise AssertionError(f"{LM_ARCH}: launches {counts}, expected {expect}")
@@ -737,8 +847,9 @@ def lm_path(torch, dev, lm, serve, cfg, launch_counts, reset_launch_counts) -> d
             raise AssertionError(f"{LM_ARCH}: three identical prefills differ by "
                                  f"{repeat_diff:.3e} in their logits")
         top2 = torch.topk(outs[0][0], 2).values
+        wr = params["groups"][0]["L0"]["mixer"]["wr"]
         fingerprint = [float(params["embed"].double().sum()), float(prompts.sum()),
-                       int(params["groups"][0]["L0"]["mixer"]["wr"]["Eq"].long().sum())]
+                       int(wr["Eq"].long().sum()) if "Eq" in wr else float(wr["E"].double().sum())]
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
         logits, state = lm.decode_step(params, state, tok, LM_PROMPT, cfg)   # warm-up
         dec, dec_host = [], []
@@ -756,7 +867,8 @@ def lm_path(torch, dev, lm, serve, cfg, launch_counts, reset_launch_counts) -> d
         prof_dec = device_breakdown(
             torch, lambda: lm.decode_step(params, state, tok, LM_PROMPT + 6, cfg))
     decode_ms = statistics.median(dec)
-    run = dict(launches={QUANT: counts[QUANT], "wkv6_chunked": counts["wkv6_chunked"]},
+    run = dict(variant=variant, kernel=kernel,
+               launches={kernel: counts[kernel], "wkv6_chunked": counts["wkv6_chunked"]},
                setup_s=setup_s, generate_s=generate_s, tokens_sample=toks[0, :8].tolist(),
                prefill_ms=pre, prefill_host_ms=pre_host, decode_ms=dec, decode_host_ms=dec_host,
                prefill_ms_median=statistics.median(pre), decode_ms_median=decode_ms,
@@ -766,13 +878,13 @@ def lm_path(torch, dev, lm, serve, cfg, launch_counts, reset_launch_counts) -> d
                prefill_kernels=sum(n for _, _, n in prof_pre),
                prefill_repeat_max_abs_diff=repeat_diff,
                first_token_top2=[float(t) for t in top2], fingerprint=fingerprint)
-    log(f"[lm] {LM_ARCH} kernel-q3 bf16 {cfg.n_layers} layers: init+prepack {setup_s:.1f} s; "
+    log(f"[lm] {LM_ARCH} {variant} bf16 {cfg.n_layers} layers: init+prepack {setup_s:.1f} s; "
         f"generate {LM_REQUESTS}x{LM_PROMPT}+{LM_NEW} in {generate_s:.2f} s with "
-        f"{QUANT} x{counts[QUANT]}, wkv6_chunked x{counts['wkv6_chunked']}; "
+        f"{kernel} x{counts[kernel]}, wkv6_chunked x{counts['wkv6_chunked']}; "
         f"tokens[0] {toks[0, :8].tolist()}; weights and prompts fingerprint {fingerprint}; "
         f"3 prefills differ by max|d logits| {repeat_diff:.3e}; request 0's top two "
         f"logits {float(top2[0]):.4f}, {float(top2[1]):.4f}")
-    log(f"[lm] prefill median {run['prefill_ms_median']:.2f} ms (runs "
+    log(f"[lm] {variant}: prefill median {run['prefill_ms_median']:.2f} ms (runs "
         f"{', '.join(f'{t:.2f}' for t in pre)}; host returns after "
         f"{statistics.median(pre_host):.2f}); decode step median {decode_ms:.2f} ms (runs "
         f"{', '.join(f'{t:.2f}' for t in dec)}; host returns after "
@@ -781,9 +893,9 @@ def lm_path(torch, dev, lm, serve, cfg, launch_counts, reset_launch_counts) -> d
         f"decode step {run['decode_kernels_per_step']}")
     for label, prof in (("prefill", prof_pre), ("decode", prof_dec)):
         busy = sum(ms for _, ms, _ in prof)
-        log(f"[profile] lm {label}: device busy {busy:.3f} ms")
+        log(f"[profile] lm {variant} {label}: device busy {busy:.3f} ms")
         for name, ms, n in prof[:8]:
-            log(f"[profile] lm {label}: {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+            log(f"[profile] lm {variant} {label}: {ms:9.3f} ms  x{n:<5d} {name[:90]}")
     del params, state, state0
     return run
 
@@ -793,13 +905,13 @@ def finite(torch, t, what):
         raise AssertionError(f"{LM_ARCH}: {what} not finite")
 
 
-def lm_card_vs_cpu(torch, dev, lm, get_config) -> dict:
-    """The LM in float32 at full width, cut to CPU_LAYERS layers: one prompt
+def lm_card_vs_cpu(torch, dev, lm, get_config, variant) -> dict:
+    """The LM at ``variant`` in float32 at full width, cut to CPU_LAYERS layers: one prompt
     through prefill and greedy decode on the CPU (plain versions), then the
     same tokens on the card; logits held at LOGIT_TOL of their scale and
     the greedy tokens equal, a step whose CPU top two logits lie within the
     tolerance being held by its logits alone."""
-    cfg = get_config(LM_ARCH, "kernel-q3", compute_dtype="float32", n_layers=CPU_LAYERS)
+    cfg = get_config(LM_ARCH, variant, compute_dtype="float32", n_layers=CPU_LAYERS)
     card = lm.prepack_params(
         lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg)
     host = _to_cpu(card)
@@ -831,14 +943,14 @@ def lm_card_vs_cpu(torch, dev, lm, get_config) -> dict:
         scale = max(1.0, float(b.abs().max()))
         err = float((a - b).abs().max())
         if not err <= LOGIT_TOL * scale:
-            raise AssertionError(f"{LM_ARCH} {CPU_LAYERS} layers: step {i} logits on the "
+            raise AssertionError(f"{LM_ARCH} {variant} {CPU_LAYERS} layers: step {i} logits on the "
                                  f"card differ from the CPU by {err:.3e} "
                                  f"(> {LOGIT_TOL} * {scale:.3f})")
         top2 = torch.topk(b[0], 2).values
         gap = float(top2[0] - top2[1])
         same = int(torch.argmax(a[0])) == int(ref_toks[i])
         if not same and gap > LOGIT_TOL * scale:
-            raise AssertionError(f"{LM_ARCH} {CPU_LAYERS} layers: step {i} greedy token "
+            raise AssertionError(f"{LM_ARCH} {variant} {CPU_LAYERS} layers: step {i} greedy token "
                                  f"{int(torch.argmax(a[0]))} on the card, "
                                  f"{int(ref_toks[i])} on the CPU")
         if not same:
@@ -846,12 +958,12 @@ def lm_card_vs_cpu(torch, dev, lm, get_config) -> dict:
                 f"held by its logits alone")
         steps.append(dict(max_abs_err=err, scale=scale, top2_gap=gap, same_token=same))
     errs = ", ".join(f"{s['max_abs_err']:.2e}" for s in steps)
-    log(f"[lm-cpu] {LM_ARCH} float32 {CPU_LAYERS} layers, 1x{CPU_PROMPT}+{CPU_NEW}: card vs "
+    log(f"[lm-cpu] {LM_ARCH} {variant} float32 {CPU_LAYERS} layers, 1x{CPU_PROMPT}+{CPU_NEW}: card vs "
         f"cpu logits max|d| per step {errs} "
         f"(max|logit| {max(s['scale'] for s in steps):.3f}); tokens "
         f"{[int(t) for t in ref_toks]} equal; cpu run {cpu_s:.1f} s")
     del card, host
-    return dict(steps=steps, tokens=[int(t) for t in ref_toks], cpu_s=cpu_s)
+    return dict(variant=variant, steps=steps, tokens=[int(t) for t in ref_toks], cpu_s=cpu_s)
 
 
 QM_SHAPES = ((4096, 4096), (4096, 14336), (14336, 4096))   # rwkv6-7b's projections
@@ -910,10 +1022,15 @@ def quant_matmul_phase(torch, dev, gen, ops, ref, wrappers, launch_counts,
                         lambda: torch.matmul(xf, W), nbytes, 2.0 * T * M * N)
         row.update(M=M, N=N, T=T, x_shape=list(x.shape), dtype=dname, max_abs_err=err,
                    path="quant_matmul", count=1)
+        if dtype == torch.bfloat16:   # the bf16 yardstick: bf16 x, bf16 weight
+            Wb = W.bfloat16()
+            row["library_bf16_ms"] = graph_ms(torch, lambda: torch.matmul(xp, Wb))
+            del Wb
         rows.append(row)
         log(f"[quant_matmul] {dname} ({M},{N}) x{tuple(x.shape)}: launches 1, "
-            f"max_err={err:.2e} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"max_err={err:.2e} ms={row['ms']:.4f} (eager {row['ms_eager']:.4f}) "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+            f"library_bf16_ms={_ms(row.get('library_bf16_ms'), 4)} bound_ms={row['bound_ms']:.4f} "
             f"({row['bound_by']}) bound_fp32_ms={row['bound_fp32_ms']:.4f} "
             f"bound_tc_ms={row['bound_tc_ms']:.4f}")
     return rows, quant_matmul_vs_f64(torch, dev, gen, ref, wrappers)

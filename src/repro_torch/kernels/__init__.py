@@ -1,7 +1,9 @@
 """The kernels, hand-written in CUDA C++ for Hopper (sm_90a).
 
 epitome_matmul        — y = x_folded @ E, column blocks steered by the OFAT
-                        table (``csrc/epitome_matmul.cu``)
+                        table, float32 (3xTF32) or bfloat16 on the tensor
+                        cores (``csrc/epitome_matmul.cu`` on
+                        ``csrc/epitome_fp_mma.cuh``)
 quant_epitome_matmul  — the same over int8 codes with one (scale, zero)
                         per pack block, float32 or bfloat16 activations,
                         and a variant that folds the activation inside the
@@ -13,7 +15,8 @@ wkv6                  — the chunked RWKV6 WKV with a carried state
                         (``csrc/wkv6.cu``)
 quant_matmul          — a dense int8 dequant matmul with one (scale, zero)
                         per 256 x 256 crossbar tile, float32 or bfloat16
-                        activations (``csrc/quant_matmul.cu``)
+                        activations (``csrc/quant_matmul.cu`` on
+                        ``csrc/epitome_mma.cuh``)
 ref                   — the plain PyTorch version of each kernel
 ops                   — the public wrappers: fold, block picks, trim
 

@@ -31,7 +31,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # are c_void_p so ctypes never cuts them to 32 bits
 LIBRARIES = {
     "epitome_matmul": ("epitome_matmul.cu", {
-        "epitome_matmul_blocks_launch": [_P] * 4 + [_I] * 5 + [_P],
+        "epitome_matmul_blocks_launch": [_P] * 6 + [_I] * 6 + [_P],
+        "epitome_matmul_blocks_bf16_launch": [_P] * 6 + [_I] * 6 + [_P],
     }),
     "quant_epitome_matmul": ("quant_epitome_matmul.cu", {
         "quant_epitome_matmul_blocks_launch": [_P] * 8 + [_I] * 8 + [_P],
@@ -41,8 +42,8 @@ LIBRARIES = {
         "quant_epitome_matmul_blocks_bf16_launch": [_P] * 8 + [_I] * 8 + [_P],
     }),
     "quant_matmul": ("quant_matmul.cu", {
-        "quant_matmul_launch": [_P] * 5 + [_I] * 3 + [_P],
-        "quant_matmul_bf16_launch": [_P] * 5 + [_I] * 3 + [_P],
+        "quant_matmul_launch": [_P] * 8 + [_I] * 4 + [_P],
+        "quant_matmul_bf16_launch": [_P] * 8 + [_I] * 4 + [_P],
     }),
     "wkv6": ("wkv6.cu", {
         "wkv6_chunked_launch": [_P] * 8 + [_I] * 5 + [_P],
@@ -154,7 +155,7 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-MAX_ROW_TILES = 65535     # gridDim.y limit; the kernels' row tile is 64 rows
+MAX_ROW_TILES = 65535     # gridDim.y limit, counted in 64-row tiles (the kernels' are 128)
 
 
 def require_rows(kernel: str, T: int) -> None:

@@ -1,6 +1,8 @@
-// The main loop shared by the two int8-epitome kernels: kernel #1,
-// quant_epitome_matmul_blocks (float32 and bf16 entries), and kernel #2,
-// quant_epitome_matmul_fused_fold.
+// The main loop shared by the int8-code kernels: kernel #1,
+// quant_epitome_matmul_blocks (float32 and bf16 entries), kernel #2,
+// quant_epitome_matmul_fused_fold, and kernel #5, quant_matmul (the dense
+// case: an identity column table, bk = bn = 256).  Kernel #3's float loop
+// (epitome_fp_mma.cuh) runs on this tile, ring, split-K and epilogue.
 //
 //   y[:, j*bn + c] = sum_k x[:, k] * (q[k, cb[j]*bn + c] + z[b, cb[j]]) * s[b, cb[j]]
 //
@@ -67,11 +69,14 @@
 // loads, all in flight together, and sums them with SIMT FMAs against the
 // staged rows of x; rows t >= T are not computed.  A thread's run of rows
 // lies in one pack block, so it scales its partial once.  The block sums its
-// 16 row lanes in lane order; the splits meet in a float32 scratch, and the
+// 16 row lanes pairwise; the splits meet in a float32 scratch, and the
 // last block to finish a column tile (a ticket counter, which that block
-// resets to 0) sums them in split order and writes y (sum_splits).  No
-// atomics touch the output, so a launch repeats bit for bit, and it is one
-// launch.
+// resets to 0) sums them, 16 at a time pairwise, the groups in split order,
+// and writes y (sum_splits).  No atomics touch the output, so a launch
+// repeats bit for bit, and it is one launch.  Summed one after another,
+// the splits are most of the distance from the float64 product at kernel
+// #5's M = 14336 (112 splits), which chip_smoke.py gates no further than
+// cuBLAS's (tests/test_torch_mma_numerics.py models both orders).
 //
 // Ragged edges are masked in every mode: rows t >= T, contraction rows
 // k >= m and columns c >= bn are staged as zero and not stored, so no caller
@@ -86,6 +91,11 @@
 #include <cuda_runtime.h>
 
 namespace epim_mma {
+// Internal linkage: several libraries instantiate the same templates, and
+// their function-local statics (the once-flags of allow_smem) would
+// otherwise be one object in the process (GNU unique symbols), so a
+// kernel of the second library to load never got its shared-memory size.
+namespace {
 
 // ---------------------------------------------------------------------------
 // Device helpers
@@ -196,7 +206,11 @@ constexpr uint32_t kOnesLo = 0x1C001C00u;  // fp16 pair (2^-8, 2^-8)
 
 struct Args {
   const void* x;          // XT; kDirect/kSplit and decode: (T, ldx); kFold: float32 (T, M)
-  const int8_t* q;        // (m, n) codes
+  union {                 // the weight: one pointer, so that Args keeps its size (a
+                          // field more, or a null test of cb, made kernel #2 spill)
+    const int8_t* q;      // (m, n) int8 codes: kernels #1, #2, #5
+    const void* e;        // kernel #3: E (m, n) in x's type (epitome_fp_mma.cuh)
+  };
   const float* scales;    // (ceil(m / bk), s_cols)
   const float* zeros;
   const int* cb;          // (gn,) epitome column block of output block j
@@ -208,12 +222,27 @@ struct Args {
   int vec_a, vec_b, vec_y;  // 16-byte copies and stores allowed
 };
 
+__device__ __forceinline__ float4 operator+(float4 p, float4 q) {
+  return make_float4(p.x + q.x, p.y + q.y, p.z + q.z, p.w + q.w);
+}
+// Sum of 16 values as a balanced tree (v[u] + v[u + 8], then + 4, + 2,
+// + 1): four roundings deep where a chain is sixteen.
+template <typename V>
+__device__ __forceinline__ V tree16(const V (&v)[16]) {
+  V h[8], q[4];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) h[u] = v[u] + v[u + 8];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) q[u] = h[u] + h[u + 4];
+  return (q[0] + q[2]) + (q[1] + q[3]);
+}
+
 // ---------------------------------------------------------------------------
 // Split-K: the splits of an output tile meet in a float32 scratch
 // (splits, T, gn * bn); the last block of the tile to finish (a ticket
-// counter, which it sets back to 0 for the next launch) sums them in split
-// order and writes y.  A fixed order, no atomics on the output: a launch
-// repeats bit for bit.
+// counter, which it sets back to 0 for the next launch) sums them in a fixed
+// order and writes y.  No atomics on the output: a launch repeats bit for
+// bit.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ bool last_of_tile(int* counter, int splits) {
   __shared__ int is_last;
@@ -226,7 +255,8 @@ __device__ __forceinline__ bool last_of_tile(int* counter, int splits) {
 }
 
 // Rows [t0, t0 + rows) and the ncol columns from ycol0 of the output, from
-// the scratch; loads go 16 splits at a time, the sum stays in split order.
+// the scratch; 16 splits at a time, each group summed as a tree (+ 0 past
+// the last split changes nothing), the groups in split order.
 template <typename XT>
 __device__ void sum_splits(const Args& a, int splits, int t0, int rows, size_t ycol0,
                            int ncol, int nthreads) {
@@ -248,10 +278,7 @@ __device__ void sum_splits(const Args& a, int splits, int t0, int rows, size_t y
         for (int u = 0; u < 16; ++u)
           b[u] = s0 + u < splits ? __ldcg(reinterpret_cast<const float4*>(src + (s0 + u) * stride))
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int u = 0; u < 16; ++u) {  // + 0 past the last split changes nothing
-          v.x += b[u].x; v.y += b[u].y; v.z += b[u].z; v.w += b[u].w;
-        }
+        v = v + tree16(b);
       }
       const float o4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -263,8 +290,7 @@ __device__ void sum_splits(const Args& a, int splits, int t0, int rows, size_t y
         float b[16];
 #pragma unroll
         for (int u = 0; u < 16; ++u) b[u] = s0 + u < splits ? __ldcg(src + (s0 + u) * stride) : 0.f;
-#pragma unroll
-        for (int u = 0; u < 16; ++u) v += b[u];
+        v += tree16(b);
       }
       dst[0] = from_f32<XT>(v);
     }
@@ -300,6 +326,85 @@ constexpr size_t mma_smem_bytes() {
          + (AMODE == kDirect ? (size_t)STAGES * BM * LDH * 2 : 0)
          + (AMODE == kSplit ? (size_t)STAGES * BM * LDF * 4 : 0)
          + (AMODE == kDirect ? 0 : (size_t)2 * NSPLIT * BM * LDH * 2);
+}
+
+// The epilogue of a prefill tile: each thread holds tot[i][jj][e], 8
+// neighbouring columns (n8 tile jj holds columns 4l + jj) of 2 MI rows.
+// Split-K: this split's partial goes to the scratch, and the tile's last
+// block sums the splits into y.
+template <typename XT, int WN, int MI>
+__device__ __forceinline__ void store_tile(const Args& a, const float (&tot)[MI][4][4],
+                                           int row0, size_t ycol0, int ncol) {
+  using Tl = Tile<WN, MI>;
+  constexpr int WROWS = 16 * MI;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN, g = lane >> 2, c4 = lane & 3;
+  const int nsplit = gridDim.z;
+  const size_t ldy = (size_t)a.gn * a.bn;
+  const int cl = wn * 32 + 8 * c4;
+  if (nsplit > 1) {   // this split's partial, then the tile's last block sums them
+    float* part = a.scratch + (size_t)blockIdx.z * a.T * ldy;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = row0 + wm * WROWS + 16 * i + g + 8 * half;
+        if (t >= a.T) continue;
+        float* dst = part + (size_t)t * ldy + ycol0 + cl;
+        if (a.vec_y && cl + 8 <= ncol) {
+          reinterpret_cast<float4*>(dst)[0] = make_float4(
+              tot[i][0][2 * half], tot[i][1][2 * half], tot[i][2][2 * half], tot[i][3][2 * half]);
+          reinterpret_cast<float4*>(dst)[1] = make_float4(
+              tot[i][0][2 * half + 1], tot[i][1][2 * half + 1], tot[i][2][2 * half + 1],
+              tot[i][3][2 * half + 1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (cl + e < ncol) dst[e] = tot[i][e & 3][2 * half + (e >> 2)];
+        }
+      }
+    int* counter = a.counters + blockIdx.y * gridDim.x + blockIdx.x;
+    if (!last_of_tile(counter, nsplit)) return;
+    sum_splits<XT>(a, nsplit, row0, Tl::BM, ycol0, ncol, Tl::THREADS);
+    if (tid == 0) *counter = 0;
+    return;
+  }
+  XT* y = static_cast<XT*>(a.y);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = row0 + wm * WROWS + 16 * i + g + 8 * half;
+      if (t >= a.T) continue;
+      float o[8];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        o[jj] = tot[i][jj][2 * half];
+        o[4 + jj] = tot[i][jj][2 * half + 1];
+      }
+      XT* dst = y + (size_t)t * ldy + ycol0 + cl;
+      if (a.vec_y && cl + 8 <= ncol) {
+        if constexpr (sizeof(XT) == 4) {
+          reinterpret_cast<float4*>(dst)[0] = make_float4(o[0], o[1], o[2], o[3]);
+          reinterpret_cast<float4*>(dst)[1] = make_float4(o[4], o[5], o[6], o[7]);
+        } else {
+          uint4 p;
+          const __nv_bfloat162 p0 = __floats2bfloat162_rn(o[0], o[1]);
+          const __nv_bfloat162 p1 = __floats2bfloat162_rn(o[2], o[3]);
+          const __nv_bfloat162 p2 = __floats2bfloat162_rn(o[4], o[5]);
+          const __nv_bfloat162 p3 = __floats2bfloat162_rn(o[6], o[7]);
+          p.x = *reinterpret_cast<const uint32_t*>(&p0);
+          p.y = *reinterpret_cast<const uint32_t*>(&p1);
+          p.z = *reinterpret_cast<const uint32_t*>(&p2);
+          p.w = *reinterpret_cast<const uint32_t*>(&p3);
+          *reinterpret_cast<uint4*>(dst) = p;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (cl + e < ncol) dst[e] = from_f32<XT>(o[e]);
+      }
+    }
 }
 
 template <int AMODE, typename XT, int WN, int MI, int GR>
@@ -574,73 +679,7 @@ __global__ void __launch_bounds__(Tile<WN, MI>::THREADS, 1) mma_kernel(Args a) {
     compute(i % STAGES, i & 1, kt0 + i);
   }
 
-  // epilogue: each thread holds 8 neighbouring columns of 2 MI rows
-  const size_t ldy = (size_t)a.gn * a.bn;
-  const size_t ycol0 = (size_t)j * a.bn + c0;
-  const int cl = wn * 32 + 8 * c4;
-  if (nsplit > 1) {   // this split's partial, then the tile's last block sums them
-    float* part = a.scratch + (size_t)blockIdx.z * a.T * ldy;
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int t = row0 + wm * WROWS + 16 * i + g + 8 * half;
-        if (t >= a.T) continue;
-        float* dst = part + (size_t)t * ldy + ycol0 + cl;
-        if (a.vec_y && cl + 8 <= ncol) {
-          reinterpret_cast<float4*>(dst)[0] = make_float4(
-              tot[i][0][2 * half], tot[i][1][2 * half], tot[i][2][2 * half], tot[i][3][2 * half]);
-          reinterpret_cast<float4*>(dst)[1] = make_float4(
-              tot[i][0][2 * half + 1], tot[i][1][2 * half + 1], tot[i][2][2 * half + 1],
-              tot[i][3][2 * half + 1]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (cl + e < ncol) dst[e] = tot[i][e & 3][2 * half + (e >> 2)];
-        }
-      }
-    int* counter = a.counters + blockIdx.y * gridDim.x + blockIdx.x;
-    if (!last_of_tile(counter, nsplit)) return;
-    sum_splits<XT>(a, nsplit, row0, BM, ycol0, ncol, THREADS);
-    if (tid == 0) *counter = 0;
-    return;
-  }
-  XT* y = static_cast<XT*>(a.y);
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int t = row0 + wm * WROWS + 16 * i + g + 8 * half;
-      if (t >= a.T) continue;
-      float o[8];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        o[jj] = tot[i][jj][2 * half];
-        o[4 + jj] = tot[i][jj][2 * half + 1];
-      }
-      XT* dst = y + (size_t)t * ldy + ycol0 + cl;
-      if (a.vec_y && cl + 8 <= ncol) {
-        if constexpr (sizeof(XT) == 4) {
-          reinterpret_cast<float4*>(dst)[0] = make_float4(o[0], o[1], o[2], o[3]);
-          reinterpret_cast<float4*>(dst)[1] = make_float4(o[4], o[5], o[6], o[7]);
-        } else {
-          uint4 p;
-          const __nv_bfloat162 p0 = __floats2bfloat162_rn(o[0], o[1]);
-          const __nv_bfloat162 p1 = __floats2bfloat162_rn(o[2], o[3]);
-          const __nv_bfloat162 p2 = __floats2bfloat162_rn(o[4], o[5]);
-          const __nv_bfloat162 p3 = __floats2bfloat162_rn(o[6], o[7]);
-          p.x = *reinterpret_cast<const uint32_t*>(&p0);
-          p.y = *reinterpret_cast<const uint32_t*>(&p1);
-          p.z = *reinterpret_cast<const uint32_t*>(&p2);
-          p.w = *reinterpret_cast<const uint32_t*>(&p3);
-          *reinterpret_cast<uint4*>(dst) = p;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (cl + e < ncol) dst[e] = from_f32<XT>(o[e]);
-      }
-    }
+  store_tile<XT, WN, MI>(a, tot, row0, (size_t)j * a.bn + c0, ncol);
 }
 
 // ---------------------------------------------------------------------------
@@ -762,9 +801,10 @@ __global__ void __launch_bounds__(DEC_THREADS, 4) decode_kernel(Args a) {
     __syncthreads();
     for (int o = tid; o < G * DEC_COLS; o += DEC_THREADS) {
       const int gg = o / DEC_COLS, c = o % DEC_COLS, t = tg * G + gg;
-      float v = 0.f;
+      float lanes[DEC_LANES];
 #pragma unroll
-      for (int l = 0; l < DEC_LANES; ++l) v += red[(l * G + gg) * DEC_COLS + c];
+      for (int l = 0; l < DEC_LANES; ++l) lanes[l] = red[(l * G + gg) * DEC_COLS + c];
+      const float v = tree16(lanes);
       if (t < a.T && c < ncol) {
         if (nsplit == 1) y[(size_t)t * ldy + ycol0 + c] = from_f32<XT>(v);
         else a.scratch[((size_t)split * a.T + t) * ldy + ycol0 + c] = v;
@@ -793,24 +833,42 @@ inline cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
   return e;
 }
 
-template <typename XT>
-inline void set_vec(Args& a) {
+// 16-byte copies of x's rows and of the weight's (w: WT (m, n)) rows, and
+// 8-column stores of y
+template <typename XT, typename WT = int8_t>
+inline void set_vec(Args& a, const void* w) {
   a.vec_a = aligned16(a.x) && ((size_t)a.ldx * sizeof(XT)) % 16 == 0;
-  a.vec_b = aligned16(a.q) && a.n % 16 == 0 && a.bn % 16 == 0;
+  a.vec_b = aligned16(w) && (a.n * sizeof(WT)) % 16 == 0 && (a.bn * sizeof(WT)) % 16 == 0;
   a.vec_y = aligned16(a.y) && a.bn % 8 == 0;
+}
+
+// A prefill kernel on the tile Tl: one block per (output tile, row tile,
+// split).  ready: the instantiation's own flag for allow_smem.
+template <typename Tl, typename K>
+inline int launch_tile(K kernel, size_t smem, bool& ready, const Args& a, cudaStream_t stream) {
+  const cudaError_t e = allow_smem(kernel, smem, ready);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int splits = a.split_rows > 0 ? (a.m + a.split_rows - 1) / a.split_rows : 1;
+  const dim3 grid(a.gn * ((a.bn + Tl::BN - 1) / Tl::BN), (a.T + Tl::BM - 1) / Tl::BM, splits);
+  kernel<<<grid, Tl::THREADS, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int AMODE, typename XT, int WN, int MI, int GR>
 inline int launch_mma_t(const Args& a, cudaStream_t stream) {
-  using Tl = Tile<WN, MI>;
-  constexpr size_t smem = mma_smem_bytes<AMODE, WN, MI>();
   static bool ready = false;
-  const cudaError_t e = allow_smem(mma_kernel<AMODE, XT, WN, MI, GR>, smem, ready);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int splits = a.split_rows > 0 ? (a.m + a.split_rows - 1) / a.split_rows : 1;
-  const dim3 grid(a.gn * ((a.bn + Tl::BN - 1) / Tl::BN), (a.T + Tl::BM - 1) / Tl::BM, splits);
-  mma_kernel<AMODE, XT, WN, MI, GR><<<grid, Tl::THREADS, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_tile<Tile<WN, MI>>(mma_kernel<AMODE, XT, WN, MI, GR>,
+                                   mma_smem_bytes<AMODE, WN, MI>(), ready, a, stream);
+}
+
+// A prefill launch's split-K: split_rows is 0 or a multiple of KS, and a
+// split launch has its scratch and counters; one split is none.
+inline bool take_splits(Args& a) {
+  if (a.split_rows < 0 || a.split_rows % KS != 0 ||
+      (a.split_rows > 0 && a.split_rows < a.m && (a.scratch == nullptr || a.counters == nullptr)))
+    return false;
+  if (a.split_rows >= a.m) a.split_rows = 0;
+  return true;
 }
 
 // The tensor-core loop for any pack: a k16 step lies in one pack block when
@@ -821,11 +879,8 @@ inline int launch_mma_t(const Args& a, cudaStream_t stream) {
 template <int AMODE, typename XT>
 inline int launch_mma(Args a, void* stream) {
   if (a.T == 0 || a.gn == 0) return 0;
-  if (a.split_rows < 0 || a.split_rows % KS != 0 ||
-      (a.split_rows > 0 && a.split_rows < a.m && (a.scratch == nullptr || a.counters == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (a.split_rows >= a.m) a.split_rows = 0;
-  set_vec<XT>(a);
+  if (!take_splits(a)) return static_cast<int>(cudaErrorInvalidValue);
+  set_vec<XT>(a, a.q);
   const bool k16 = a.bk % 16 == 0 || a.bk >= a.m;
   if (!k16 && a.bk % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -852,8 +907,8 @@ inline int launch_decode(Args a, void* stream) {
   const int R = a.split_rows / DEC_LANES;
   if (a.T > DEC_MAX_T || (R != 4 && R != 8) || (a.bk % R != 0 && a.bk < a.m))
     return static_cast<int>(cudaErrorInvalidValue);
-  set_vec<XT>(a);
-  const int splits = (a.m + a.split_rows - 1) / a.split_rows;
+  set_vec<XT>(a, a.q);
+  const int splits = max(1, (a.m + a.split_rows - 1) / a.split_rows);   // m = 0: zeros
   if (splits > 1 && (a.scratch == nullptr || a.counters == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -868,4 +923,5 @@ inline int launch_decode(Args a, void* stream) {
   return launch_decode_t<XT, 4, 8>(a, splits, st);
 }
 
+}  // namespace
 }  // namespace epim_mma

@@ -102,7 +102,8 @@ def fold_rows(x: torch.Tensor, spec: EpitomeSpec) -> torch.Tensor:
 
 def epitome_matmul(x: torch.Tensor, E: torch.Tensor, spec: EpitomeSpec, *,
                    bk: Optional[int] = None, bn: Optional[int] = None) -> torch.Tensor:
-    """y = x @ W(E) via the epitome-space kernel.  Leading dims are free-form
+    """y = x @ W(E) via the epitome-space kernel, in x's dtype: E is cast to
+    it on every call, as the reference casts it.  Leading dims are free-form
     and flatten to (T, M) rows; bk/bn override the heuristic blocks; a bk
     that tiles m raggedly zero-pads the contraction dim (dot-neutral)."""
     *lead, M = x.shape

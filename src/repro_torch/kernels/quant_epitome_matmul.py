@@ -43,9 +43,12 @@ def split_rows(T: int, m: int, gn: int, bn: int, decode: bool = True) -> int:
     DECODE_ROWS, where ``decode``) always splits: 128 rows a block where
     that still gives two waves of blocks (or where T > 8, as the partials'
     bytes grow with T), else 64.  The tensor-core loop splits only where its
-    output tiles fill less than a wave and the contraction is long, into
-    enough splits for two waves with at least 16 steps each: a split writes
-    and reads back a float32 partial of its whole tile."""
+    output tiles fill less than a wave: for longer T into enough splits for
+    two waves with at least 16 steps each (a split writes and reads back a
+    float32 partial of its whole tile); at T <= DECODE_ROWS (kernels #2 and
+    #3, whose one row tile is mostly masked) into one wave of splits, each
+    as short as that makes it (ResNet-50's fc at T = 32: 16 splits of 4
+    steps)."""
     if decode and T <= DECODE_ROWS:
         tiles = gn * -(-bn // _DECODE_COLS)
         if T > 8:
@@ -54,7 +57,10 @@ def split_rows(T: int, m: int, gn: int, bn: int, decode: bool = True) -> int:
                     DECODE_SPLITS[-1])
     tiles = gn * -(-bn // (128 if bn >= 128 else 64)) * -(-T // _BM)
     steps = -(-m // _KS)
-    splits = min(-(-2 * _SMS // tiles), steps // 16)
+    if T <= DECODE_ROWS:
+        splits = min(_SMS // tiles, steps)
+    else:
+        splits = min(-(-2 * _SMS // tiles), steps // 16)
     if tiles >= _SMS or splits < 2:
         return 0
     return -(-steps // splits) * _KS

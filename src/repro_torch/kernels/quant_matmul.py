@@ -7,17 +7,29 @@ q is an (M, N) int8 code matrix with one float32 (scale, zero) per
 multiples of 256.  The sum is float32 and y is in x's dtype (float32 or
 bfloat16).
 
-For CUDA tensors this launches the kernel of ``csrc/quant_matmul.cu``; for
-CPU tensors it runs the plain version in ``ref.py``.
+For CUDA tensors this launches the kernel of ``csrc/quant_matmul.cu``:
+kernel #1's main loop (``csrc/epitome_mma.cuh``) with an identity column
+table, tensor-core products at prefill rows and split-K streaming at decode
+rows (T <= 32), with the split picks and scratch of kernel #1's wrapper.
+For CPU tensors it runs the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .quant_epitome_matmul import _ptr, _split_buffers, split_rows
 from .ref import quant_matmul_ref
 
 TILE = 256      # one (scale, zero) per TILE x TILE block of codes
+_identity = {}  # (device, N / TILE) -> int32 arange: output block j reads block j
+
+
+def _identity_blocks(device: torch.device, gn: int) -> torch.Tensor:
+    key = (device, gn)
+    if key not in _identity:
+        _identity[key] = torch.arange(gn, dtype=torch.int32, device=device)
+    return _identity[key]
 
 
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
@@ -44,12 +56,16 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
                          f"{tuple(zeros.shape)}")
     _build.require_rows(name, T)
     y = torch.empty((T, N), device=x.device, dtype=x.dtype)
+    gn = N // TILE
+    rows = split_rows(T, M, gn, TILE)
+    scratch, counters = _split_buffers(x.device, T, M, gn, TILE, rows)
     lib = _build.library("quant_matmul")
     launch = (lib.quant_matmul_launch if x.dtype == torch.float32
               else lib.quant_matmul_bf16_launch)
     with torch.cuda.device(x.device):
         rc = launch(x.data_ptr(), q.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                    y.data_ptr(), T, M, N, _build.stream_of(x))
+                    _identity_blocks(x.device, gn).data_ptr(), y.data_ptr(), _ptr(scratch),
+                    _ptr(counters), T, M, N, rows, _build.stream_of(x))
     _build.check_launch(rc, name)
     quant_matmul.launches += 1
     return y

@@ -90,6 +90,58 @@ def test_quant_epitome_matmul_fused_fold_kernel(args, T, cuda_device):
                                                    bm=spec.bm, bk=p.bk, bn=p.bn), **TOL)
 
 
+@pytest.mark.parametrize("T,m,n,bn,cb", [
+    (97, 251, 64, 32, [1, 0, 1]),       # ragged T, odd m, bn < 64, a repeated block
+    (33, 77, 96, 48, [1, 0]),           # 48-wide blocks in a 64-column tile
+    (4, 1000, 120, 30, [3, 0, 2, 2]),   # bn not a multiple of 4: plain copies
+    (1, 300, 256, 128, [1, 0]),         # one row
+    (130, 2048, 512, 256, [1, 1]),      # split-K over few tiles
+])
+def test_epitome_matmul_blocks_fp32_ragged(T, m, n, bn, cb, cuda_device):
+    """Kernel #3's float32 entry (3xTF32) at ragged T, odd m and column
+    blocks narrower than its 64-column tile, against its plain version."""
+    g = torch.Generator().manual_seed(T + m)
+    x = torch.randn(T, m, generator=g).to(cuda_device)
+    E = (torch.randn(m, n, generator=g) / m ** 0.5).to(cuda_device)
+    cbt = torch.tensor(cb, dtype=torch.int32, device=cuda_device)
+    reset_launch_counts()
+    y = epitome_matmul_blocks(x, E, cbt, bn=bn)
+    torch.cuda.synchronize()
+    assert launch_counts()["epitome_matmul_blocks"] == 1
+    assert y.shape == (T, len(cb) * bn) and y.dtype == torch.float32
+    torch.testing.assert_close(y, ref.epitome_matmul_blocks_ref(x, E, cbt, bn), **TOL)
+
+
+@pytest.mark.parametrize("T", [4, 1024])
+@pytest.mark.parametrize("args", LM_SHAPES)
+def test_epitome_matmul_blocks_bf16_at_lm_shapes(args, T, cuda_device):
+    """Kernel #3's bf16 entry at rwkv6-7b's projection shapes, as
+    ops.epitome_matmul hands it a bf16 activation (E cast to bf16): bf16
+    out, within the bf16 tolerance of its plain version."""
+    spec, E, x, _, _ = _case(args, T, cuda_device)
+    cb = ops.spec_tables(spec, spec.bn, cuda_device).col_blocks
+    folded = ops.fold_rows(x.bfloat16(), spec)
+    Eb = E.bfloat16()
+    y = epitome_matmul_blocks(folded, Eb, cb, bn=spec.bn)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    plain = ref.epitome_matmul_blocks_ref(folded, Eb, cb, spec.bn)
+    torch.testing.assert_close(y.float(), plain.float(), **BF16)
+    out = ops.epitome_matmul(x.bfloat16(), E, spec)
+    assert out.dtype == torch.bfloat16 and out.shape == (T, spec.N)
+
+
+def test_epitome_matmul_blocks_refuses_mixed_and_other_dtypes(cuda_device):
+    x = torch.randn(8, 64, device=cuda_device)
+    E = torch.randn(64, 128, device=cuda_device)
+    cb = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    for xd, ed in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        with pytest.raises(TypeError, match="dtype"):
+            epitome_matmul_blocks(x.to(xd), E.to(ed), cb, bn=128)
+    with pytest.raises(TypeError, match="float16"):
+        epitome_matmul_blocks(x.half(), E.half(), cb, bn=128)
+
+
 def test_ragged_rows_and_prime_m(cuda_device):
     """T not a multiple of the 64-row tile and a prime m, through ops."""
     spec, E, x, _, _ = _case((512, 512, 251, 256, 128, 256), 97, cuda_device)
@@ -217,8 +269,8 @@ def test_cuda_tensors_launch_or_raise(cuda_device):
     ops.quant_epitome_matmul(x, None, spec, packed=p)
     assert launch_counts()["quant_epitome_matmul_blocks"] == 1
     folded = ops.fold_rows(x, spec)
-    with pytest.raises(TypeError, match="bfloat16"):
-        epitome_matmul_blocks(folded.bfloat16(), E.bfloat16(), cb, bn=spec.bn)
+    with pytest.raises(TypeError, match="dtype"):
+        epitome_matmul_blocks(folded.bfloat16(), E, cb, bn=spec.bn)
     with pytest.raises(ValueError, match="E is on cpu"):
         epitome_matmul_blocks(folded, E.cpu(), cb, bn=spec.bn)
     with pytest.raises(ValueError, match="contiguous"):
@@ -315,6 +367,29 @@ def test_smoke_lm_on_card_matches_cpu(cuda_device):
     assert torch.equal(toks.cpu(), ref_toks)
 
 
+def test_smoke_lm_kernel_bf16_on_card_matches_cpu(cuda_device):
+    """The rwkv6-7b smoke config at ``kernel`` (unquantized epitomes) in its
+    own bf16: every projection through kernel #3's bf16 entry and the
+    prefill recurrence through kernel #4, greedy tokens equal to the plain
+    versions' on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = get_smoke_config("rwkv6-7b", "kernel")
+    assert cfg.cdtype == torch.bfloat16
+    gpu = lm.init_params(torch.Generator().manual_seed(0), cfg, cuda_device)
+    cpu = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, 80), generator=torch.Generator().manual_seed(1))
+    reset_launch_counts()
+    toks, _ = serve.generate(gpu, cfg, prompts.to(cuda_device), 90, 4)
+    counts = launch_counts()
+    assert counts["epitome_matmul_blocks"] == 8 * cfg.n_layers * 4
+    assert counts["wkv6_chunked"] == cfg.n_layers
+    assert counts["quant_epitome_matmul_blocks"] == 0
+    ref_toks, _ = serve.generate(cpu, cfg, prompts, 90, 4)
+    assert torch.equal(toks.cpu(), ref_toks)
+
+
 def test_fold_repeats_bit_for_bit(cuda_device):
     """The fold gathers and sums, so it repeats exactly on the card (a
     scatter-add's atomics would not), and agrees with the CPU's."""
@@ -349,6 +424,31 @@ def test_quant_matmul_kernel(T, M, N, dtype, cuda_device):
     assert launch_counts()["quant_matmul"] == 1 and y.dtype == dtype
     torch.testing.assert_close(y.float(), ref.quant_matmul_ref(x, q, s, z).float(),
                                **(TOL if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("T", [32, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_around_the_decode_cut_over(T, dtype, cuda_device):
+    """Kernel #5 on both sides of the cut-over between kernel #1's split-K
+    decode loop (T <= 32) and its tensor-core loop: one launch, against the
+    plain version."""
+    x, q, s, z = _quant_matmul_case(T, 4096, 1024, cuda_device)
+    x = x.to(dtype)
+    reset_launch_counts()
+    y = ops.quant_matmul(x, q, s, z)
+    torch.cuda.synchronize()
+    assert launch_counts()["quant_matmul"] == 1 and y.dtype == dtype
+    torch.testing.assert_close(y.float(), ref.quant_matmul_ref(x, q, s, z).float(),
+                               **(TOL if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_decode_rows_repeat_bit_for_bit(dtype, cuda_device):
+    x, q, s, z = _quant_matmul_case(4, 14336, 1024, cuda_device)
+    x = x.to(dtype)
+    ys = [ops.quant_matmul(x, q, s, z) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, ys[0]) for y in ys)
 
 
 def test_quant_matmul_leading_dims_and_refusals(cuda_device):

@@ -65,18 +65,19 @@ def _numpy_params(cfg):
     return tree
 
 
-@pytest.fixture(scope="module")
-def reference():
+def _reference_runs(variant):
     """{dtype: (jax cfg, port cfg, jax prepacked params, port prepacked
-    params, prompts)} for the rwkv6-7b smoke config at kernel-q3."""
+    params, prompts), "runs": {dtype: (prefill logits, greedy token, decode
+    logits, float32 generate tokens)}} for the rwkv6-7b smoke config at
+    ``variant``, the reference's Pallas kernels under the alias."""
     from jax.experimental.pallas import tpu as pltpu
     rng = np.random.default_rng(0)
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
         for dtype in ("float32", "bfloat16"):
-            jc = dataclasses.replace(jget_smoke("rwkv6-7b", "kernel-q3"), compute_dtype=dtype)
-            tc = dataclasses.replace(get_smoke_config("rwkv6-7b", "kernel-q3"),
+            jc = dataclasses.replace(jget_smoke("rwkv6-7b", variant), compute_dtype=dtype)
+            tc = dataclasses.replace(get_smoke_config("rwkv6-7b", variant),
                                      compute_dtype=dtype)
             tree = _numpy_params(jc)
             jp = jlm.prepack_params(jax.tree.map(jnp.asarray, tree), jc)
@@ -95,6 +96,20 @@ def reference():
             out["runs"][dtype] = jax.tree.map(np.array, (logits, tok, logits2, toks))
     jax.clear_caches()
     return out
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference runs at kernel-q3 (``_reference_runs``)."""
+    return _reference_runs("kernel-q3")
+
+
+@pytest.fixture(scope="module")
+def reference_kernel():
+    """The reference runs at kernel: unquantized epitomes through
+    ``epitome_matmul`` (the reference's Pallas kernel, the port's kernel #3
+    plain version), E cast to the compute dtype per call."""
+    return _reference_runs("kernel")
 
 
 # -- configuration: integer artifacts match exactly ---------------------------
@@ -215,6 +230,28 @@ def test_prefill_and_decode_logits(reference, dtype, tol):
     logits2, _ = lm.decode_step(tp, st, torch.from_numpy(jtok), PROMPT, tc)
     _close(logits2, jl2, tol)
     assert launch_counts() == before          # CPU tensors run the plain versions
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
+def test_kernel_variant_prefill_and_decode_logits(reference_kernel, dtype, tol):
+    """rwkv6-7b smoke at ``kernel`` (not -q3): every projection through
+    ops.epitome_matmul, held to the reference in float32 and bf16."""
+    _, tc, _, tp, prompts = reference_kernel[dtype]
+    jl, jtok, jl2, _ = reference_kernel["runs"][dtype]
+    assert not lm.needs_prepack(tc) and all(lc.quant is None
+                                            for lc in lm.lm_layer_configs(tc).values())
+    logits, st = lm.prefill(tp, torch.from_numpy(prompts),
+                            lm.init_decode_state(tc, 2, 100, "cpu"), tc)
+    assert logits.dtype == tc.cdtype
+    _close(logits, jl, tol)
+    logits2, _ = lm.decode_step(tp, st, torch.from_numpy(jtok), PROMPT, tc)
+    _close(logits2, jl2, tol)
+
+
+def test_kernel_variant_greedy_tokens_equal_reference(reference_kernel):
+    _, tc, _, tp, prompts = reference_kernel["float32"]
+    toks, _ = serve.generate(tp, tc, torch.from_numpy(prompts), 100, NEW)
+    np.testing.assert_array_equal(toks.numpy(), reference_kernel["runs"]["float32"][3])
 
 
 def test_greedy_tokens_equal_reference_generate(reference):

@@ -1,13 +1,19 @@
-"""The arithmetic of the int8-epitome kernels' tensor-core main loop
-(csrc/epitome_mma.cuh), modelled in plain torch on the CPU.
+"""The arithmetic of the tensor-core kernels (csrc/epitome_mma.cuh and
+csrc/epitome_fp_mma.cuh), modelled in plain torch on the CPU.
 
-The kernels take (s, z) out of the product: per pack block b and output
+The int8 kernels take (s, z) out of the product: per pack block b and output
 block j, y += s * (x_b . q_b + z * sum_k x_k), with x_b . q_b on bf16 tensor
 cores.  The model runs the same factored sum with the activation as one
 bf16, as hi + lo (two bf16), as hi = bf16(x) and lo = fp16((x - hi) 2^8)
 (what the float32 entries run) and, for a bf16 activation, exactly; it is
 held against ``ref.quant_epitome_matmul_blocks_ref`` at the reference's
-tolerances, and the float32 entries' split against the float64 sum.  Kernel #2's
+tolerances, and the float32 entries' split against the float64 sum.  Kernel
+#5 is the same loop with no column table: its prefill sum (hi/lo, one flush
+per 256-row crossbar tile) and its decode sum (a thread's 8 rows, 16 lanes
+and the splits, each pairwise) are held against float64 at rwkv6-7b's
+longest contraction.  Kernel #3's float32 entry is 3xTF32 (each operand as
+two TF32 values, three products), held against its plain version at
+ResNet-50's CR-4 shapes, where one TF32 pass misses the gate.  Kernel #2's
 fold (each epitome row summing its virtual rows from the inverse table, in
 ascending order) is held to ``ref.fold_blocks_ref`` bit for bit.  Inputs
 are drawn with numpy from a seed; nothing here needs a card."""
@@ -213,3 +219,199 @@ def test_split_rows_picks(args, T, rows):
     elif got:
         assert got % 32 == 0 and got // 32 >= 16
     assert split_rows(T, m, gn, bn, decode=False) % 32 == 0
+
+
+
+@pytest.mark.parametrize("args,T,rows", [
+    ((2000, 4, 256), 32, 128),      # ResNet-50 fc at batch 32: 8 tiles, 16 splits of 4 steps
+    ((1024, 16, 256), 4, 256),      # rwkv6-7b (1024, 4096): 32 tiles, 4 splits
+    ((3584, 16, 256), 4, 896),      # (3584, 4096): 32 tiles, 4 splits of 28 steps
+    ((1024, 56, 256), 4, 0),        # (1024, 14336): 112 tiles, a wave already
+    ((2000, 4, 256), 33, 672),      # past the cut-over: 3 splits of 21 steps (16 at least)
+])
+def test_split_rows_of_the_tensor_core_loop_at_decode_rows(args, T, rows):
+    """Kernels #2 and #3 run the tensor-core loop at every T; at T <= 32
+    their one row tile is mostly masked, so they split into one wave of
+    blocks however short each split (measured on the card against 2-4
+    splits of 16 steps: ResNet-50's fc 0.053 -> 0.019 ms)."""
+    from repro_torch.kernels.quant_epitome_matmul import split_rows
+    m, gn, bn = args
+    got = split_rows(T, m, gn, bn, decode=False)
+    assert got == rows
+    if got:
+        assert got % 32 == 0 and -(-m // got) * gn * -(-bn // 128) <= 132
+
+# -- kernel #3: 3xTF32 -----------------------------------------------------------
+# ResNet-50's 16 CR-4 kernel shapes (M, N, m, n, bm, bn)
+RESNET_CR4 = [(576, 64, 256, 64, 256, 64), (1152, 128, 288, 128, 256, 128),
+              (128, 512, 128, 256, 128, 256), (256, 512, 256, 256, 256, 256),
+              (512, 128, 256, 128, 256, 128), (512, 256, 256, 256, 256, 256),
+              (2304, 256, 576, 256, 256, 256), (256, 1024, 256, 256, 256, 256),
+              (512, 1024, 512, 256, 256, 256), (1024, 256, 256, 256, 256, 256),
+              (1024, 512, 512, 256, 256, 256), (4608, 512, 2304, 256, 256, 256),
+              (512, 2048, 256, 2048, 256, 256), (1024, 2048, 256, 2048, 256, 256),
+              (2048, 512, 1024, 256, 256, 256), (2048, 1000, 2000, 256, 256, 256)]
+
+
+def tf32(v):
+    """cvt.rna.tf32.f32: float32 rounded to 10 mantissa bits, ties away
+    from zero (the magnitude's bit 12 carries), the low 13 bits 0."""
+    return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _f32(t):
+    return t.float().double()
+
+
+def tf32_model(x, E, cb, bn, passes=3):
+    """Kernel #3's float32 sum: per k8 step, x_lo E_hi, x_hi E_lo and
+    x_hi E_hi (or, with passes=1, x_hi E_hi alone), each mma adding its 8
+    exact products into one float32 accumulator."""
+    cols = torch.cat([torch.arange(c * bn, (c + 1) * bn) for c in cb.tolist()])
+    W = E[:, cols]
+    xh, Wh = tf32(x), tf32(W)
+    xl, Wl = tf32(x - xh), tf32(W - Wh)
+    terms = [(xh, Wh)] if passes == 1 else [(xl, Wh), (xh, Wl), (xh, Wh)]
+    acc = torch.zeros(x.shape[0], W.shape[1], dtype=torch.float64)
+    for k in range(0, x.shape[1], 8):
+        for a, b in terms:
+            acc = _f32(acc + a[:, k:k + 8].double() @ b[k:k + 8].double())
+    return acc.float()
+
+
+def _fp_case(args, T=64):
+    spec = EpitomeSpec(*args)
+    rng = np.random.default_rng(0)
+    E = torch.from_numpy((rng.standard_normal((spec.m, spec.n)) / np.sqrt(spec.M))
+                         .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((T, spec.M)).astype(np.float32))
+    return spec, E, ops.fold_rows(x, spec), torch.as_tensor(ops.kernel_col_blocks(spec, spec.bn))
+
+
+def test_resnet_cr4_shapes_are_the_paths():
+    from repro_torch.configs import get_resnet
+    r50 = get_resnet("resnet50", "kernel")
+    shapes = []
+    for spec in r50.specs:
+        if spec is not None and (spec.M, spec.N, spec.m, spec.n, spec.bm, spec.bn) not in shapes:
+            shapes.append((spec.M, spec.N, spec.m, spec.n, spec.bm, spec.bn))
+    assert shapes == RESNET_CR4
+
+
+@pytest.mark.parametrize("args", RESNET_CR4)
+def test_three_tf32_passes_hold_the_fp32_gate(args):
+    spec, E, folded, cb = _fp_case(args)
+    y = tf32_model(folded, E, cb, spec.bn)
+    torch.testing.assert_close(y, ref.epitome_matmul_blocks_ref(folded, E, cb, spec.bn),
+                               rtol=FP32, atol=FP32)
+
+
+def test_one_tf32_pass_misses_the_fp32_gate():
+    """Why kernel #3's float32 entry takes three TF32 products: one TF32
+    pass (10-bit operands) falls outside 2e-4 at every CR-4 shape."""
+    for args in RESNET_CR4:
+        spec, E, folded, cb = _fp_case(args, T=16)
+        r = ref.epitome_matmul_blocks_ref(folded, E, cb, spec.bn)
+        assert _over(tf32_model(folded, E, cb, spec.bn, passes=1), r, FP32), args
+
+
+@pytest.mark.parametrize("args", RESNET_CR4)
+def test_three_tf32_near_float32_against_float64(args):
+    """What 3xTF32 drops (x_lo E_lo, and lo's own rounding: about 2^-21 of
+    each product) keeps it within 2.5x of the plain float32 product's
+    distance from float64 (0.5-1.8x at these shapes)."""
+    spec, E, folded, cb = _fp_case(args)
+    r64 = ref.epitome_matmul_blocks_ref(folded.double(), E.double(), cb, spec.bn)
+    err = lambda y: float(((y.double() - r64).abs() / (1 + r64.abs())).max())
+    plain = err(ref.epitome_matmul_blocks_ref(folded, E, cb, spec.bn))
+    assert err(tf32_model(folded, E, cb, spec.bn)) <= 2.5 * plain
+
+
+# -- kernel #5: kernel #1's loop with no column table -----------------------------
+def _qm_case(M, N, T, seed=0):
+    """Codes at the reference test's scales (tests/test_kernels.py:101-104):
+    int8 over the whole range, one (s, z) per 256 x 256 tile."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(-127, 128, (M, N)).astype(np.int8))
+    s = torch.from_numpy((rng.random((M // 256, N // 256)) * 9e-3 + 1e-3).astype(np.float32))
+    z = torch.from_numpy(np.round(rng.random((M // 256, N // 256)) * 6 - 3).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((T, M)).astype(np.float32))
+    W64 = (q.double() + z.double().repeat_interleave(256, 0).repeat_interleave(256, 1)) \
+        * s.double().repeat_interleave(256, 0).repeat_interleave(256, 1)
+    return x, q, s, z, x.double() @ W64
+
+
+def _tree(v, dim):
+    """Kernel #5's pairwise sum of 16 along ``dim`` (tree16): v[u] + v[u + 8],
+    then + 4, + 2, + 1, each rounded to float32."""
+    while v.shape[dim] > 1:
+        h = v.shape[dim] // 2
+        v = _f32(v.narrow(dim, 0, h) + v.narrow(dim, h, h))
+    return v.squeeze(dim)
+
+
+def decode_model(x, q, s, z, rows=128, pairwise=True):
+    """The decode loop's sum for one 256 x 256 crossbar tile per (s, z): each
+    thread FMAs its rows // 16 rows (codes times x) and sums x beside them,
+    scales s (z sum x + p) once; the block's 16 row lanes, then the splits
+    16 at a time (groups in split order) are summed pairwise, or each in
+    order with ``pairwise=False``."""
+    T, M = x.shape
+    N = q.shape[1]
+    R, splits = rows // 16, M // rows
+    xs = x.double().reshape(T, splits, 16, R)
+    qs = q.double().reshape(splits, 16, R, N)
+    p = torch.zeros(T, splits, 16, N, dtype=torch.float64)
+    rs = torch.zeros(T, splits, 16, 1, dtype=torch.float64)
+    for r in range(R):
+        p = _f32(p + xs[..., r, None] * qs[None, :, :, r])
+        rs = _f32(rs + xs[..., r, None])
+    blk = torch.arange(splits) * rows // 256
+    sf = s.double()[blk].repeat_interleave(256, 1)[None, :, None]
+    zf = z.double()[blk].repeat_interleave(256, 1)[None, :, None]
+    v = _f32(sf * _f32(zf * rs + p))                     # (T, splits, 16, N)
+    if pairwise:
+        part = _tree(v, 2)
+        y = torch.zeros(T, N, dtype=torch.float64)
+        for g in range(0, splits, 16):
+            grp = part[:, g:g + 16]
+            grp = torch.cat([grp, grp.new_zeros(T, 16 - grp.shape[1], N)], 1)
+            y = _f32(y + _tree(grp, 1))
+        return y
+    part = torch.zeros(T, splits, N, dtype=torch.float64)
+    for l in range(16):
+        part = _f32(part + v[:, :, l])
+    y = torch.zeros(T, N, dtype=torch.float64)
+    for k in range(splits):
+        y = _f32(y + part[:, k])
+    return y
+
+
+def _gate(y, y64):
+    """The reference tolerance against float64: |y - y64| <= 2e-4 + 2e-4 |y64|."""
+    return bool(((y.double() - y64).abs() <= FP32 + FP32 * y64.abs()).all())
+
+
+@pytest.mark.parametrize("M,N", [(14336, 512), (4096, 1024)])
+def test_quant_matmul_prefill_sum_against_float64(M, N):
+    """Kernel #5 at prefill rows: x as bf16 hi + fp16 lo on the codes, one
+    (s, z) flush per crossbar tile, within the reference tolerance of the
+    float64 product at rwkv6-7b's longest contraction."""
+    x, q, s, z, y64 = _qm_case(M, N, 48)
+    cb = torch.arange(N // 256)
+    y = mma_model(_hi_fp16_lo(x), q, s, z, cb, 256, 256)
+    assert _gate(y, y64)
+    assert _gate(ref.quant_matmul_ref(x, q, s, z), y64)
+
+
+@pytest.mark.parametrize("M,N", [(14336, 512), (4096, 1024)])
+def test_quant_matmul_decode_sum_against_float64(M, N):
+    """Kernel #5 at decode rows (T = 4): the split-K loop's sum within the
+    reference tolerance of the float64 product, the pairwise lanes and
+    splits closer to it than sums in order (112 splits at M = 14336)."""
+    x, q, s, z, y64 = _qm_case(M, N, 4, seed=1)
+    pair = decode_model(x, q, s, z)
+    chain = decode_model(x, q, s, z, pairwise=False)
+    assert _gate(pair, y64) and _gate(chain, y64)
+    rms = lambda y: float((y - y64).pow(2).mean().sqrt())
+    assert rms(pair) < rms(chain)

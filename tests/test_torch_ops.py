@@ -203,6 +203,20 @@ def test_bf16_quant_epitome_matmul_vs_pallas_interpret(args, pallas_compat):
     np.testing.assert_allclose(y.float().numpy(), np.asarray(ref, np.float32), **BF16)
 
 
+@pytest.mark.parametrize("args", BF16_SPECS + [SPECS[3]])
+def test_bf16_epitome_matmul_vs_pallas_interpret(args, pallas_compat):
+    """A bfloat16 activation through the port's ``epitome_matmul`` (E cast to
+    bf16, kernel #3's plain version) and the reference's Pallas kernel in
+    interpret mode: both return bfloat16, within the bf16 tolerance."""
+    js, ts, E, x = _case(args, T=12)
+    y = tops.epitome_matmul(torch.from_numpy(x).bfloat16(), torch.from_numpy(E), ts)
+    ref = jops.epitome_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(E), js,
+                              interpret=True)
+    assert y.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    assert y.shape == (12, js.N)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(ref, np.float32), **BF16)
+
+
 def test_bf16_fold_sums_in_float32_and_rounds_once():
     js, ts, _, x = _case(BF16_SPECS[0], T=9)
     xb = torch.from_numpy(x).bfloat16()
