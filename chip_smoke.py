@@ -37,8 +37,9 @@ Phases:
              and the operations over the peak of their type, the bf16 tensor
              cores (989 TFLOP/s) for the int8-code kernels #1, #2 and #5 and
              for #3's bf16 entry, three TF32 products for each FLOP (495
-             TFLOP/s, 3xTF32) for #3's float32 entry, fp32 (67 TFLOP/s) for
-             #4; the fp32-rate bound is kept beside it for every kernel.
+             TFLOP/s, 3xTF32) for #3's float32 entry and #4's four chunk
+             products (the rest of #4's work at the fp32 rate, 67 TFLOP/s);
+             the fp32-rate bound is kept beside it for every kernel.
 3. forward — ResNet-50 kernel-q3, kernel and kernel-q3 with every layer's
              fold inside the kernel (fused_fold), from seeded weights at
              batch 32: each launch counter must rise by exactly 45 per
@@ -50,7 +51,8 @@ Phases:
 4. LM kernels — the int8 kernel in bf16 and float32 at rwkv6-7b's three
              projection shapes, at prefill rows (4 x 256) and decode rows
              (4), and the WKV kernel at 4 x 256 tokens x 64 heads of 64 from
-             a non-zero state, each against its plain version and timed;
+             a non-zero state with r, k, v in bf16 (the LM's, counted) and in
+             float32, each against its plain version and timed;
              the bf16 rows also against a bf16 yardstick (bf16 x times the
              bf16-dequantized weight); the decode rows three times bit for
              bit, and timed L2-cold too (over copies of the codes and of the
@@ -115,9 +117,11 @@ TF32_TC_FLOPS = 495e12      # H100 SXM TF32 tensor cores, dense
 # kernels whose operands are int8 codes, exact in bf16: their bound is at the
 # bf16 tensor-core rate (beside the fp32 one, kept for earlier rows); kernel
 # #3 runs fp32 E as 3xTF32 (three TF32 products for each) and bf16 E as one
-# bf16 pass (tc_seconds); kernel #4 (the WKV) keeps the fp32 rate
+# bf16 pass (tc_seconds); kernel #4 (the WKV) runs its four chunk products
+# as 3xTF32 and the rest (exponentials, cumsum, bonus) at the fp32 rate
 TC_KERNELS = ("quant_epitome_matmul_blocks", "quant_epitome_matmul_fused_fold", "quant_matmul")
 FP_KERNEL = "epitome_matmul_blocks"
+WKV = "wkv6_chunked"
 L2_COLD_BYTES = 64 << 20    # code buffers rotated past the 50 MB L2 for cold timings
 HBM_BYTES_S = 3.35e12       # H100 SXM HBM3
 KERNEL_TOL = 2e-4           # |y - ref| <= tol + tol*|ref|, fp32 (tests/test_kernels.py:17-18)
@@ -355,8 +359,8 @@ def main() -> int:
                         reset_launch_counts)
     launches[FP_KERNEL] += lm_fp_run["launches"][FP_KERNEL]
     launches["wkv6_chunked"] += lm_fp_run["launches"]["wkv6_chunked"]
-    # its WKV launches run at the shape timed with the kernel-q3 path's
-    wkv = next(r for r in lm_rows if r["kernel"] == "wkv6_chunked")
+    # its WKV launches run at the shape and dtype timed with the kernel-q3 path's
+    wkv = next(r for r in lm_rows if r["kernel"] == WKV and r["count"])
     rows.append(dict(wkv, path=f"{LM_ARCH} kernel"))
     torch.cuda.empty_cache()
     lm_cpu.append(lm_card_vs_cpu(torch, dev, lm, get_config, "kernel"))
@@ -389,7 +393,6 @@ def main() -> int:
         per_run = lambda key: sum(r[key] * r["count"] for r in counted)
         by = {b: sum(r["bound_ms"] * r["count"] for r in counted if r["bound_by"] == b)
               for b in ("bytes", "operations")}
-        tc = tc_seconds(name, 1.0, "float32") is not None
         lib = [r["library_ms"] for r in counted]
         paths_of = {}
         for r in counted:
@@ -409,7 +412,7 @@ def main() -> int:
             "bound_ms": per_run("bound_ms"), "bound_by": max(by, key=by.get),
             "library_ms": None if None in lib else per_run("library_ms"),
             "bound_fp32_ms": per_run("bound_fp32_ms"),
-            "bound_tc_ms": per_run("bound_tc_ms") if tc else None,
+            "bound_tc_ms": per_run("bound_tc_ms"),
             "paths": paths_of})
         if sum(p["launches"] for p in paths_of.values()) != launches[name]:
             raise AssertionError(f"{name}: the timed shapes cover "
@@ -421,7 +424,7 @@ def main() -> int:
             f"{_ms(summary[-1]['bound_tc_ms'])}); "
             + "; ".join(f"{p}: {v['launches']} launches {v['ms']:.3f} ms (bound "
                         f"{v['bound_ms']:.3f}, fp32 rate {v['bound_fp32_ms']:.3f}, tensor "
-                        f"cores {_ms(v['bound_tc_ms'] if tc else None)}, plain "
+                        f"cores {_ms(v['bound_tc_ms'])}, plain "
                         f"{v['plain_ms']:.3f}, library {_ms(v['library_ms'])})"
                         for p, v in paths_of.items()))
     # kernel #2 against kernel #1 plus the fold it saves (ops.fold_rows timed
@@ -645,28 +648,38 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
                        if T == LM_REQUESTS else ""))
         del W, Wb, q_cold, W_cold
     rows_fold = fold_probe(torch, dev, gen, ops, next(iter(per_layer)))
-    # the WKV at the prefill's shape, from a non-zero state
+    # the WKV at the prefill's shape, from a non-zero state, with r, k, v in
+    # the LM's dtype (counted) and in float32 (checked and timed)
     B, S, H, K, L = LM_REQUESTS, LM_PROMPT, cfg.n_heads, cfg.hd, cfg.rwkv_chunk
     f = lambda *s: torch.randn(s, device=dev, generator=gen)
-    r, k_, v = f(B, S, H, K), f(B, S, H, K), f(B, S, H, K)
+    r32, k32, v32 = f(B, S, H, K), f(B, S, H, K), f(B, S, H, K)
     lw, u, h0 = -torch.exp(f(B, S, H, K) * 0.5), f(H, K) * 0.1, f(B, H, K, K) * 0.5
-    kernel = lambda: wrappers["wkv6_chunked"](r, k_, v, lw, u, h0, chunk=L)
-    plain = lambda: ref.wkv6_chunked_ref(r, k_, v, lw, u, h0, chunk=L)
-    (o, hT), (o_ref, h_ref) = kernel(), plain()
-    err = max(max_err(torch, o, o_ref, WKV_TOL, "wkv6_chunked o"),
-              max_err(torch, hT, h_ref, WKV_TOL, "wkv6_chunked state"))
-    o_s, h_s = wrappers["wkv6_chunked"](r, k_, v, torch.full_like(lw, -20.0), u, h0, chunk=L)
-    if not (torch.isfinite(o_s).all() and torch.isfinite(h_s).all()):
-        raise AssertionError("wkv6_chunked: not finite under log w = -20")
-    nbytes = 4.0 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
-    row = timed_row(torch, "wkv6_chunked", kernel, plain, None, nbytes, wkv6_ops(B, S, H, K, L))
-    row.update(B=B, S=S, H=H, K=K, chunk=L, dtype="float32", max_abs_err=err,
-               path=LM_ARCH, count=cfg.n_layers)
-    rows.append(row)
-    log(f"[lm-kernels] wkv6_chunked B={B} S={S} H={H} K={K} chunk={L} x{row['count']}: "
-        f"max_err={err:.2e} (o and state) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-        f"library_ms=none bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, fp32 rate); "
-        f"log w = -20 stays finite")
+    flops, products = wkv6_ops(B, S, H, K, L)
+    for dtype in (cfg.cdtype, torch.float32):
+        r, k_, v = (t.to(dtype) for t in (r32, k32, v32))
+        dname = str(dtype).replace("torch.", "")
+        kernel = lambda: wrappers[WKV](r, k_, v, lw, u, h0, chunk=L)
+        # the plain version reads the same values cast to float32
+        plain = lambda: ref.wkv6_chunked_ref(r, k_, v, lw, u, h0, chunk=L)
+        (o, hT), (o_ref, h_ref) = kernel(), plain()
+        err = max(max_err(torch, o, o_ref, WKV_TOL, f"{WKV} {dname} o"),
+                  max_err(torch, hT, h_ref, WKV_TOL, f"{WKV} {dname} state"))
+        o_s, h_s = wrappers[WKV](r, k_, v, torch.full_like(lw, -20.0), u, h0, chunk=L)
+        if not (torch.isfinite(o_s).all() and torch.isfinite(h_s).all()):
+            raise AssertionError(f"{WKV} {dname}: not finite under log w = -20")
+        # r, k, v read in their dtype; logw read, o written, in float32; u;
+        # h0 read and hT written
+        nbytes = (3.0 * r.element_size() * r.numel() + 4.0 * (2 * B * S * H * K + H * K)
+                  + 4.0 * 2 * B * H * K * K)
+        row = timed_row(torch, WKV, kernel, plain, None, nbytes, flops, dname, products)
+        row.update(B=B, S=S, H=H, K=K, chunk=L, dtype=dname, max_abs_err=err,
+                   path=LM_ARCH, count=cfg.n_layers if dtype == cfg.cdtype else 0)
+        rows.append(row)
+        log(f"[lm-kernels] {WKV} {dname} B={B} S={S} H={H} K={K} chunk={L} x{row['count']}: "
+            f"max_err={err:.2e} (o and state) ms={row['ms']:.4f} (eager {row['ms_eager']:.4f}) "
+            f"plain_ms={row['plain_ms']:.4f} library_ms=none bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}) bound_fp32_ms={row['bound_fp32_ms']:.4f} "
+            f"bound_tc_ms={row['bound_tc_ms']:.4f}; log w = -20 stays finite")
     return rows, rows_fold
 
 
@@ -749,54 +762,60 @@ def fold_probe(torch, dev, gen, ops, spec, runs: int = 20) -> dict:
     return out
 
 
-def tc_seconds(name, flops, dtype):
-    """The tensor-core time of a kernel's FLOPs, None for one off the
-    tensor cores: the int8-code kernels at the bf16 rate, kernel #3 at
-    3 x FLOPs over the TF32 rate for float32 (3xTF32) or at the bf16 rate
-    for bf16."""
+def tc_seconds(name, flops, dtype, products=None):
+    """The tensor-core time of a kernel's FLOPs: the int8-code kernels at
+    the bf16 rate, kernel #3 at 3 x FLOPs over the TF32 rate for float32
+    (3xTF32) or at the bf16 rate for bf16, and the WKV's four chunk
+    ``products`` at 3 x FLOPs over the TF32 rate or the rest of its FLOPs at
+    the fp32 rate, whichever is longer."""
     if name in TC_KERNELS or (name == FP_KERNEL and dtype == "bfloat16"):
         return flops / BF16_TC_FLOPS
     if name == FP_KERNEL:
         return 3 * flops / TF32_TC_FLOPS
-    return None
+    if name == WKV:
+        return max(3 * products / TF32_TC_FLOPS, (flops - products) / FP32_FLOPS)
+    raise ValueError(f"no tensor-core bound for {name}")
 
 
-def bounds(name, nbytes, flops, dtype="float32") -> dict:
+def bounds(name, nbytes, flops, dtype="float32", products=None) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the peak of their type, the tensor
-    cores for kernels #1, #2, #3 and #5 (tc_seconds), fp32 for the WKV; the
-    fp32-rate bound is kept beside it for every kernel."""
+    cores for every kernel (tc_seconds); the fp32-rate bound (all FLOPs at
+    67 TFLOP/s) is kept beside it."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_fp32 = flops / FP32_FLOPS * 1e3
-    t_tc = tc_seconds(name, flops, dtype)
-    t_tc = None if t_tc is None else t_tc * 1e3
-    t_ops = t_fp32 if t_tc is None else t_tc
-    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes > t_ops else "operations",
-                bound_fp32_ms=max(t_bytes, t_fp32),
-                bound_tc_ms=None if t_tc is None else max(t_bytes, t_tc))
+    t_tc = tc_seconds(name, flops, dtype, products) * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_tc),
+                bound_by="bytes" if t_bytes > t_tc else "operations",
+                bound_fp32_ms=max(t_bytes, t_fp32), bound_tc_ms=max(t_bytes, t_tc))
 
 
-def timed_row(torch, name, kernel, plain, library, nbytes, flops, dtype="float32") -> dict:
+def timed_row(torch, name, kernel, plain, library, nbytes, flops, dtype="float32",
+              products=None) -> dict:
     """Kernel and yardstick times on the device (graph_ms) and eager (host
     included), the plain version's eager time, and the bounds."""
     return dict(kernel=name, ms=graph_ms(torch, kernel), ms_eager=time_ms(torch, kernel),
                 plain_ms=time_ms(torch, plain),
                 library_ms=None if library is None else graph_ms(torch, library),
                 library_ms_eager=None if library is None else time_ms(torch, library),
-                **bounds(name, nbytes, flops, dtype))
+                **bounds(name, nbytes, flops, dtype, products))
 
 
-def wkv6_ops(B, S, H, K, L) -> float:
-    """Operations of the chunked WKV, per (batch, head, chunk of L tokens):
-    the cumsum and cs_prev (2LK), the decayed r (2LK), the inter-chunk
-    product (2LK^2), the strictly causal scores (L(L-1)/2 pairs of K terms:
-    subtract, exp, two multiplies, add), their product with v (2 pairs K),
-    the bonus (5LK), the decayed k (3LK) and the state (2LK^2 + 2K^2)."""
+def wkv6_ops(B, S, H, K, L) -> tuple:
+    """Operations of the reference's chunked WKV (whatever the kernel
+    implements), per (batch, head, chunk of L tokens): the cumsum and
+    cs_prev (2LK), the decayed r (2LK), the inter-chunk product (2LK^2), the
+    strictly causal scores (L(L-1)/2 pairs of K terms: subtract, exp, two
+    multiplies, add), their product with v (2 pairs K), the bonus (5LK), the
+    decayed k (3LK) and the state (2LK^2 + 2K^2).  Returns (all, products):
+    the four chunk products are the inter-chunk, the scores' multiply-add
+    (2 pairs K), scores @ v and the state's 2LK^2."""
     pairs = L * (L - 1) // 2
     per = (4 * L * K + 2 * L * K * K + 5 * pairs * K + 2 * pairs * K + 8 * L * K
            + 2 * L * K * K + 2 * K * K)
-    return float(B * H * -(-S // L) * per)
+    products = 2 * L * K * K + 2 * pairs * K + 2 * pairs * K + 2 * L * K * K
+    n = B * H * -(-S // L)
+    return float(n * per), float(n * products)
 
 
 def lm_path(torch, dev, lm, serve, cfg, variant, kernel, launch_counts,

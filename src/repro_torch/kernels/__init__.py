@@ -11,8 +11,9 @@ quant_epitome_matmul  — the same over int8 codes with one (scale, zero)
                         split-K at decode rows
                         (``csrc/quant_epitome_matmul{,_bf16}.cu`` on
                         ``csrc/epitome_mma.cuh``)
-wkv6                  — the chunked RWKV6 WKV with a carried state
-                        (``csrc/wkv6.cu``)
+wkv6                  — the chunked RWKV6 WKV with a carried state, its
+                        chunk products on the TF32 tensor cores, r, k, v
+                        in bfloat16 or float32 (``csrc/wkv6.cu``)
 quant_matmul          — a dense int8 dequant matmul with one (scale, zero)
                         per 256 x 256 crossbar tile, float32 or bfloat16
                         activations (``csrc/quant_matmul.cu`` on

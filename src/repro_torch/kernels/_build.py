@@ -46,7 +46,7 @@ LIBRARIES = {
         "quant_matmul_bf16_launch": [_P] * 8 + [_I] * 4 + [_P],
     }),
     "wkv6": ("wkv6.cu", {
-        "wkv6_chunked_launch": [_P] * 8 + [_I] * 5 + [_P],
+        "wkv6_chunked_launch": [_P] * 8 + [_I] * 6 + [_P],
     }),
 }
 
@@ -146,9 +146,7 @@ def require_dtype(kernel: str, arg: str, t: torch.Tensor, *dtypes: torch.dtype) 
     """Raise unless ``t`` has one of ``dtypes`` (the kernel's only types)."""
     if t.dtype not in dtypes:
         names = " or ".join(str(d) for d in dtypes)
-        note = ("; this kernel computes in float32 only, bfloat16 is not ported"
-                if t.dtype == torch.bfloat16 else "")
-        raise TypeError(f"{kernel}: {arg} must be {names}, got {t.dtype}{note}")
+        raise TypeError(f"{kernel}: {arg} must be {names}, got {t.dtype}")
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -175,10 +175,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
          chunk: int = 64) -> tuple:
     """Chunked RWKV6 WKV.  r/k/v/logw: (B, S, H, K), logw <= 0; u: (H, K);
     state: (B, H, K, K) or None (zero).  Returns (o (B, S, H, K), final
-    state), both float32: the inputs are cast to float32 first, as
-    ``ssm.rwkv_chunked`` casts them, and the caller casts o back."""
+    state), both float32, as ``ssm.rwkv_chunked`` computes them in float32;
+    the caller casts o back.  r, k and v pass as they come (float32, or the
+    LM's bfloat16, which the kernel reads directly); logw, u and the state
+    are float32."""
     f32 = lambda t: t.to(torch.float32).contiguous()
-    return wkv6_chunked(f32(r), f32(k), f32(v), f32(logw), f32(u),
+    return wkv6_chunked(r.contiguous(), k.contiguous(), v.contiguous(), f32(logw), f32(u),
                         None if state is None else f32(state), chunk=chunk)
 
 

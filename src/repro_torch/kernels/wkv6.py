@@ -6,8 +6,10 @@ evaluated in the chunked form of ``repro.models.ssm.rwkv_chunked`` (all
 decay exponents relative and non-positive).  With ``h0=None`` the state
 starts at zero, which is ``repro.kernels.wkv6.wkv6_chunked``.
 
-For CUDA tensors this launches the kernel of ``csrc/wkv6.cu``; for CPU
-tensors it runs the plain version in ``ref.py``.
+For CUDA tensors this launches the kernel of ``csrc/wkv6.cu`` (the chunk
+products on the tensor cores, 3xTF32), which reads r, k and v as float32 or
+as bfloat16, the LM's projections as they come; for CPU tensors it runs the
+plain version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -19,21 +21,28 @@ from . import _build
 from .ref import wkv6_chunked_ref
 
 MAX_K = MAX_CHUNK = 64      # the kernel's shared-memory tiles (csrc/wkv6.cu)
+RKV_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  logw: torch.Tensor, u: torch.Tensor,
                  h0: Optional[torch.Tensor] = None, *,
                  chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/v/logw: (B, S, H, K) float32, logw <= 0; u: (H, K) float32; h0:
-    (B, H, K, K) float32, or None for a zero state.  Returns (o (B, S, H, K),
-    hT (B, H, K, K)), both float32; chunks are min(chunk, S) tokens."""
+    """r/k/v: (B, S, H, K), float32 or bfloat16, one dtype; logw: (B, S, H,
+    K) float32, <= 0; u: (H, K) float32; h0: (B, H, K, K) float32, or None
+    for a zero state.  Returns (o (B, S, H, K), hT (B, H, K, K)), both
+    float32; chunks are min(chunk, S) tokens."""
     if r.device.type == "cpu":
         return wkv6_chunked_ref(r, k, v, logw, u, h0, chunk=chunk)
     name = "wkv6_chunked"
     state = {} if h0 is None else {"h0": h0}
     _build.require_cuda(name, r, r=r, k=k, v=v, logw=logw, u=u, **state)
-    for arg, t in dict(r=r, k=k, v=v, logw=logw, u=u, **state).items():
+    _build.require_dtype(name, "r", r, *RKV_DTYPES)
+    for arg, t in dict(k=k, v=v).items():
+        if t.dtype != r.dtype:
+            raise TypeError(f"{name}: r, k and v must share one dtype, got r {r.dtype} "
+                            f"and {arg} {t.dtype}")
+    for arg, t in dict(logw=logw, u=u, **state).items():
         _build.require_dtype(name, arg, t, torch.float32)
     B, S, H, K = r.shape
     L = max(1, min(chunk, S))
@@ -45,13 +54,13 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if K > MAX_K or L > MAX_CHUNK:
         raise ValueError(f"{name}: head size {K} and chunk {L} must be at most "
                          f"{MAX_K} and {MAX_CHUNK}")
-    o = torch.empty_like(r)
+    o = torch.empty(r.shape, device=r.device, dtype=torch.float32)
     hT = torch.empty((B, H, K, K), device=r.device, dtype=torch.float32)
     with torch.cuda.device(r.device):
         rc = _build.library("wkv6").wkv6_chunked_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
             None if h0 is None else h0.data_ptr(), o.data_ptr(), hT.data_ptr(),
-            B, S, H, K, L, _build.stream_of(r))
+            B, S, H, K, L, int(r.dtype == torch.bfloat16), _build.stream_of(r))
     _build.check_launch(rc, name)
     wkv6_chunked.launches += 1
     return o, hT

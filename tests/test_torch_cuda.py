@@ -326,8 +326,11 @@ def test_bf16_quant_epitome_matmul_blocks_kernel_at_lm_shapes(args, T, cuda_devi
     torch.testing.assert_close(y.float(), plain.float(), **BF16)
 
 
+# K = 12 (not a multiple of 8) takes the kernel's element-wise staging;
+# chunks shorter than a 16-token sub-chunk (S = 7 < chunk, chunk 8)
 @pytest.mark.parametrize("B,S,H,K,chunk", [(2, 80, 4, 16, 64), (4, 200, 8, 64, 64),
-                                           (2, 50, 2, 8, 16)])
+                                           (2, 50, 2, 8, 16), (2, 50, 3, 12, 16),
+                                           (1, 7, 2, 16, 64), (1, 21, 2, 16, 8)])
 def test_wkv6_kernel_with_state_at_ragged_length(B, S, H, K, chunk, cuda_device):
     g = torch.Generator().manual_seed(S)
     f = lambda *s: torch.randn(s, generator=g).to(cuda_device)
@@ -344,6 +347,67 @@ def test_wkv6_kernel_with_state_at_ragged_length(B, S, H, K, chunk, cuda_device)
     torch.testing.assert_close(o0, ref.wkv6_chunked_ref(r, k, v, lw, u, chunk=chunk)[0], **WKV)
     strong, h = wkv6_chunked(r, k, v, torch.full_like(lw, -20.0), u, h0, chunk=chunk)
     assert torch.isfinite(strong).all() and torch.isfinite(h).all()
+
+
+def _wkv_inputs(B, S, H, K, device, dtype):
+    g = torch.Generator().manual_seed(S + K)
+    f = lambda *s: torch.randn(s, generator=g).to(device)
+    r, k, v = (f(B, S, H, K).to(dtype) for _ in range(3))
+    return r, k, v, -torch.exp(f(B, S, H, K) * 0.5), f(H, K) * 0.1, f(B, H, K, K) * 0.5
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", [(4, 256, 64, 64, 64), (2, 80, 4, 16, 64),
+                                           (2, 50, 2, 8, 16), (2, 50, 3, 12, 16)])
+def test_wkv6_kernel_reads_bf16_rkv(B, S, H, K, chunk, cuda_device):
+    """bf16 r, k, v (the LM's projections) straight into the kernel, against
+    the plain version on the same values cast to float32."""
+    r, k, v, lw, u, h0 = _wkv_inputs(B, S, H, K, cuda_device, torch.bfloat16)
+    reset_launch_counts()
+    o, hT = wkv6_chunked(r, k, v, lw, u, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["wkv6_chunked"] == 1 and o.dtype == hT.dtype == torch.float32
+    o_ref, h_ref = ref.wkv6_chunked_ref(r.float(), k.float(), v.float(), lw, u, h0, chunk=chunk)
+    torch.testing.assert_close(o, o_ref, **WKV)
+    torch.testing.assert_close(hT, h_ref, **WKV)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_repeats_bit_for_bit(dtype, cuda_device):
+    """No atomics: two calls on the same inputs agree bit for bit (the LM's
+    three-prefill gate rests on it)."""
+    args = _wkv_inputs(4, 256, 64, 64, cuda_device, dtype)
+    (o1, h1), (o2, h2) = wkv6_chunked(*args), wkv6_chunked(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(h1, h2)
+
+
+def test_wkv6_kernel_refuses_mixed_or_other_dtypes(cuda_device):
+    r, k, v, lw, u, h0 = _wkv_inputs(1, 16, 2, 8, cuda_device, torch.bfloat16)
+    with pytest.raises(TypeError, match="one dtype"):
+        wkv6_chunked(r, k, v.float(), lw, u, h0)
+    with pytest.raises(TypeError, match="float32 or torch.bfloat16"):
+        wkv6_chunked(r.half(), k.half(), v.half(), lw, u, h0)
+    with pytest.raises(TypeError, match="logw"):
+        wkv6_chunked(r, k, v, lw.bfloat16(), u, h0)
+
+
+def test_ops_wkv6_passes_bf16_through_without_a_cast(cuda_device):
+    """ops.wkv6 on the LM's bf16 r, k, v launches the kernel and nothing
+    that copies them: the call allocates o (256 KB here) and the state
+    (128 KB) and no float32 copy of r, k or v (256 KB each)."""
+    B, S, H, K = 2, 128, 4, 64
+    r, k, v, lw, u, h0 = _wkv_inputs(B, S, H, K, cuda_device, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    o, hT = ops.wkv6(r, k, v, lw, u, h0)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    assert launch_counts()["wkv6_chunked"] == 1
+    assert grew <= 4 * (o.numel() + hT.numel())
+    torch.testing.assert_close(
+        o, ref.wkv6_chunked_ref(r.float(), k.float(), v.float(), lw, u, h0)[0], **WKV)
 
 
 def test_smoke_lm_on_card_matches_cpu(cuda_device):

@@ -1,5 +1,5 @@
-"""The arithmetic of the tensor-core kernels (csrc/epitome_mma.cuh and
-csrc/epitome_fp_mma.cuh), modelled in plain torch on the CPU.
+"""The arithmetic of the tensor-core kernels (csrc/epitome_mma.cuh,
+csrc/epitome_fp_mma.cuh and csrc/wkv6.cu), modelled in plain torch on the CPU.
 
 The int8 kernels take (s, z) out of the product: per pack block b and output
 block j, y += s * (x_b . q_b + z * sum_k x_k), with x_b . q_b on bf16 tensor
@@ -15,8 +15,13 @@ longest contraction.  Kernel #3's float32 entry is 3xTF32 (each operand as
 two TF32 values, three products), held against its plain version at
 ResNet-50's CR-4 shapes, where one TF32 pass misses the gate.  Kernel #2's
 fold (each epitome row summing its virtual rows from the inverse table, in
-ascending order) is held to ``ref.fold_blocks_ref`` bit for bit.  Inputs
-are drawn with numpy from a seed; nothing here needs a card."""
+ascending order) is held to ``ref.fold_blocks_ref`` bit for bit.  Kernel
+#4, the chunked WKV (csrc/wkv6.cu), factors its decays by 16-token
+sub-chunks and runs its four chunk products as 3xTF32 with a truncating
+split; the model is held within the WKV gate of ``ref.wkv6_chunked_ref``
+and of the JAX reference's ``ssm.rwkv_chunked``, where one TF32 pass
+misses it.  Inputs are drawn with numpy from a seed; nothing here needs a
+card."""
 import numpy as np
 import pytest
 import torch
@@ -415,3 +420,144 @@ def test_quant_matmul_decode_sum_against_float64(M, N):
     assert _gate(pair, y64) and _gate(chain, y64)
     rms = lambda y: float((y - y64).pow(2).mean().sqrt())
     assert rms(pair) < rms(chain)
+
+
+# -- kernel #4: the chunked WKV on TF32 tensor cores ------------------------------
+WKV = 1e-3      # |y - ref| <= tol + tol |ref|, tests/test_kernels.py:85
+# the reference's own cases (tests/test_kernels.py:67-72, ragged S = 50
+# included), and rwkv6-7b's head (K = 64, chunk 64) over four chunks
+WKV_CASES = [(1, 16, 1, 8, 8), (2, 64, 2, 16, 16), (2, 50, 2, 8, 16), (1, 128, 4, 32, 64),
+             (1, 256, 2, 64, 64)]
+
+
+def tf32_trunc(v):
+    """Kernel #4's split: float32 with its low 13 bits cleared (a bitwise
+    and, where kernel #3's cvt.rna rounds, ``tf32``)."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mma(acc, a, b, passes):
+    """acc (.., M, N) + a (.., M, k) @ b (.., k, N) as the kernel's mma.sync
+    k8 steps: each operand split into hi = tf32(x), lo = tf32(x - hi); per
+    step lo hi, hi lo, hi hi (or hi hi alone, passes=1), each adding its 8
+    exact products into the float32 accumulator.  A bf16 operand's lo is 0,
+    its pass adds nothing, as the kernel skips it."""
+    ah, bh = tf32_trunc(a), tf32_trunc(b)
+    al, bl = tf32_trunc(a - ah), tf32_trunc(b - bh)
+    terms = [(ah, bh)] if passes == 1 else [(al, bh), (ah, bl), (ah, bh)]
+    for k in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            acc = _f32(acc + x[..., k:k + 8].double() @ y[..., k:k + 8, :].double())
+    return acc
+
+
+def wkv6_mma_model(r, k, v, logw, u, h0=None, chunk=64, passes=3):
+    """Kernel #4's arithmetic: per chunk, a tile of 16 x ceil(L / 16) tokens
+    (rows past L zero, logw 0), cs and cs_prev = cs - logw in float32; the
+    inter-chunk product (r exp(cs_prev)) @ S; the scores of sub-chunk b
+    against earlier ones through c = cs just before b, (r exp(min(cs_prev -
+    c, 0))) @ (k exp(c - cs))^T; tokens 8..15 of b against 0..7 through cs
+    at token 7; the two 8 x 8 diagonal blocks with exact exponents clamped
+    at 0; scores @ v into the same accumulator, the u bonus, and the state
+    S exp(cs_L) + (k exp(cs_L - cs))^T @ v.  (B, S, H, K) in, (o, hT) out,
+    float32.  The exponentials are torch's; the kernel's __expf is within
+    3e-6 of them, far inside the gate."""
+    B, S, H, K = r.shape
+    L = max(1, min(chunk, S))
+    n, T, KP = -(-S // L), 16 * -(-L // 16), 8 * -(-K // 8)
+
+    def tiles(t):      # (B, H, n, T, KP)
+        t = F.pad(t.float().permute(0, 2, 1, 3), (0, KP - K, 0, n * L - S))
+        return F.pad(t.reshape(B, H, n, L, KP), (0, 0, 0, T - L))
+
+    rf, kf, vf, wf = tiles(r), tiles(k), tiles(v), tiles(logw)
+    uf = F.pad(u.float(), (0, KP - K))[None, :, None, :]
+    St = torch.zeros(B, H, KP, KP, dtype=torch.float64)
+    if h0 is not None:
+        St[..., :K, :K] = h0.double()
+    tri = torch.ones(8, 8, dtype=torch.bool).tril(-1)
+    outs = []
+    for c in range(n):
+        rc, kc, vc, wc = rf[:, :, c], kf[:, :, c], vf[:, :, c], wf[:, :, c]
+        cs = wc.cumsum(2)
+        cp = cs - wc
+        o = _mma(torch.zeros(B, H, T, KP, dtype=torch.float64), rc * cp.exp(), St.float(),
+                 passes)
+        sc = torch.zeros(B, H, T, T, dtype=torch.float64)
+        for R0 in range(0, T, 16):
+            rows = slice(R0, R0 + 16)
+            if R0:
+                cw = cs[:, :, R0 - 1:R0]
+                A = rc[:, :, rows] * (cp[:, :, rows] - cw).clamp_max(0).exp()
+                Bt = (kc[:, :, :R0] * (cw - cs[:, :, :R0]).exp()).transpose(-1, -2)
+                sc[:, :, rows, :R0] = _mma(sc[:, :, rows, :R0], A, Bt, passes)
+            lo, hi = slice(R0, R0 + 8), slice(R0 + 8, R0 + 16)
+            cq = cs[:, :, R0 + 7:R0 + 8]
+            A = rc[:, :, hi] * (cp[:, :, hi] - cq).clamp_max(0).exp()
+            Bt = (kc[:, :, lo] * (cq - cs[:, :, lo]).exp()).transpose(-1, -2)
+            sc[:, :, hi, lo] = _mma(sc[:, :, hi, lo], A, Bt, passes)
+            for blk in (lo, hi):
+                e = (cp[:, :, blk, None] - cs[:, :, None, blk]).clamp_max(0).exp()
+                full = (rc[:, :, blk, None] * e * kc[:, :, None, blk]).double().sum(-1)
+                sc[:, :, blk, blk] = _f32(full * tri)
+        o = _mma(o, sc.float(), vc, passes)
+        bonus = _f32(((rc * uf) * kc).double().sum(-1, keepdim=True))
+        outs.append(_f32(o + bonus * vc.double())[:, :, :L])
+        csL = cs[:, :, -1:]
+        St = _mma(_f32(St * csL.transpose(-1, -2).exp().double()),
+                  (kc * (csL - cs).exp()).transpose(-1, -2), vc, passes)
+    o = torch.cat(outs, 2)[:, :, :S, :K].permute(0, 2, 1, 3)
+    return o.float(), St[..., :K, :K].float()
+
+
+def _wkv_case(B, S, H, K, bf16=False, logw=None, seed=0):
+    """Inputs with numpy from a seed, and a state; r, k, v rounded to bf16
+    (exact in TF32) for the LM's case."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    r, k, v = f(B, S, H, K), f(B, S, H, K), f(B, S, H, K)
+    lw = -torch.exp(f(B, S, H, K) * 0.5) if logw is None else torch.full((B, S, H, K), logw)
+    u, h0 = f(H, K) * 0.1, f(B, H, K, K) * 0.5
+    if bf16:
+        r, k, v = (t.bfloat16().float() for t in (r, k, v))
+    return r, k, v, lw, u, h0
+
+
+def _within(y, ref, tol=WKV):
+    return bool(torch.isfinite(y).all()) and not _over(y, ref, tol)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B,S,H,K,chunk", WKV_CASES)
+def test_wkv6_tensor_core_model_holds_the_gate(B, S, H, K, chunk, bf16):
+    """The sub-chunk factored decays and three TF32 passes, from a state,
+    within the WKV gate of the plain version and of the JAX reference's
+    ``ssm.rwkv_chunked``."""
+    import jax.numpy as jnp
+    from repro.models import ssm as jssm
+    args = _wkv_case(B, S, H, K, bf16)
+    o, hT = wkv6_mma_model(*args, chunk=chunk)
+    o_ref, h_ref = ref.wkv6_chunked_ref(*args, chunk=chunk)
+    jo, jh = jssm.rwkv_chunked(*(jnp.asarray(t.numpy()) for t in args), chunk=chunk)
+    for y, r in ((o, o_ref), (hT, h_ref), (o, torch.from_numpy(np.array(jo))),
+                 (hT, torch.from_numpy(np.array(jh)))):
+        assert _within(y, r)
+
+
+def test_wkv6_model_under_strong_decay_stays_finite_and_within_the_gate():
+    """log w = -20: a factor exp(c - cs) over up to 63 tokens underflows
+    (exp(-1260)), and drops only terms below 1e-38."""
+    args = _wkv_case(1, 128, 2, 64, logw=-20.0)
+    o, hT = wkv6_mma_model(*args)
+    o_ref, h_ref = ref.wkv6_chunked_ref(*args)
+    assert _within(o, o_ref) and _within(hT, h_ref)
+
+
+def test_one_tf32_pass_misses_the_wkv_gate():
+    """Why each of kernel #4's products takes three TF32 passes (two with
+    bf16 v, whose lo is 0): one pass (hi hi alone) falls outside 1e-3 at
+    rwkv6-7b's head, whether r, k, v are float32 or bf16."""
+    for bf16 in (False, True):
+        args = _wkv_case(1, 256, 2, 64, bf16)
+        o, _ = wkv6_mma_model(*args, passes=1)
+        assert _over(o, ref.wkv6_chunked_ref(*args)[0], WKV)
