@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
-Four main paths, each at the full width of its model:
+Six main paths, each at the full width of its model:
 
 * EPIM-ResNet-50 at 3-bit epitome-aware quantization,
   ``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
@@ -18,7 +18,13 @@ Four main paths, each at the full width of its model:
 * a searched EPIM-ResNet-50 plan, ``get_resnet("resnet50",
   "evo-latency-q3")``: the Algorithm-1 search legalized to the kernel-exact
   families, 38 epitomized layers; and kernel #5, the dense int8
-  ``ops.quant_matmul``, at rwkv6-7b's projection shapes.
+  ``ops.quant_matmul``, at rwkv6-7b's projection shapes;
+* serving qwen2-72b at kernel-q3 in bf16 at full width and depth (80
+  layers, d_model 8192, vocab 152064), the same entry points: attention
+  (plain PyTorch, GQA, RoPE, KV cache) and the dense SwiGLU FFN, each of
+  the 7 projections a launch of the fused int8 kernel per forward;
+* serving gemma2-2b at kernel-q3 in bf16 (26 layers, local/global
+  attention, softcaps, tied head) on a prompt longer than its window.
 
 Phases:
 
@@ -39,7 +45,9 @@ Phases:
              for #3's bf16 entry, three TF32 products for each FLOP (495
              TFLOP/s, 3xTF32) for #3's float32 entry and #4's four chunk
              products (the rest of #4's work at the fp32 rate, 67 TFLOP/s);
-             the fp32-rate bound is kept beside it for every kernel.
+             the fp32-rate bound is kept beside it for every kernel; column
+             blocks that read the same epitome columns give one product,
+             whose operations are counted once (distinct_blocks).
 3. forward — ResNet-50 kernel-q3, kernel and kernel-q3 with every layer's
              fold inside the kernel (fused_fold), from seeded weights at
              batch 32: each launch counter must rise by exactly 45 per
@@ -89,10 +97,20 @@ Phases:
              38 launches of the int8 kernel, and the same plan with every
              fold inside the kernel (38 launches of that kernel only), each
              timed and held against the CPU at batch 2.
-9. times   — each kernel's times and bounds summed over the launches of
+9. attention LMs — for qwen2-72b and gemma2-2b at kernel-q3: the int8
+             kernel at each epitomized projection spec, bf16 (counted) and
+             float32, at the path's prefill rows (4 x 256; 1 x 4608) and
+             decode rows (4; 1), against its plain version, timed beside the
+             cuBLAS float32 and bf16 yardsticks, decode rows three times bit
+             for bit; then phase 5's generate (4 x 256 + 32 tokens, exactly
+             7 x 80 launches a forward; 1 x 4608 + 16, exactly 5 x 26), three
+             prefills bit for bit, timed and profiled; then phase 6 at full
+             width cut to 2 float32 layers, at a float32 and an int8 KV cache
+             (gemma2 with a window of 64 under a 256-token prompt).
+10. times  — each kernel's times and bounds summed over the launches of
              the main paths (the ResNet forwards, one LM generate at each
-             variant, the quant_matmul calls); kernel #2 beside kernel #1 plus the fold
-             on each ResNet path.
+             variant and of each attention LM, the quant_matmul calls);
+             kernel #2 beside kernel #1 plus the fold on each ResNet path.
 
 Any failure exits nonzero.  The line before the last is a JSON object
 listing the kernels; the last line is ``{"ok": true, "device": ...}``.
@@ -137,6 +155,16 @@ LOGIT_TOL = 1e-4
 LOGIT_SEEDS = (1, 2, 3, 4)   # more seeds for the ResNet logits check, beside SEED
 LM_ARCH, LM_REQUESTS, LM_PROMPT, LM_NEW = "rwkv6-7b", 4, 256, 32
 CPU_LAYERS, CPU_PROMPT, CPU_NEW = 2, 80, 4   # 80 = one 64-token chunk + a ragged 16
+# the attention LMs at kernel-q3, bf16, full width and depth: (arch,
+# requests, prompt, new tokens, kernel #1 launches a forward = epitomized
+# sites x layers, overrides of the 2-layer float32 card-vs-CPU check and its
+# prompt).  qwen2-72b takes rwkv6-7b's traffic; gemma2-2b one prompt longer
+# than its 4096-token window, so its local layers mask on the card, and its
+# CPU check a window of 64 under a 256-token prompt
+ATTN_PATHS = (
+    ("qwen2-72b", LM_REQUESTS, LM_PROMPT, LM_NEW, 7 * 80, {}, CPU_PROMPT),
+    ("gemma2-2b", 1, 4608, 16, 5 * 26, {"window": 64}, 256),
+)
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/quant_epitome_matmul.cu",
@@ -342,12 +370,13 @@ def main() -> int:
     lm_rows, fold = lm_kernels(torch, dev, gen, ops, ref, WRAPPERS, lm, lm_cfg)
     rows += lm_rows
     torch.cuda.empty_cache()
-    lm_run = lm_path(torch, dev, lm, serve, lm_cfg, "kernel-q3", QUANT, launch_counts,
-                     reset_launch_counts)
+    lm_run = lm_path(torch, dev, lm, serve, lm_cfg, "kernel-q3",
+                     {QUANT: 8 * lm_cfg.n_layers * LM_NEW, WKV: lm_cfg.n_layers},
+                     launch_counts, reset_launch_counts)
     launches.update({QUANT: launches[QUANT] + lm_run["launches"][QUANT],
                      "wkv6_chunked": lm_run["launches"]["wkv6_chunked"]})
     torch.cuda.empty_cache()
-    lm_cpu = [lm_card_vs_cpu(torch, dev, lm, get_config, "kernel-q3")]
+    lm_cpu = lm_card_vs_cpu(torch, dev, lm, get_config, LM_ARCH, "kernel-q3")
     report["lm_s"] = time.perf_counter() - t_start - report["resnet_s"]
 
     # -- 6b. the LM at kernel: kernel #3's bf16 entry on every projection -----
@@ -355,15 +384,16 @@ def main() -> int:
     fp_cfg = get_config(LM_ARCH, "kernel")
     rows += lm_fp_kernels(torch, dev, gen, ops, ref, WRAPPERS, lm, fp_cfg)
     torch.cuda.empty_cache()
-    lm_fp_run = lm_path(torch, dev, lm, serve, fp_cfg, "kernel", FP_KERNEL, launch_counts,
-                        reset_launch_counts)
+    lm_fp_run = lm_path(torch, dev, lm, serve, fp_cfg, "kernel",
+                        {FP_KERNEL: 8 * fp_cfg.n_layers * LM_NEW, WKV: fp_cfg.n_layers},
+                        launch_counts, reset_launch_counts)
     launches[FP_KERNEL] += lm_fp_run["launches"][FP_KERNEL]
     launches["wkv6_chunked"] += lm_fp_run["launches"]["wkv6_chunked"]
     # its WKV launches run at the shape and dtype timed with the kernel-q3 path's
     wkv = next(r for r in lm_rows if r["kernel"] == WKV and r["count"])
     rows.append(dict(wkv, path=f"{LM_ARCH} kernel"))
     torch.cuda.empty_cache()
-    lm_cpu.append(lm_card_vs_cpu(torch, dev, lm, get_config, "kernel"))
+    lm_cpu += lm_card_vs_cpu(torch, dev, lm, get_config, LM_ARCH, "kernel")
     report["lm_kernel_s"] = time.perf_counter() - t0
 
     # -- 7. kernel #5 through ops.quant_matmul --------------------------------
@@ -385,7 +415,26 @@ def main() -> int:
     forwards += plan_run["forwards"]
     report["plan_s"] = time.perf_counter() - t0
 
-    # -- 9. times per kernel, summed over the main paths' launches -----------
+    # -- 9. the attention LMs at kernel-q3: qwen2-72b, gemma2-2b -------------
+    attn_runs, attn_cpu, report["attention_s"] = [], [], {}
+    for arch, requests, prompt, new, per_fwd, cpu_over, cpu_prompt in ATTN_PATHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch, "kernel-q3")
+        sites = sum(site_specs(lm, cfg).values()) * cfg.n_groups
+        if sites != per_fwd:
+            raise AssertionError(f"{arch}: {sites} epitomized projections, expected {per_fwd}")
+        rows += quant_lm_rows(torch, dev, gen, ops, ref, WRAPPERS, lm, cfg, arch,
+                              requests * prompt, requests, new - 1)
+        run = lm_path(torch, dev, lm, serve, cfg, "kernel-q3", {QUANT: per_fwd * new},
+                      launch_counts, reset_launch_counts, requests, prompt, new)
+        launches[QUANT] += run["launches"][QUANT]
+        attn_runs.append(run)
+        torch.cuda.empty_cache()
+        attn_cpu += lm_card_vs_cpu(torch, dev, lm, get_config, arch, "kernel-q3",
+                                   kv_bits=(16, 8), prompt_len=cpu_prompt, **cpu_over)
+        report["attention_s"][arch] = time.perf_counter() - t0
+
+    # -- 10. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
@@ -398,10 +447,10 @@ def main() -> int:
         for r in counted:
             p = paths_of.setdefault(r["path"], dict(
                 launches=0, ms=0.0, bound_ms=0.0, bound_fp32_ms=0.0, bound_tc_ms=0.0,
-                plain_ms=0.0, library_ms=0.0, fold_ms=0.0))
+                plain_ms=0.0, library_ms=0.0, library_bf16_ms=0.0, fold_ms=0.0))
             p["launches"] += r["count"]
             for key in ("ms", "bound_ms", "bound_fp32_ms", "bound_tc_ms", "plain_ms",
-                        "library_ms", "fold_ms"):
+                        "library_ms", "library_bf16_ms", "fold_ms"):
                 p[key] = (None if r.get(key) is None or p[key] is None
                           else p[key] + r[key] * r["count"])
         summary.append({
@@ -425,7 +474,8 @@ def main() -> int:
             + "; ".join(f"{p}: {v['launches']} launches {v['ms']:.3f} ms (bound "
                         f"{v['bound_ms']:.3f}, fp32 rate {v['bound_fp32_ms']:.3f}, tensor "
                         f"cores {_ms(v['bound_tc_ms'])}, plain "
-                        f"{v['plain_ms']:.3f}, library {_ms(v['library_ms'])})"
+                        f"{v['plain_ms']:.3f}, library {_ms(v['library_ms'])}, library bf16 "
+                        f"{_ms(v['library_bf16_ms'])})"
                         for p, v in paths_of.items()))
     # kernel #2 against kernel #1 plus the fold it saves (ops.fold_rows timed
     # at each shape of the unfused path)
@@ -443,7 +493,8 @@ def main() -> int:
     report["fused_fold_vs_blocks_plus_fold"] = fused_vs
 
     report.update(kernels=summary, shapes=rows, forwards=forwards, lm=lm_run, lm_kernel=lm_fp_run,
-                  lm_card_vs_cpu=lm_cpu, fold_probe=fold, plan=plan_run["plan"],
+                  lm_card_vs_cpu=lm_cpu, attention_lms=attn_runs,
+                  attention_card_vs_cpu=attn_cpu, fold_probe=fold, plan=plan_run["plan"],
                   quant_matmul_vs_f64=qm_f64,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
@@ -452,7 +503,8 @@ def main() -> int:
     log(f"[done] {report['total_s']:.1f} s (ResNet {report['resnet_s']:.1f}, "
         f"LM {report['lm_s']:.1f}, LM kernel {report['lm_kernel_s']:.1f}, "
         f"quant_matmul {report['quant_matmul_s']:.1f}, "
-        f"plan {report['plan_s']:.1f})")
+        f"plan {report['plan_s']:.1f}, "
+        + ", ".join(f"{a} {t:.1f}" for a, t in report["attention_s"].items()) + ")")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
     # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
@@ -561,24 +613,29 @@ def logits_over_seeds(torch, dev, get_resnet, forwards, paths) -> dict:
 
 
 def site_specs(lm, cfg) -> dict:
-    """{epitome spec: projections per layer} of the LM's 8 projections."""
+    """{epitome spec: projections per group through an epitome kernel} of
+    the LM (dense projections, such as gemma2-2b's wk and wv, run none)."""
     out = {}
     for lc in lm.lm_layer_configs(cfg).values():
-        out[lc.spec] = out.get(lc.spec, 0) + 1
+        if lc.is_epitome and lc.mode == "kernel":
+            out[lc.spec] = out.get(lc.spec, 0) + 1
     return out
 
 
-def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
-    """The int8 kernel at the LM's three projection shapes, bf16 (the path's
-    dtype, counted) and float32 (checked), at prefill and decode rows; the
-    WKV kernel at the prefill's shape from a non-zero state.  Each against
-    its plain version, then timed beside it, the yardstick and the bound."""
+def quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path, rows_pre,
+                  rows_dec, steps_dec) -> list:
+    """Kernel #1 at an LM's epitomized projection specs, bf16 (counted when
+    it is the path's dtype) and float32 (checked), at ``rows_pre`` rows (a
+    prefill, once a generate) and ``rows_dec`` rows (a decode step,
+    ``steps_dec`` times): each against its plain version, then timed beside
+    it, the cuBLAS float32 and bf16 yardsticks on the dequantized weight and
+    the bound; the decode rows three times bit for bit, and L2-cold (over
+    copies of the codes and of the yardstick's weight past 64 MB, as a
+    decode step reads every layer's weights once)."""
     from repro_torch.core.quant import dequantize_packed
     sites = lm.lm_layer_configs(cfg)
-    per_layer = site_specs(lm, cfg)
-    n_layers = cfg.n_layers
     rows = []
-    for spec, k in per_layer.items():
+    for spec, k in site_specs(lm, cfg).items():
         lc = next(v for v in sites.values() if v.spec == spec)
         E = torch.randn(spec.m, spec.n, device=dev, generator=gen) / math.sqrt(spec.M)
         p = ops.pack_epitome(E, spec, lc.quant)
@@ -589,13 +646,10 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
                           for c in ops.kernel_col_blocks(spec, bn).tolist()])
         W = dequantize_packed(p.q, p.scales, p.zeros, (p.bk, bn))[:, cols].contiguous()
         Wb = W.bfloat16()
-        # distinct copies of the codes (and of the yardstick's weight) to
-        # rotate through past the L2, as a decode step reads 256 weights
         n_cold = -(-L2_COLD_BYTES // p.q.numel()) + 1
         q_cold = [p.q.clone() for _ in range(n_cold)]
         W_cold = [W.clone() for _ in range(-(-L2_COLD_BYTES // (4 * W.numel())) + 1)]
-        for T, count in ((LM_REQUESTS * LM_PROMPT, k * n_layers),
-                         (LM_REQUESTS, k * n_layers * (LM_NEW - 1))):
+        for T, count in ((rows_pre, k * cfg.n_groups), (rows_dec, k * cfg.n_groups * steps_dec)):
             x = torch.randn(T, spec.M, device=dev, generator=gen)
             for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, KERNEL_TOL)):
                 folded = ops.fold_rows(x.to(dtype), spec)
@@ -611,23 +665,23 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
                 if y.dtype != dtype:
                     raise AssertionError(f"{QUANT}: {dtype} in, {y.dtype} out")
                 dname = str(dtype).replace("torch.", "")
-                err = max_err(torch, y, plain(), tol, f"{QUANT} {dname} {spec} T={T}")
+                err = max_err(torch, y, plain(), tol, f"{path} {QUANT} {dname} {spec} T={T}")
                 esz = folded.element_size()
                 nbytes = (esz * folded.numel() + p.q.numel() + 8.0 * p.scales.numel()
                           + 4.0 * gn + esz * T * gn * bn)
-                flops = 2.0 * T * spec.m * gn * bn
+                flops = 2.0 * T * spec.m * distinct_blocks(cb) * bn
                 row = timed_row(torch, QUANT, kernel, plain, library, nbytes, flops)
                 row.update(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bn=bn, T=T,
-                           pack_bk=p.bk, dtype=dname, max_abs_err=err, path=LM_ARCH,
+                           pack_bk=p.bk, dtype=dname, max_abs_err=err, path=path,
                            count=count if dtype == cfg.cdtype else 0)
                 if dtype == torch.bfloat16:   # the bf16 yardstick: bf16 x, bf16 weight
                     row["library_bf16_ms"] = graph_ms(torch, lambda: torch.matmul(folded, Wb))
-                if T == LM_REQUESTS:
+                if T == rows_dec:
                     # decode rows: three launches bit for bit, and L2-cold times
                     again = [kernel() for _ in range(3)]
                     if not all(torch.equal(a, again[0]) for a in again):
-                        raise AssertionError(f"{QUANT} {dname} T={T}: three decode launches "
-                                             f"differ")
+                        raise AssertionError(f"{path} {QUANT} {dname} T={T}: three decode "
+                                             f"launches differ")
                     qc, wc = itertools.cycle(q_cold), itertools.cycle(W_cold)
                     row.update(
                         repeat_bit_for_bit=3,
@@ -635,19 +689,32 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
                         library_ms_cold=graph_ms(torch, lambda: torch.matmul(f32, next(wc))),
                         cold_buffers=[n_cold, len(W_cold)])
                 rows.append(row)
-                log(f"[lm-kernels] {QUANT} {dname} ({spec.M},{spec.N})->({spec.m},{spec.n}) "
-                    f"T={T} x{row['count']}: max_err={err:.2e} ms={row['ms']:.4f} "
-                    f"(eager {row['ms_eager']:.4f}) plain_ms={row['plain_ms']:.4f} "
-                    f"library_ms={row['library_ms']:.4f} (eager {row['library_ms_eager']:.4f}) "
+                log(f"[lm-kernels] {path}: {QUANT} {dname} ({spec.M},{spec.N})->({spec.m},"
+                    f"{spec.n}) bk={p.bk} T={T} x{row['count']}: max_err={err:.2e} "
+                    f"ms={row['ms']:.4f} (eager {row['ms_eager']:.4f}) "
+                    f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                    f"(eager {row['library_ms_eager']:.4f}) "
                     f"library_bf16_ms={_ms(row.get('library_bf16_ms'), 4)} "
                     f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                     f"bound_fp32_ms={row['bound_fp32_ms']:.4f} "
                     f"bound_tc_ms={_ms(row['bound_tc_ms'], 4)}"
-                    + (f"; L2-cold ms={row['ms_cold']:.4f} library_ms={row['library_ms_cold']:.4f}"
-                       f" ({n_cold} code copies); 3 launches bit for bit"
-                       if T == LM_REQUESTS else ""))
-        del W, Wb, q_cold, W_cold
-    rows_fold = fold_probe(torch, dev, gen, ops, next(iter(per_layer)))
+                    + (f"; L2-cold ms={row['ms_cold']:.4f} library_ms="
+                       f"{row['library_ms_cold']:.4f} ({n_cold} code copies); 3 launches "
+                       f"bit for bit" if T == rows_dec else ""))
+            del x
+        del E, p, W, Wb, q_cold, W_cold
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
+    """The int8 kernel at rwkv6-7b's three projection shapes
+    (quant_lm_rows at 4 x 256 and 4 rows); the WKV kernel at the prefill's
+    shape from a non-zero state.  Each against its plain version, then
+    timed beside it, the yardstick and the bound."""
+    rows = quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, LM_ARCH,
+                         LM_REQUESTS * LM_PROMPT, LM_REQUESTS, LM_NEW - 1)
+    rows_fold = fold_probe(torch, dev, gen, ops, next(iter(site_specs(lm, cfg))))
     # the WKV at the prefill's shape, from a non-zero state, with r, k, v in
     # the LM's dtype (counted) and in float32 (checked and timed)
     B, S, H, K, L = LM_REQUESTS, LM_PROMPT, cfg.n_heads, cfg.hd, cfg.rwkv_chunk
@@ -716,7 +783,7 @@ def lm_fp_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg) -> list:
             err = max_err(torch, y, plain(), BF16_TOL, f"{FP_KERNEL} bfloat16 {spec} T={T}")
             nbytes = 2.0 * (folded.numel() + Eb.numel() + T * gn * bn) + 4.0 * gn
             row = timed_row(torch, FP_KERNEL, kernel, plain, library, nbytes,
-                            2.0 * T * spec.m * gn * bn, "bfloat16")
+                            2.0 * T * spec.m * distinct_blocks(cb) * bn, "bfloat16")
             row.update(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bn=bn, T=T, dtype="bfloat16",
                        max_abs_err=err, path=f"{LM_ARCH} kernel", count=count,
                        library_bf16_ms=row["library_ms"], cast_ms=cast_ms)
@@ -760,6 +827,15 @@ def fold_probe(torch, dev, gen, ops, spec, runs: int = 20) -> dict:
         f"in {runs} runs: " + ", ".join(f"{k} {out[k]}" for k in folds)
         + f"; max |index_add_ bf16 - fold_rows| {out['max_abs_bf16_vs_fold_rows']:.3e}")
     return out
+
+
+def distinct_blocks(cb) -> int:
+    """Column blocks of a product that differ: blocks that read the same
+    epitome columns (the table ``cb`` repeats, as when a 256-wide epitome
+    serves N = 29568) give the same product, which the least work computes
+    once; the bounds count its FLOPs once (its output is still written and
+    counted in bytes for every block)."""
+    return len(set(cb.tolist()))
 
 
 def tc_seconds(name, flops, dtype, products=None):
@@ -818,36 +894,36 @@ def wkv6_ops(B, S, H, K, L) -> tuple:
     return float(n * per), float(n * products)
 
 
-def lm_path(torch, dev, lm, serve, cfg, variant, kernel, launch_counts,
-            reset_launch_counts) -> dict:
-    """rwkv6-7b at ``variant`` at full width and depth: generate with exact
-    launch counts (8 of ``kernel`` per layer and forward, one WKV per layer,
-    nothing else), then prefill and decode timed and profiled."""
+def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_launch_counts,
+            requests=LM_REQUESTS, prompt=LM_PROMPT, new=LM_NEW) -> dict:
+    """An LM (``cfg``, at ``variant``) at full width and depth from seeded
+    weights: generate ``new`` greedy tokens for ``requests`` prompts of
+    ``prompt`` random tokens with exactly the launches of ``expect``
+    ({kernel: launches}) and none of any other kernel, then prefill (three
+    times, bit for bit) and decode timed and profiled."""
+    name = cfg.name
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
     params = lm.prepack_params(params, cfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT), device=dev,
+    prompts = torch.randint(0, cfg.vocab, (requests, prompt), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(SEED + 1))
-    max_len = LM_PROMPT + LM_NEW + 1
+    max_len = prompt + new + 1
     reset_launch_counts()
     t0 = time.perf_counter()
-    toks, _ = serve.generate(params, cfg, prompts, max_len, LM_NEW)
+    toks, _ = serve.generate(params, cfg, prompts, max_len, new)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     counts = launch_counts()
-    expect = {k: 0 for k in counts}
-    expect[kernel] = 8 * cfg.n_layers * LM_NEW
-    expect["wkv6_chunked"] = cfg.n_layers
-    if counts != expect:
-        raise AssertionError(f"{LM_ARCH}: launches {counts}, expected {expect}")
-    if tuple(toks.shape) != (LM_REQUESTS, LM_NEW) or int(toks.min()) < 0 \
+    if counts != {k: expect.get(k, 0) for k in counts}:
+        raise AssertionError(f"{name}: launches {counts}, expected {expect}")
+    if tuple(toks.shape) != (requests, new) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab:
-        raise AssertionError(f"{LM_ARCH}: tokens {tuple(toks.shape)} out of the vocab")
+        raise AssertionError(f"{name}: tokens {tuple(toks.shape)} out of the vocab")
     with torch.no_grad():
-        state0 = lm.init_decode_state(cfg, LM_REQUESTS, max_len, dev)
+        state0 = lm.init_decode_state(cfg, requests, max_len, dev)
         pre, pre_host, outs = [], [], []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -857,53 +933,58 @@ def lm_path(torch, dev, lm, serve, cfg, variant, kernel, launch_counts,
             torch.cuda.synchronize()
             pre.append(1e3 * (time.perf_counter() - t0))
             outs.append(logits[:, -1].float())
-        finite(torch, logits, "prefill logits")
+        finite(torch, logits, f"{name} prefill logits")
         # three identical prefills must repeat bit for bit (no atomics on the
         # path); and how close the first request's top two logits lie, what
         # a greedy token hangs on
         repeat_diff = max(float((o - outs[0]).abs().max()) for o in outs)
         if repeat_diff != 0.0:
-            raise AssertionError(f"{LM_ARCH}: three identical prefills differ by "
+            raise AssertionError(f"{name}: three identical prefills differ by "
                                  f"{repeat_diff:.3e} in their logits")
         top2 = torch.topk(outs[0][0], 2).values
-        wr = params["groups"][0]["L0"]["mixer"]["wr"]
+        mixer = params["groups"][0]["L0"]["mixer"]
+        w = mixer["wr" if "wr" in mixer else "wq"]
         fingerprint = [float(params["embed"].double().sum()), float(prompts.sum()),
-                       int(wr["Eq"].long().sum()) if "Eq" in wr else float(wr["E"].double().sum())]
+                       int(w["Eq"].long().sum()) if "Eq" in w else float(w["E"].double().sum())]
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-        logits, state = lm.decode_step(params, state, tok, LM_PROMPT, cfg)   # warm-up
+        logits, state = lm.decode_step(params, state, tok, prompt, cfg)   # warm-up
         dec, dec_host = [], []
         for i in range(5):
             tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, state = lm.decode_step(params, state, tok, LM_PROMPT + 1 + i, cfg)
+            logits, state = lm.decode_step(params, state, tok, prompt + 1 + i, cfg)
             dec_host.append(1e3 * (time.perf_counter() - t0))
             torch.cuda.synchronize()
             dec.append(1e3 * (time.perf_counter() - t0))
-        finite(torch, logits, "decode logits")
+        finite(torch, logits, f"{name} decode logits")
         peak = torch.cuda.max_memory_allocated()
         prof_pre = device_breakdown(torch, lambda: lm.prefill(params, prompts, state0, cfg))
         prof_dec = device_breakdown(
-            torch, lambda: lm.decode_step(params, state, tok, LM_PROMPT + 6, cfg))
+            torch, lambda: lm.decode_step(params, state, tok, prompt + 6, cfg))
     decode_ms = statistics.median(dec)
-    run = dict(variant=variant, kernel=kernel,
-               launches={kernel: counts[kernel], "wkv6_chunked": counts["wkv6_chunked"]},
+    run = dict(arch=name, variant=variant, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab, traffic=[requests, prompt, new],
+               launches={k: counts[k] for k in expect},
                setup_s=setup_s, generate_s=generate_s, tokens_sample=toks[0, :8].tolist(),
                prefill_ms=pre, prefill_host_ms=pre_host, decode_ms=dec, decode_host_ms=dec_host,
                prefill_ms_median=statistics.median(pre), decode_ms_median=decode_ms,
-               decode_tok_s=LM_REQUESTS / (decode_ms / 1e3), peak_bytes=peak,
+               decode_tok_s=requests / (decode_ms / 1e3), peak_bytes=peak,
                prefill_device_breakdown=prof_pre, decode_device_breakdown=prof_dec,
+               prefill_busy_ms=sum(ms for _, ms, _ in prof_pre),
+               decode_busy_ms=sum(ms for _, ms, _ in prof_dec),
                decode_kernels_per_step=sum(n for _, _, n in prof_dec),
                prefill_kernels=sum(n for _, _, n in prof_pre),
                prefill_repeat_max_abs_diff=repeat_diff,
                first_token_top2=[float(t) for t in top2], fingerprint=fingerprint)
-    log(f"[lm] {LM_ARCH} {variant} bf16 {cfg.n_layers} layers: init+prepack {setup_s:.1f} s; "
-        f"generate {LM_REQUESTS}x{LM_PROMPT}+{LM_NEW} in {generate_s:.2f} s with "
-        f"{kernel} x{counts[kernel]}, wkv6_chunked x{counts['wkv6_chunked']}; "
-        f"tokens[0] {toks[0, :8].tolist()}; weights and prompts fingerprint {fingerprint}; "
+    log(f"[lm] {name} {variant} {str(cfg.cdtype).replace('torch.', '')} {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}: init+prepack {setup_s:.1f} s; generate "
+        f"{requests}x{prompt}+{new} in {generate_s:.2f} s with "
+        + ", ".join(f"{k} x{counts[k]}" for k in expect)
+        + f"; tokens[0] {toks[0, :8].tolist()}; weights and prompts fingerprint {fingerprint}; "
         f"3 prefills differ by max|d logits| {repeat_diff:.3e}; request 0's top two "
         f"logits {float(top2[0]):.4f}, {float(top2[1]):.4f}")
-    log(f"[lm] {variant}: prefill median {run['prefill_ms_median']:.2f} ms (runs "
+    log(f"[lm] {name} {variant}: prefill median {run['prefill_ms_median']:.2f} ms (runs "
         f"{', '.join(f'{t:.2f}' for t in pre)}; host returns after "
         f"{statistics.median(pre_host):.2f}); decode step median {decode_ms:.2f} ms (runs "
         f"{', '.join(f'{t:.2f}' for t in dec)}; host returns after "
@@ -911,78 +992,90 @@ def lm_path(torch, dev, lm, serve, cfg, variant, kernel, launch_counts,
         f"peak {peak / 2**30:.2f} GiB; device kernels: prefill {run['prefill_kernels']}, "
         f"decode step {run['decode_kernels_per_step']}")
     for label, prof in (("prefill", prof_pre), ("decode", prof_dec)):
-        busy = sum(ms for _, ms, _ in prof)
-        log(f"[profile] lm {variant} {label}: device busy {busy:.3f} ms")
-        for name, ms, n in prof[:8]:
-            log(f"[profile] lm {variant} {label}: {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+        log(f"[profile] lm {name} {variant} {label}: device busy "
+            f"{sum(ms for _, ms, _ in prof):.3f} ms")
+        for kname, ms, n in prof[:8]:
+            log(f"[profile] lm {name} {variant} {label}: {ms:9.3f} ms  x{n:<5d} {kname[:90]}")
     del params, state, state0
     return run
 
 
 def finite(torch, t, what):
     if not torch.isfinite(t.float()).all():
-        raise AssertionError(f"{LM_ARCH}: {what} not finite")
+        raise AssertionError(f"{what} not finite")
 
 
-def lm_card_vs_cpu(torch, dev, lm, get_config, variant) -> dict:
-    """The LM at ``variant`` in float32 at full width, cut to CPU_LAYERS layers: one prompt
-    through prefill and greedy decode on the CPU (plain versions), then the
-    same tokens on the card; logits held at LOGIT_TOL of their scale and
-    the greedy tokens equal, a step whose CPU top two logits lie within the
-    tolerance being held by its logits alone."""
-    cfg = get_config(LM_ARCH, variant, compute_dtype="float32", n_layers=CPU_LAYERS)
+def lm_card_vs_cpu(torch, dev, lm, get_config, arch, variant, kv_bits=(16,),
+                   prompt_len=CPU_PROMPT, **overrides) -> list:
+    """``arch`` at ``variant`` in float32 at full width, cut to CPU_LAYERS
+    layers (``overrides`` replace more fields): one prompt of
+    ``prompt_len`` through prefill and greedy decode on the CPU (plain
+    versions), then the same tokens on the card, at each KV cache width of
+    ``kv_bits``; logits held at LOGIT_TOL of their scale and the greedy
+    tokens equal, a step whose CPU top two logits lie within the tolerance
+    being held by its logits alone.  One entry per cache width."""
+    import dataclasses
+    cfg0 = get_config(arch, variant, compute_dtype="float32", n_layers=CPU_LAYERS, **overrides)
     card = lm.prepack_params(
-        lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg)
+        lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg0, dev), cfg0)
     host = _to_cpu(card)
-    prompt = torch.randint(0, cfg.vocab, (1, CPU_PROMPT),
+    prompt = torch.randint(0, cfg0.vocab, (1, prompt_len),
                            generator=torch.Generator().manual_seed(SEED + 2))
+    out = []
+    for bits in kv_bits:
+        cfg = dataclasses.replace(cfg0, kv_cache_bits=bits)
 
-    def run(params, device, tokens=None):
-        with torch.no_grad():
-            state = lm.init_decode_state(cfg, 1, CPU_PROMPT + CPU_NEW, device)
-            logits, state = lm.prefill(params, prompt.to(device), state, cfg)
-            out, toks = [logits[:, -1].float().cpu()], []
-            for i in range(CPU_NEW):
-                tok = (torch.argmax(out[-1], -1).to(torch.int32)[:, None] if tokens is None
-                       else tokens[i])
-                toks.append(tok)
-                if i == CPU_NEW - 1:
-                    break
-                logits, state = lm.decode_step(params, state, tok.to(device),
-                                               CPU_PROMPT + i, cfg)
-                out.append(logits[:, -1].float().cpu())
-        return out, toks
+        def run(params, device, tokens=None):
+            with torch.no_grad():
+                state = lm.init_decode_state(cfg, 1, prompt_len + CPU_NEW, device)
+                logits, state = lm.prefill(params, prompt.to(device), state, cfg)
+                got, toks = [logits[:, -1].float().cpu()], []
+                for i in range(CPU_NEW):
+                    tok = (torch.argmax(got[-1], -1).to(torch.int32)[:, None] if tokens is None
+                           else tokens[i])
+                    toks.append(tok)
+                    if i == CPU_NEW - 1:
+                        break
+                    logits, state = lm.decode_step(params, state, tok.to(device),
+                                                   prompt_len + i, cfg)
+                    got.append(logits[:, -1].float().cpu())
+            return got, toks
 
-    t0 = time.perf_counter()
-    ref_logits, ref_toks = run(host, torch.device("cpu"))
-    cpu_s = time.perf_counter() - t0
-    got, _ = run(card, dev, ref_toks)
-    steps = []
-    for i, (a, b) in enumerate(zip(got, ref_logits)):
-        scale = max(1.0, float(b.abs().max()))
-        err = float((a - b).abs().max())
-        if not err <= LOGIT_TOL * scale:
-            raise AssertionError(f"{LM_ARCH} {variant} {CPU_LAYERS} layers: step {i} logits on the "
-                                 f"card differ from the CPU by {err:.3e} "
-                                 f"(> {LOGIT_TOL} * {scale:.3f})")
-        top2 = torch.topk(b[0], 2).values
-        gap = float(top2[0] - top2[1])
-        same = int(torch.argmax(a[0])) == int(ref_toks[i])
-        if not same and gap > LOGIT_TOL * scale:
-            raise AssertionError(f"{LM_ARCH} {variant} {CPU_LAYERS} layers: step {i} greedy token "
-                                 f"{int(torch.argmax(a[0]))} on the card, "
-                                 f"{int(ref_toks[i])} on the CPU")
-        if not same:
-            log(f"[lm-cpu] step {i}: top two CPU logits within {gap:.2e} of each other; "
-                f"held by its logits alone")
-        steps.append(dict(max_abs_err=err, scale=scale, top2_gap=gap, same_token=same))
-    errs = ", ".join(f"{s['max_abs_err']:.2e}" for s in steps)
-    log(f"[lm-cpu] {LM_ARCH} {variant} float32 {CPU_LAYERS} layers, 1x{CPU_PROMPT}+{CPU_NEW}: card vs "
-        f"cpu logits max|d| per step {errs} "
-        f"(max|logit| {max(s['scale'] for s in steps):.3f}); tokens "
-        f"{[int(t) for t in ref_toks]} equal; cpu run {cpu_s:.1f} s")
+        what = f"{arch} {variant} float32 {CPU_LAYERS} layers kv {bits} bits"
+        t0 = time.perf_counter()
+        ref_logits, ref_toks = run(host, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        got, _ = run(card, dev, ref_toks)
+        steps = []
+        for i, (a, b) in enumerate(zip(got, ref_logits)):
+            scale = max(1.0, float(b.abs().max()))
+            err = float((a - b).abs().max())
+            if not err <= LOGIT_TOL * scale:
+                raise AssertionError(f"{what}: step {i} logits on the card differ from the "
+                                     f"CPU by {err:.3e} (> {LOGIT_TOL} * {scale:.3f})")
+            top2 = torch.topk(b[0], 2).values
+            gap = float(top2[0] - top2[1])
+            same = int(torch.argmax(a[0])) == int(ref_toks[i])
+            if not same and gap > LOGIT_TOL * scale:
+                raise AssertionError(f"{what}: step {i} greedy token "
+                                     f"{int(torch.argmax(a[0]))} on the card, "
+                                     f"{int(ref_toks[i])} on the CPU")
+            if not same:
+                log(f"[lm-cpu] step {i}: top two CPU logits within {gap:.2e} of each other; "
+                    f"held by its logits alone")
+            steps.append(dict(max_abs_err=err, scale=scale, top2_gap=gap, same_token=same))
+        errs = ", ".join(f"{st['max_abs_err']:.2e}" for st in steps)
+        log(f"[lm-cpu] {what}"
+            + "".join(f", {k} {v}" for k, v in overrides.items())
+            + f", 1x{prompt_len}+{CPU_NEW}: card vs cpu logits max|d| per step {errs} "
+            f"(max|logit| {max(st['scale'] for st in steps):.3f}); tokens "
+            f"{[int(t) for t in ref_toks]} equal; cpu run {cpu_s:.1f} s")
+        out.append(dict(arch=arch, variant=variant, kv_cache_bits=bits, overrides=overrides,
+                        prompt=prompt_len, steps=steps, tokens=[int(t) for t in ref_toks],
+                        cpu_s=cpu_s))
     del card, host
-    return dict(variant=variant, steps=steps, tokens=[int(t) for t in ref_toks], cpu_s=cpu_s)
+    torch.cuda.empty_cache()
+    return out
 
 
 QM_SHAPES = ((4096, 4096), (4096, 14336), (14336, 4096))   # rwkv6-7b's projections
@@ -1229,7 +1322,7 @@ def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T, names=None):
     }
     # the bound: each input read once and the output written once, against
     # the FMAs of the contraction (the fused fold adds one add per input)
-    flops = 2.0 * T * q.shape[0] * gn * bn
+    flops = 2.0 * T * q.shape[0] * distinct_blocks(cb) * bn
     out_b = 4.0 * T * gn * bn
     code_b = q.numel() + 8.0 * p.scales.numel() + 4.0 * gn
     work = {"quant_epitome_matmul_blocks": (4.0 * folded.numel() + code_b + out_b, flops),

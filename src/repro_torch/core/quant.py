@@ -18,6 +18,7 @@ operation in the same order as the reference, so the int8 codes of
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -59,10 +60,17 @@ def _masked_min_max(x: torch.Tensor, mask: torch.Tensor
     return mn, mx
 
 
+@functools.lru_cache(maxsize=64)
+def _overlap_mask_on(spec: EpitomeSpec, device: torch.device) -> torch.Tensor:
+    """overlap_mask(spec) on ``device``, computed and copied once per
+    (spec, device): a model packs every layer of one spec against it."""
+    return torch.as_tensor(overlap_mask(spec), device=device)
+
+
 def overlap_weighted_range(E: torch.Tensor, spec: EpitomeSpec, w1: float,
                            w2: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eq. 4-5: weighted min/max over the overlap region vs. the rest."""
-    m = torch.as_tensor(overlap_mask(spec), device=E.device)
+    m = _overlap_mask_on(spec, E.device)
     any_ovl = m.any()
     mn_o, mx_o = _masked_min_max(E, m)
     mn_r, mx_r = _masked_min_max(E, ~m)

@@ -1,11 +1,17 @@
-"""Serving entry point: batched prefill, then decode, with a recurrent state.
+"""Serving entry point: batched prefill, then decode, with a KV cache or a
+recurrent state.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --epitome kernel-q3 --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
         --epitome kernel-q3 --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --plan plan_legal.json --smoke --device cpu     # a '<arch>-smoke' plan
 
-(counterpart of ``repro.launch.serve``).  Parameters are drawn from
+(counterpart of ``repro.launch.serve``).  It serves rwkv6-7b and the six
+attention architectures (qwen2-72b, qwen1.5-110b, gemma2-2b, deepseek-67b,
+musicgen-large, internvl2-76b; the last two take token ids here, their
+embedding inputs through ``models.lm`` directly).  Parameters are drawn from
 ``--seed`` on the serving device and, for a kernel x quant variant such as
 ``kernel-q3``, prepacked once into int8 codes, so every forward feeds the
 fused kernel stored codes.  Greedy decoding follows the reference token for
@@ -42,9 +48,13 @@ def _select(logits: torch.Tensor, temperature: float,
 def generate(params, cfg, prompts: torch.Tensor, max_len: int, gen: int,
              temperature: float = 0.0, generator: Optional[torch.Generator] = None):
     """prompts: (B, P) int.  Returns (tokens (B, gen) int32, final state).
-    ``max_len`` sizes attention caches (unused by the recurrent kinds);
+    ``max_len`` (at least P + gen - 1) sizes the attention layers' KV
+    caches (unused by the recurrent kinds);
     ``generator`` draws the sampled tokens (on the prompts' device)."""
     B, P = prompts.shape
+    if max_len < P + gen - 1:
+        raise ValueError(f"max_len {max_len} holds no KV cache row for a decode step: "
+                         f"{P} prompt tokens and {gen} generated need {P + gen - 1}")
     with torch.no_grad():
         state = lm.init_decode_state(cfg, B, max_len, device=prompts.device)
         logits, state = lm.prefill(params, prompts, state, cfg)
@@ -76,7 +86,9 @@ def build_model(arch: str, epitome: str, smoke: bool, seed: int, device="cuda",
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--arch", default="rwkv6-7b",
+                    help="rwkv6-7b, qwen2-72b, qwen1.5-110b, gemma2-2b, deepseek-67b, "
+                         "musicgen-large or internvl2-76b")
     ap.add_argument("--epitome", default="off")
     ap.add_argument("--plan", default="",
                     help="EpitomePlan JSON driving per-layer epitome "

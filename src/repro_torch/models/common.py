@@ -1,7 +1,9 @@
-"""Shared LM pieces: norms, activations, embedding (counterpart of the
-model-side half of ``repro.models.common``; RoPE comes with attention, and
-the mesh helpers have no counterpart on one card)."""
+"""Shared LM pieces: norms, activations, RoPE, embedding (counterpart of
+the model-side half of ``repro.models.common``; the mesh helpers have no
+counterpart on one card)."""
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +22,31 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
 
 def init_rms_norm(d: int, dtype=torch.float32, device="cuda") -> torch.Tensor:
     return torch.zeros((d,), dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_freqs(hd: int, theta: float, device="cpu") -> torch.Tensor:
+    """(hd/2,) float32 inverse frequencies, made once per (hd, theta,
+    device): every attention layer's RoPE reads the same table."""
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,) integers.  Angles in
+    float32; the rotated halves assembled by stack and reshape, as the
+    reference assembles them; the result in x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, float(theta), x.device)
+    angles = positions[..., None].to(torch.float32) * freqs    # (B, S, hd/2)
+    if angles.ndim == 2:                                        # (S, hd/2)
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., : hd // 2], xf[..., hd // 2:]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-2)
+    return out.reshape(x.shape).to(x.dtype)
 
 
 def act_fn(name: str):

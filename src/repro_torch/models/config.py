@@ -5,9 +5,10 @@ smallest repeating "super-block", e.g. jamba's 1-attention-per-8 or gemma2's
 local/global alternation).  Each pattern position names a sequence mixer and
 an FFN kind.  The fields, their defaults and the per-site epitome
 resolution (``ModelConfig.ep``) are the reference's; ``pdtype``/``cdtype``
-are torch dtypes.  Fields of the layer kinds not ported yet (attention,
-MoE, Mamba) are kept so the ten architectures stay data; the reference's
-sharding and rematerialisation knobs have no counterpart on one card.
+are torch dtypes.  Fields of the layer kinds not ported yet (MoE, Mamba)
+are kept so the ten architectures stay data; the reference's sharding and
+rematerialisation knobs have no counterpart on one card, while
+``kv_cache_bits`` (the int8 KV cache of the attention kinds) is kept.
 """
 from __future__ import annotations
 
@@ -131,6 +132,10 @@ class ModelConfig:
     rwkv_chunk: int = 64
     mamba_chunk: int = 128
 
+    # KV cache of the attention kinds: 16 = the compute dtype, 8 = int8
+    # codes with one fp16 scale per (token, head)
+    kv_cache_bits: int = 16
+
     # misc
     act: str = "silu"                      # silu | gelu
     norm_eps: float = 1e-6
@@ -143,8 +148,8 @@ class ModelConfig:
 
     # per-layer epitome deployment keyed by param-tree path ("L0/mixer/wr",
     # ...); entries override ``epitome`` for their site.  A tuple of
-    # (name, EpLayerConfig) pairs so the config stays hashable.  Plans that
-    # fill it come with a later slice of the port.
+    # (name, EpLayerConfig) pairs so the config stays hashable;
+    # ``configs.get_config(plan=...)`` fills it from a plan.
     layer_config: Tuple[Tuple[str, EpLayerConfig], ...] = ()
 
     # modality frontend stub: inputs are precomputed embeddings

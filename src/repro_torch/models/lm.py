@@ -11,7 +11,7 @@ unstacks the reference's tree into this layout.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -60,10 +60,13 @@ def prepack_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     return {**params, "groups": groups}
 
 
-def _embed(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Token ids (B, S) -> scaled embeddings (the modality stubs' embedding
-    inputs come with the attention architectures that use them)."""
-    x = embed_lookup(params["embed"], tokens, cfg.cdtype)
+def _embed(params: Dict[str, Any], inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token ids (B, S) -> scaled embeddings; (B, S, d) embeddings (the
+    modality stubs' frame or patch inputs) pass through in the compute
+    dtype."""
+    if inputs.ndim != 2:
+        return inputs.to(cfg.cdtype)
+    x = embed_lookup(params["embed"], inputs, cfg.cdtype)
     # the scale rounded to the compute dtype first, as jnp.asarray(..., cdtype)
     return x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype))
 
@@ -74,39 +77,53 @@ def _logits(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.
     return unembed(x, head, cfg.logit_softcap)
 
 
-def forward(params: Dict[str, Any], inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """inputs: (B, S) int token ids.  Returns logits (B, S, vocab)."""
+def forward(params: Dict[str, Any], inputs: torch.Tensor, cfg: ModelConfig,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """inputs: (B, S) int token ids, or (B, S, d) embeddings.  Returns
+    logits (B, S, vocab).  ``positions`` ((S,) or (B, S)) place RoPE;
+    0..S-1 by default."""
     x = _embed(params, inputs, cfg)
     for group in params["groups"]:
-        x = apply_group(group, x, cfg)
+        x = apply_group(group, x, cfg, positions)
     return _logits(params, x, cfg)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> List[Dict[str, Any]]:
-    """One decode state per group."""
+    """One decode state per group; ``max_len`` rows of KV cache for each
+    attention layer."""
     return [init_group_state(cfg, batch, max_len, device) for _ in range(cfg.n_groups)]
 
 
 def prefill(params: Dict[str, Any], inputs: torch.Tensor, state: List[Dict[str, Any]],
-            cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """Run the prompt and fill the decode state.  Returns (last-token
-    logits (B, 1, vocab), new state)."""
+            cfg: ModelConfig, positions: Optional[torch.Tensor] = None,
+            valid_len=None, chunk_start=None) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+    """Run the prompt ((B, S) ids or (B, S, d) embeddings) and fill the
+    decode state.  Returns (last-token logits (B, 1, vocab), new state).
+    The attention caches of ``state`` are written in place (the returned
+    state holds the same tensors); the recurrent kinds' state is returned
+    new.  ``valid_len`` and ``chunk_start`` belong to the serving engine
+    and raise until its slice."""
     x = _embed(params, inputs, cfg)
     new_state = []
     for group, st in zip(params["groups"], state):
-        x, st = prefill_group(group, st, x, cfg)
+        x, st = prefill_group(group, st, x, cfg, positions, valid_len, chunk_start)
         new_state.append(st)
     return _logits(params, x[:, -1:], cfg), new_state
 
 
 def decode_step(params: Dict[str, Any], state: List[Dict[str, Any]], token: torch.Tensor,
-                pos, cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """token: (B, 1) int; pos: the token's sequence position.  Returns
-    (logits (B, 1, vocab), new state)."""
+                pos, cfg: ModelConfig, page_table=None
+                ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+    """token: (B, 1) int ids or (B, 1, d) embeddings; ``pos`` the token's
+    sequence position: an int, or a device tensor, scalar or (B,) per row
+    (never read by the host).  Returns (logits (B, 1, vocab), new state);
+    the attention caches of ``state`` are written in place at ``pos``.
+    ``page_table`` belongs to the serving engine and raises until its
+    slice."""
     x = _embed(params, token, cfg)
     new_state = []
     for group, st in zip(params["groups"], state):
-        x, st = decode_group(group, st, x, pos, cfg)
+        x, st = decode_group(group, st, x, pos, cfg, page_table)
         new_state.append(st)
     return _logits(params, x, cfg), new_state

@@ -326,6 +326,65 @@ def test_bf16_quant_epitome_matmul_blocks_kernel_at_lm_shapes(args, T, cuda_devi
     torch.testing.assert_close(y.float(), plain.float(), **BF16)
 
 
+# qwen2-72b kernel-q3's four specs: a 256-wide epitome under 116 column
+# blocks with the last one half used (N = 29568), a ragged contraction
+# (m = 7392, pack bk 32) and an unfolded m = M = 8192; then gemma2-2b's
+# (2304, 9216) -> (576, 9216), pack bk 64
+QWEN2_SHAPES = [(8192, 8192, 2048, 8192, 256, 256), (8192, 1024, 8192, 256, 256, 256),
+                (8192, 29568, 8192, 256, 256, 256), (29568, 8192, 7392, 8192, 256, 256),
+                (2304, 9216, 576, 9216, 256, 256)]
+
+
+@pytest.mark.parametrize("T", [1, 4, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("args", QWEN2_SHAPES)
+def test_quant_epitome_matmul_at_attention_lm_shapes(args, dtype, T, cuda_device):
+    """Kernel #1 through ops.quant_epitome_matmul (fold, launch, trim to N)
+    at the attention LMs' ragged specs, one decode row (T = 1) included:
+    one launch, against the plain version on the same card inputs, and the
+    decode rows three times bit for bit."""
+    spec, _, x, p, _ = _case(args, T, cuda_device)
+    xd = x.to(dtype)
+    reset_launch_counts()
+    y = ops.quant_epitome_matmul(xd, None, spec, packed=p)
+    torch.cuda.synchronize()
+    assert launch_counts()["quant_epitome_matmul_blocks"] == 1
+    assert y.dtype == dtype and tuple(y.shape) == (T, spec.N)
+    cb = ops.spec_tables(spec, p.bn, cuda_device).col_blocks
+    folded = ops.fold_rows(xd, spec)
+    plain = ref.quant_epitome_matmul_blocks_ref(folded, p.q, p.scales, p.zeros, cb, p.bk,
+                                                p.bn)[:, :spec.N]
+    torch.testing.assert_close(y.float(), plain.float(),
+                               **(TOL if dtype == torch.float32 else BF16))
+    if T <= 4:
+        again = [ops.quant_epitome_matmul(xd, None, spec, packed=p) for _ in range(3)]
+        assert all(torch.equal(a, y) for a in again)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "gemma2-2b"])
+@pytest.mark.parametrize("bits", [16, 8])
+def test_smoke_attention_lm_on_card_matches_cpu(arch, bits, cuda_device):
+    """An attention architecture's smoke config at kernel-q3 in float32
+    (gemma2's prompt of 12 runs past its window of 8): every epitomized
+    projection launched as kernel #1, greedy tokens equal to the plain
+    versions' on the CPU, at a float and an int8 KV cache."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config(arch, "kernel-q3"), compute_dtype="float32",
+                              kv_cache_bits=bits)
+    gpu = lm.prepack_params(lm.init_params(torch.Generator().manual_seed(0), cfg, cuda_device), cfg)
+    cpu = lm.prepack_params(lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(1))
+    sites = sum(lc.is_epitome for lc in lm.lm_layer_configs(cfg).values())
+    reset_launch_counts()
+    toks, _ = serve.generate(gpu, cfg, prompts.to(cuda_device), 20, 4)
+    assert launch_counts()["quant_epitome_matmul_blocks"] == sites * cfg.n_groups * 4
+    ref_toks, _ = serve.generate(cpu, cfg, prompts, 20, 4)
+    assert torch.equal(toks.cpu(), ref_toks)
+
+
 # K = 12 (not a multiple of 8) takes the kernel's element-wise staging;
 # chunks shorter than a 16-token sub-chunk (S = 7 < chunk, chunk 8)
 @pytest.mark.parametrize("B,S,H,K,chunk", [(2, 80, 4, 16, 64), (4, 200, 8, 64, 64),

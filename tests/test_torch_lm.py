@@ -1,6 +1,7 @@
-"""Port parity: the RWKV6 LM of repro_torch (configs, per-site epitome specs,
+"""Port parity: the LMs of repro_torch (configs, per-site epitome specs,
 prepack, prefill, decode, generate) against the JAX reference, with the
-reference's parameters carried across by ``convert.lm_params_from_jax``.
+reference's parameters carried across by ``convert.lm_params_from_jax``:
+rwkv6-7b, and the six attention architectures with the dense FFN.
 
 The reference's kernel-q3 path runs its Pallas kernels in interpret mode,
 which look up ``pltpu.TPUCompilerParams`` (renamed ``CompilerParams`` in
@@ -120,7 +121,7 @@ def test_configs_equal(arch):
                       (get_smoke_config(arch, "folded"), jget_smoke(arch, "folded"))):
         mine, theirs = dataclasses.asdict(port), dataclasses.asdict(ref)
         assert set(theirs) - set(mine) == {"seq_shard_residual", "remat_policy",
-                                           "kv_cache_bits", "moe_decode_dispatch"}
+                                           "moe_decode_dispatch"}
         assert mine == {k: theirs[k] for k in mine}
         assert port.n_groups == ref.n_groups and port.hd == ref.hd
         assert port.full_pattern == ref.full_pattern
@@ -185,9 +186,9 @@ def test_plans_and_other_layer_kinds_wait_for_their_slices():
     assert dict(cfg.layer_config) == dict(plan.layer_configs())
     assert lm.lm_layer_configs(cfg)["L0/ffn/wv"] == dict(plan.layer_configs())["L0/ffn/wv"]
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="attention slice"):
-        lm.init_params(g, get_smoke_config("qwen2-72b"), "cpu")
-    with pytest.raises(NotImplementedError, match="Mamba slice"):
+    with pytest.raises(NotImplementedError, match="MoE slice .*item 10"):
+        lm.init_params(g, get_smoke_config("phi3.5-moe-42b-a6.6b"), "cpu")
+    with pytest.raises(NotImplementedError, match="Mamba slice .*item 11"):
         lm.init_decode_state(get_smoke_config("jamba-1.5-large-398b"), 1, 8, "cpu")
 
 
@@ -301,6 +302,210 @@ def test_serve_cli_on_cpu(capsys):
     assert tuple(toks.shape) == (2, 3) and int(toks.max()) < 192
     out = capsys.readouterr().out
     assert "(prepacked)" in out and "tok/s" in out and "[serve] sample:" in out
+
+
+# -- the attention architectures ---------------------------------------------
+ATTN_ARCHS = ("qwen2-72b", "qwen1.5-110b", "gemma2-2b", "deepseek-67b",
+              "musicgen-large", "internvl2-76b")
+# 12 tokens run past gemma2's smoke window of 8 in prefill, and decode runs
+# further past it
+A_PROMPT, A_NEW, A_MAX = 12, 4, 20
+_ATTN_RUNS = {}
+
+
+def _attn_numpy_params(cfg):
+    """Reference init from a key, with the zero-initialised biases (qwen's
+    qkv_bias) drawn non-zero so they matter."""
+    tree = jax.tree.map(np.asarray, jlm.init_params(jax.random.PRNGKey(3), cfg))
+    rng = np.random.default_rng(6)
+
+    def draw(node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                draw(v)
+            elif k == "b":
+                node[k] = (0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+    draw(tree)
+    return tree
+
+
+def _attn_inputs(cfg, rng, S):
+    """(B, S) token ids, or (B, S, d) embeddings for the modality stubs."""
+    if cfg.embed_inputs:
+        return (0.5 * rng.standard_normal((2, S, cfg.d_model))).astype(np.float32)
+    return rng.integers(0, cfg.vocab, (2, S)).astype(np.int32)
+
+
+def attn_runs(arch, bits):
+    """{dtype: (jax cfg, port cfg, jax prepacked params, port prepacked
+    params, prompt inputs, next input, token prompts, reference (prefill
+    logits, decode logits, prefill state, decode state, float32 generate
+    tokens))} for ``arch``'s smoke config at kernel-q3 and kv_cache_bits
+    ``bits``, built once per module run with the reference's Pallas
+    kernels under the alias."""
+    if (arch, bits) in _ATTN_RUNS:
+        return _ATTN_RUNS[(arch, bits)]
+    from jax.experimental.pallas import tpu as pltpu
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
+        for dtype in ("float32", "bfloat16"):
+            rng = np.random.default_rng(0)
+            over = dict(compute_dtype=dtype, kv_cache_bits=bits)
+            jc = dataclasses.replace(jget_smoke(arch, "kernel-q3"), **over)
+            tc = dataclasses.replace(get_smoke_config(arch, "kernel-q3"), **over)
+            tree = _attn_numpy_params(jc)
+            jp = jlm.prepack_params(jax.tree.map(jnp.asarray, tree), jc)
+            tp = lm.prepack_params(lm_params_from_jax(tree, tc, "cpu"), tc)
+            seq = _attn_inputs(tc, rng, A_PROMPT + 1)
+            prompts = rng.integers(0, tc.vocab, (2, A_PROMPT)).astype(np.int32)
+            logits, st = jlm.prefill(jp, jnp.asarray(seq[:, :A_PROMPT]),
+                                     jlm.init_decode_state(jc, 2, A_MAX), jc)
+            logits2, st2 = jlm.decode_step(jp, st, jnp.asarray(seq[:, A_PROMPT:]),
+                                           jnp.int32(A_PROMPT), jc)
+            toks = None
+            if dtype == "float32":
+                toks, _ = jserve.generate(jp, jc, jnp.asarray(prompts), A_MAX, A_NEW)
+            runs = jax.tree.map(np.array, (logits, logits2, st, st2, toks))
+            out[dtype] = (jc, tc, jp, tp, seq[:, :A_PROMPT], seq[:, A_PROMPT:], prompts, runs)
+    jax.clear_caches()
+    _ATTN_RUNS[(arch, bits)] = out
+    return out
+
+
+def _port_prefill_decode(tc, tp, inputs, nxt):
+    with torch.no_grad():
+        state = lm.init_decode_state(tc, 2, A_MAX, "cpu")
+        logits, st = lm.prefill(tp, torch.from_numpy(inputs), state, tc)
+        snap = [{k: {n: t.clone() for n, t in v.items()} for k, v in g.items()} for g in st]
+        logits2, st2 = lm.decode_step(tp, st, torch.from_numpy(nxt), A_PROMPT, tc)
+    return logits, logits2, snap, st2
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
+def test_attention_archs_prefill_and_decode_logits(arch, bits, dtype, tol):
+    """Prefill and one decode step, held to the reference; token ids, or
+    embeddings for musicgen-large and internvl2-76b (the modality stubs)."""
+    _, tc, _, tp, inputs, nxt, _, (jl, jl2, _, _, _) = attn_runs(arch, bits)[dtype]
+    assert (inputs.ndim == 3) == tc.embed_inputs
+    before = launch_counts()
+    logits, logits2, _, _ = _port_prefill_decode(tc, tp, inputs, nxt)
+    assert logits.dtype == tc.cdtype and tuple(logits.shape) == (2, 1, tc.vocab)
+    _close(logits, jl, tol)
+    _close(logits2, jl2, tol)
+    assert launch_counts() == before          # CPU tensors run the plain versions
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attention_archs_kv_caches_match_reference(arch):
+    """float32: after prefill and after one decode step every cache row
+    matches the reference's (stacked over groups there, a list here); at
+    kv_cache_bits=8 the int8 codes are equal and the fp16 scales match."""
+    for bits in (16, 8):
+        _, tc, _, tp, inputs, nxt, _, (_, _, jst, jst2, _) = attn_runs(arch, bits)["float32"]
+        _, _, st, st2 = _port_prefill_decode(tc, tp, inputs, nxt)
+        for mine, theirs in ((st, jst), (st2, jst2)):
+            for g in range(tc.n_groups):
+                for layer, leaves in mine[g].items():
+                    assert set(leaves) == ({"k", "v", "k_s", "v_s"} if bits == 8 else {"k", "v"})
+                    for name, t in leaves.items():
+                        ref = theirs[layer][name][g]
+                        if t.dtype == torch.int8:
+                            np.testing.assert_array_equal(t.numpy(), ref, err_msg=name)
+                        else:
+                            np.testing.assert_allclose(t.float().numpy(), np.asarray(ref, np.float32),
+                                                       rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attention_archs_greedy_tokens_equal_reference(arch, bits):
+    _, tc, _, tp, _, _, prompts, runs = attn_runs(arch, bits)["float32"]
+    toks, state = serve.generate(tp, tc, torch.from_numpy(prompts), A_MAX, A_NEW)
+    assert toks.dtype == torch.int32 and tuple(toks.shape) == (2, A_NEW)
+    np.testing.assert_array_equal(toks.numpy(), runs[4])
+    assert len(state) == tc.n_groups
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attention_archs_decode_matches_own_forward(arch):
+    """prefill + one decode step == the port's forward at that position
+    (tests/test_models.py:67 for the reference), on embeddings for the
+    modality stubs; gemma2's 12 tokens run past its window of 8."""
+    _, tc, _, tp, inputs, nxt, _, _ = attn_runs(arch, 16)["float32"]
+    seq = torch.from_numpy(np.concatenate([inputs, nxt], axis=1))
+    with torch.no_grad():
+        ref = lm.forward(tp, seq, tc)[:, A_PROMPT]
+        _, st = lm.prefill(tp, seq[:, :A_PROMPT], lm.init_decode_state(tc, 2, A_MAX, "cpu"), tc)
+        l2, _ = lm.decode_step(tp, st, seq[:, A_PROMPT:], A_PROMPT, tc)
+        # the position as a device tensor, scalar or per row, changes nothing
+        _, st = lm.prefill(tp, seq[:, :A_PROMPT], lm.init_decode_state(tc, 2, A_MAX, "cpu"), tc)
+        l3, _ = lm.decode_step(tp, st, seq[:, A_PROMPT:], torch.tensor(A_PROMPT), tc)
+        _, st = lm.prefill(tp, seq[:, :A_PROMPT], lm.init_decode_state(tc, 2, A_MAX, "cpu"), tc)
+        l4, _ = lm.decode_step(tp, st, seq[:, A_PROMPT:], torch.tensor([A_PROMPT] * 2), tc)
+    torch.testing.assert_close(l2[:, 0], ref, rtol=2e-4, atol=2e-4)
+    assert torch.equal(l2, l3) and torch.equal(l2, l4)
+    if arch == "gemma2-2b":
+        assert tc.window < A_PROMPT and tc.pattern[0] == "attn_local"
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attention_archs_forward_matches_reference(arch):
+    jc, tc, jp, tp, inputs, _, _, _ = attn_runs(arch, 16)["float32"]
+    from jax.experimental.pallas import tpu as pltpu
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
+        ref = jlm.forward(jp, jnp.asarray(inputs), jc, remat=False)
+    jax.clear_caches()
+    with torch.no_grad():
+        _close(lm.forward(tp, torch.from_numpy(inputs), tc), ref, F32_TOL)
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attention_archs_converter_keeps_every_leaf(arch):
+    """The whole tree crosses: wq/wk/wv/wo with their biases, the dense
+    FFN, the norms, and the head or (gemma2) the tied embedding."""
+    _, tc, jp, tp, _, _, _, _ = attn_runs(arch, 16)["float32"]
+    n_ref = sum(int(np.prod(np.shape(l))) for l in jax.tree.leaves(jp))
+    assert sum(t.numel() for t in jax.tree.leaves(tp)) == n_ref
+    mixer = tp["groups"][0]["L0"]["mixer"]
+    assert set(mixer) == {"wq", "wk", "wv", "wo"}
+    assert ("b" in mixer["wq"]) == tc.qkv_bias and "b" not in mixer["wo"]
+    assert set(tp["groups"][0]["L0"]["ffn"]) == {"w_gate", "w_up", "w_down"}
+    assert ("head" in tp) != tc.tie_embeddings
+    bad = {"embed": np.zeros((2, 2)), "groups": {"L0": {"mixer": {"wq": {"Q": np.zeros((1, 2, 2))}}}}}
+    with pytest.raises(KeyError, match="'Q'"):
+        lm_params_from_jax(bad, tc, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "gemma2-2b"])
+def test_serve_cli_attention_archs_on_cpu(arch, capsys):
+    toks = serve.main(["--arch", arch, "--smoke", "--epitome", "kernel-q3",
+                       "--device", "cpu", "--requests", "2", "--prompt-len", "10",
+                       "--max-new-tokens", "3"])
+    assert tuple(toks.shape) == (2, 3) and int(toks.min()) >= 0 and int(toks.max()) < 192
+    out = capsys.readouterr().out
+    assert f"[serve] {arch} epitome=kernel-q3 (prepacked)" in out and "tok/s" in out
+
+
+def test_generate_refuses_a_cache_too_short_for_its_tokens():
+    _, tc, _, tp, _, _, prompts, _ = attn_runs("qwen2-72b", 16)["float32"]
+    with pytest.raises(ValueError, match="needs? 15"):
+        serve.generate(tp, tc, torch.from_numpy(prompts), A_PROMPT + A_NEW - 2, A_NEW)
+
+
+def test_engine_arguments_wait_for_the_engine_slice():
+    _, tc, _, tp, inputs, nxt, _, _ = attn_runs("qwen2-72b", 16)["float32"]
+    state = lm.init_decode_state(tc, 2, A_MAX, "cpu")
+    x = torch.from_numpy(inputs)
+    for kw in (dict(valid_len=4), dict(chunk_start=0)):
+        with pytest.raises(NotImplementedError, match="engine slice .*item 9"):
+            lm.prefill(tp, x, state, tc, **kw)
+    with pytest.raises(NotImplementedError, match="engine slice .*item 9"):
+        lm.decode_step(tp, state, torch.from_numpy(nxt), A_PROMPT, tc,
+                       page_table=torch.zeros((2, 1), dtype=torch.int32))
 
 
 # -- shared pieces ---------------------------------------------------------------
