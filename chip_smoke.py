@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
-Six main paths, each at the full width of its model:
+Seven main paths, each at the full width of its model:
 
 * EPIM-ResNet-50 at 3-bit epitome-aware quantization,
   ``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
@@ -24,7 +24,12 @@ Six main paths, each at the full width of its model:
   (plain PyTorch, GQA, RoPE, KV cache) and the dense SwiGLU FFN, each of
   the 7 projections a launch of the fused int8 kernel per forward;
 * serving gemma2-2b at kernel-q3 in bf16 (26 layers, local/global
-  attention, softcaps, tied head) on a prompt longer than its window.
+  attention, softcaps, tied head) on a prompt longer than its window;
+* the continuous-batching engine, ``launch.engine.EngineConfig(...).build()``
+  -> ``submit`` -> ``step``, serving rwkv6-7b (dense slot rows) and
+  qwen2-72b (block-paged KV, an oversubscribed pool) at kernel-q3 in bf16
+  at full width and depth: bucketed and chunked prefill (kernel #4 from
+  the carried state of the last chunk), fused decode macro-steps.
 
 Phases:
 
@@ -107,10 +112,28 @@ Phases:
              prefills bit for bit, timed and profiled; then phase 6 at full
              width cut to 2 float32 layers, at a float32 and an int8 KV cache
              (gemma2 with a window of 64 under a 256-token prompt).
-10. times  — each kernel's times and bounds summed over the launches of
+10. engine — for rwkv6-7b (dense pool) and qwen2-72b (pages of 16, 48 of
+             them, so admission defers): capacity 4, max_len 320, chunk 64, 8 greedy requests of
+             5-288 tokens and 2 sampled, 16/24/32 new tokens.  At K = 4
+             (counted), at K = 1 and in reverse order: every request
+             completes with its tokens, in submission order; admitted =
+             completed = 10, 6 slot reuses, no page held after the drain;
+             launches exact (kernel #1 256 or 560 a forward, kernel #4 32 a
+             prefill or chunk); K = 1 and the reverse order give the same
+             tokens bit for bit.  Greedy requests against one-shot generate
+             (all 8; 2 at qwen2-72b): first-token logits in float32 (the
+             same weights) within 1e-4 of their scale (bf16's recorded
+             beside the one-shot's own spread between 1 and 4 rows); tokens
+             equal, or parting where the engine's own computation of the
+             request replayed at 4 decode rows picks the engine's token
+             (the one-shot decodes at 1 row).  Kernel #1 and #4 at the
+             engine's rows against their plain versions and timed; a 2-layer
+             float32 engine on the card against the CPU's (1e-4).
+11. times  — each kernel's times and bounds summed over the launches of
              the main paths (the ResNet forwards, one LM generate at each
-             variant and of each attention LM, the quant_matmul calls);
-             kernel #2 beside kernel #1 plus the fold on each ResNet path.
+             variant and of each attention LM, the quant_matmul calls, the
+             engine's K = 4 runs); kernel #2 beside kernel #1 plus the fold
+             on each ResNet path.
 
 Any failure exits nonzero.  The line before the last is a JSON object
 listing the kernels; the last line is ``{"ok": true, "device": ...}``.
@@ -118,6 +141,7 @@ Details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -165,6 +189,24 @@ ATTN_PATHS = (
     ("qwen2-72b", LM_REQUESTS, LM_PROMPT, LM_NEW, 7 * 80, {}, CPU_PROMPT),
     ("gemma2-2b", 1, 4608, 16, 5 * 26, {"window": 64}, 256),
 )
+# phase 10, the serving engine, both LMs at kernel-q3 in bf16 at full width
+# and depth from seed 0: (arch, KV page size (0 = dense rows), KV pool pages,
+# kernel #1 launches a forward, the greedy requests held to a one-shot
+# generate).  qwen2-72b's pool is oversubscribed: its requests pin 2-20
+# pages each, and at 48 pages (below the 80 of four 20-page slots) admission
+# defers at four steps of this schedule; at 52 or more it never would (the
+# schedule's high-water mark is 52 pages, whatever the weights)
+ENGINE_PATHS = (
+    ("rwkv6-7b", 0, 0, 8 * 32, tuple(range(8))),
+    ("qwen2-72b", 16, 48, 7 * 80, (1, 4)),
+)
+ENGINE_CAPACITY, ENGINE_MAX_LEN, ENGINE_CHUNK, ENGINE_BLOCK = 4, 320, 64, 4
+# greedy prompts: three fit a bucket (8, 64, 64), five take 2-5 chunks; then
+# two sampled at temperature 0.8; new tokens cycle through 16, 24, 32
+ENGINE_PROMPTS = (5, 37, 64, 65, 130, 200, 256, 288)
+ENGINE_SAMPLED, ENGINE_TEMPERATURE = (6, 100), 0.8
+ENGINE_NEW = (16, 24, 32)
+ENGINE_CPU_PROMPTS = (5, 130)   # the 2-layer float32 card-vs-CPU engine run
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/quant_epitome_matmul.cu",
@@ -424,7 +466,7 @@ def main() -> int:
         if sites != per_fwd:
             raise AssertionError(f"{arch}: {sites} epitomized projections, expected {per_fwd}")
         rows += quant_lm_rows(torch, dev, gen, ops, ref, WRAPPERS, lm, cfg, arch,
-                              requests * prompt, requests, new - 1)
+                              ((requests * prompt, 1), (requests, new - 1)), requests)
         run = lm_path(torch, dev, lm, serve, cfg, "kernel-q3", {QUANT: per_fwd * new},
                       launch_counts, reset_launch_counts, requests, prompt, new)
         launches[QUANT] += run["launches"][QUANT]
@@ -434,7 +476,16 @@ def main() -> int:
                                    kv_bits=(16, 8), prompt_len=cpu_prompt, **cpu_over)
         report["attention_s"][arch] = time.perf_counter() - t0
 
-    # -- 10. times per kernel, summed over the main paths' launches -----------
+    # -- 10. the serving engine: rwkv6-7b and qwen2-72b kernel-q3 ------------
+    engine_rows, engine_runs, engine_cpu, report["engine_s"] = engine_phase(
+        torch, dev, gen, ops, ref, WRAPPERS, lm, serve, get_config, launch_counts,
+        reset_launch_counts)
+    rows += engine_rows
+    for run in engine_runs:
+        launches[QUANT] += run["launches"][QUANT]
+        launches[WKV] += run["launches"][WKV]
+
+    # -- 11. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
@@ -494,7 +545,8 @@ def main() -> int:
 
     report.update(kernels=summary, shapes=rows, forwards=forwards, lm=lm_run, lm_kernel=lm_fp_run,
                   lm_card_vs_cpu=lm_cpu, attention_lms=attn_runs,
-                  attention_card_vs_cpu=attn_cpu, fold_probe=fold, plan=plan_run["plan"],
+                  attention_card_vs_cpu=attn_cpu, engine=engine_runs,
+                  engine_card_vs_cpu=engine_cpu, fold_probe=fold, plan=plan_run["plan"],
                   quant_matmul_vs_f64=qm_f64,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
@@ -504,7 +556,8 @@ def main() -> int:
         f"LM {report['lm_s']:.1f}, LM kernel {report['lm_kernel_s']:.1f}, "
         f"quant_matmul {report['quant_matmul_s']:.1f}, "
         f"plan {report['plan_s']:.1f}, "
-        + ", ".join(f"{a} {t:.1f}" for a, t in report["attention_s"].items()) + ")")
+        + ", ".join(f"{a} {t:.1f}" for a, t in report["attention_s"].items()) + ", engine "
+        + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items()) + ")")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
     # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
@@ -622,16 +675,16 @@ def site_specs(lm, cfg) -> dict:
     return out
 
 
-def quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path, rows_pre,
-                  rows_dec, steps_dec) -> list:
+def quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path, runs,
+                  rows_dec) -> list:
     """Kernel #1 at an LM's epitomized projection specs, bf16 (counted when
-    it is the path's dtype) and float32 (checked), at ``rows_pre`` rows (a
-    prefill, once a generate) and ``rows_dec`` rows (a decode step,
-    ``steps_dec`` times): each against its plain version, then timed beside
+    it is the path's dtype) and float32 (checked), at each (rows, forwards)
+    of ``runs`` (a generate: its prefill's rows once, its decode rows
+    ``new - 1`` times): each against its plain version, then timed beside
     it, the cuBLAS float32 and bf16 yardsticks on the dequantized weight and
-    the bound; the decode rows three times bit for bit, and L2-cold (over
-    copies of the codes and of the yardstick's weight past 64 MB, as a
-    decode step reads every layer's weights once)."""
+    the bound; the decode rows (``rows_dec``) three times bit for bit, and
+    L2-cold (over copies of the codes and of the yardstick's weight past
+    64 MB, as a decode step reads every layer's weights once)."""
     from repro_torch.core.quant import dequantize_packed
     sites = lm.lm_layer_configs(cfg)
     rows = []
@@ -649,7 +702,8 @@ def quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path, rows_pre,
         n_cold = -(-L2_COLD_BYTES // p.q.numel()) + 1
         q_cold = [p.q.clone() for _ in range(n_cold)]
         W_cold = [W.clone() for _ in range(-(-L2_COLD_BYTES // (4 * W.numel())) + 1)]
-        for T, count in ((rows_pre, k * cfg.n_groups), (rows_dec, k * cfg.n_groups * steps_dec)):
+        for T, forwards in runs:
+            count = k * cfg.n_groups * forwards
             x = torch.randn(T, spec.M, device=dev, generator=gen)
             for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, KERNEL_TOL)):
                 folded = ops.fold_rows(x.to(dtype), spec)
@@ -713,15 +767,25 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
     shape from a non-zero state.  Each against its plain version, then
     timed beside it, the yardstick and the bound."""
     rows = quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, LM_ARCH,
-                         LM_REQUESTS * LM_PROMPT, LM_REQUESTS, LM_NEW - 1)
+                         ((LM_REQUESTS * LM_PROMPT, 1), (LM_REQUESTS, LM_NEW - 1)),
+                         LM_REQUESTS)
     rows_fold = fold_probe(torch, dev, gen, ops, next(iter(site_specs(lm, cfg))))
-    # the WKV at the prefill's shape, from a non-zero state, with r, k, v in
-    # the LM's dtype (counted) and in float32 (checked and timed)
-    B, S, H, K, L = LM_REQUESTS, LM_PROMPT, cfg.n_heads, cfg.hd, cfg.rwkv_chunk
+    rows += wkv_rows(torch, dev, gen, ref, wrappers, cfg, LM_ARCH, LM_REQUESTS, LM_PROMPT,
+                     cfg.n_layers)
+    return rows, rows_fold
+
+
+def wkv_rows(torch, dev, gen, ref, wrappers, cfg, path, B, S, launches) -> list:
+    """The WKV kernel at (B, S) tokens of the LM's heads from a non-zero
+    state, with r, k, v in the LM's dtype (counted, ``launches``) and in
+    float32 (checked and timed): each against its plain version, finite
+    under strong decay (log w = -20), timed beside it and the bound."""
+    H, K, L = cfg.n_heads, cfg.hd, min(cfg.rwkv_chunk, S)
     f = lambda *s: torch.randn(s, device=dev, generator=gen)
     r32, k32, v32 = f(B, S, H, K), f(B, S, H, K), f(B, S, H, K)
     lw, u, h0 = -torch.exp(f(B, S, H, K) * 0.5), f(H, K) * 0.1, f(B, H, K, K) * 0.5
     flops, products = wkv6_ops(B, S, H, K, L)
+    rows = []
     for dtype in (cfg.cdtype, torch.float32):
         r, k_, v = (t.to(dtype) for t in (r32, k32, v32))
         dname = str(dtype).replace("torch.", "")
@@ -740,14 +804,15 @@ def lm_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg):
                   + 4.0 * 2 * B * H * K * K)
         row = timed_row(torch, WKV, kernel, plain, None, nbytes, flops, dname, products)
         row.update(B=B, S=S, H=H, K=K, chunk=L, dtype=dname, max_abs_err=err,
-                   path=LM_ARCH, count=cfg.n_layers if dtype == cfg.cdtype else 0)
+                   path=path, count=launches if dtype == cfg.cdtype else 0)
         rows.append(row)
-        log(f"[lm-kernels] {WKV} {dname} B={B} S={S} H={H} K={K} chunk={L} x{row['count']}: "
-            f"max_err={err:.2e} (o and state) ms={row['ms']:.4f} (eager {row['ms_eager']:.4f}) "
-            f"plain_ms={row['plain_ms']:.4f} library_ms=none bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']}) bound_fp32_ms={row['bound_fp32_ms']:.4f} "
-            f"bound_tc_ms={row['bound_tc_ms']:.4f}; log w = -20 stays finite")
-    return rows, rows_fold
+        log(f"[lm-kernels] {path}: {WKV} {dname} B={B} S={S} H={H} K={K} chunk={L} "
+            f"x{row['count']}: max_err={err:.2e} (o and state) ms={row['ms']:.4f} (eager "
+            f"{row['ms_eager']:.4f}) plain_ms={row['plain_ms']:.4f} library_ms=none "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) bound_fp32_ms="
+            f"{row['bound_fp32_ms']:.4f} bound_tc_ms={row['bound_tc_ms']:.4f}; log w = -20 "
+            f"stays finite")
+    return rows
 
 
 def lm_fp_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg) -> list:
@@ -1076,6 +1141,361 @@ def lm_card_vs_cpu(torch, dev, lm, get_config, arch, variant, kv_bits=(16,),
     del card, host
     torch.cuda.empty_cache()
     return out
+
+
+def engine_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config,
+                 launch_counts, reset_launch_counts):
+    """Phase 10 for each of ENGINE_PATHS: the engine's runs and gates
+    (engine_path), kernels #1 and #4 at the rows the engine gave them
+    (counted by its K = 4 run), and the 2-layer float32 engine card vs CPU.
+    Returns (kernel rows, runs, card-vs-CPU results, seconds per model)."""
+    from repro_torch.launch import engine as engine_mod
+    rows, runs, cpu, seconds = [], [], [], {}
+    for arch, page_size, kv_pages, per_fwd, oneshot in ENGINE_PATHS:
+        t0 = time.perf_counter()
+        run = engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size,
+                          kv_pages, per_fwd, oneshot, launch_counts, reset_launch_counts)
+        torch.cuda.empty_cache()
+        cfg = get_config(arch, "kernel-q3")
+        path = f"{arch} engine"
+        rows += quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path,
+                              sorted(run["forwards_by_rows"].items()), ENGINE_CAPACITY)
+        if run["launches"][WKV]:
+            for S, prefills in sorted(run["wkv_by_rows"].items()):
+                rows += wkv_rows(torch, dev, gen, ref, wrappers, cfg, path, 1, S,
+                                 cfg.n_layers * prefills)
+        torch.cuda.empty_cache()
+        cpu.append(engine_card_vs_cpu(torch, dev, lm, engine_mod, get_config, arch,
+                                      page_size, kv_pages))
+        runs.append(run)
+        seconds[arch] = time.perf_counter() - t0
+        log(f"[engine] {arch}: phase 10 {seconds[arch]:.1f} s")
+    return rows, runs, cpu, seconds
+
+
+def engine_requests(torch, Request, vocab) -> list:
+    """Phase 10's requests: the greedy prompts, then the sampled ones, drawn
+    from a seeded generator; new tokens cycle through ENGINE_NEW."""
+    g = torch.Generator().manual_seed(SEED + 3)
+    lens = ([(P, 0.0) for P in ENGINE_PROMPTS]
+            + [(P, ENGINE_TEMPERATURE) for P in ENGINE_SAMPLED])
+    return [Request(prompt=torch.randint(0, vocab, (P,), generator=g).tolist(),
+                    max_new_tokens=ENGINE_NEW[i % len(ENGINE_NEW)], temperature=t,
+                    seed=SEED + i)
+            for i, (P, t) in enumerate(lens)]
+
+
+def engine_drive(torch, eng, reqs, order, launch_counts, reset_launch_counts,
+                 per_fwd) -> dict:
+    """Submit ``reqs`` in ``order`` and step the engine until it is idle,
+    the launch counters set to 0 just before; then gates 1-3: every request
+    completes with exactly its max_new_tokens, in submission order; the
+    stats (admitted = completed = n, slot reuses = n - capacity, pages
+    within the pool, none held after the drain, every table row at the
+    trash page); launches exact: kernel #1 ``per_fwd`` a forward (each
+    bucketed prefill, prefill chunk and decode micro-step), kernel #4 once
+    per RWKV layer a prefill or chunk.  Records each step's wall time where
+    it ran no prefill and admitted nothing (a macro-step's time) and the
+    steps at which a free slot waited on pages."""
+    n, cfg = len(reqs), eng.cfg
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = {i: eng.submit(reqs[i]) for i in order}
+    step_ms, deferred = {}, 0
+    while eng.n_pending or eng.n_active or eng._prefilling or eng._inflight:
+        before = (eng.stats["admitted"], eng.stats["prefill_chunks"])
+        ts = time.perf_counter()
+        eng.step()
+        dt = 1e3 * (time.perf_counter() - ts)
+        if (eng.stats["admitted"], eng.stats["prefill_chunks"]) == before \
+                and eng._inflight is not None:
+            step_ms.setdefault(eng._inflight.k, []).append(dt)
+        head = eng._pending[0].request if eng._pending else None
+        deferred += bool(head and eng._prefilling is None and eng.n_active < eng.capacity
+                         and not eng._pool.can_admit(len(head.prompt) + head.max_new_tokens))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, st = launch_counts(), eng.stats
+    comps = eng.drain()
+    what = f"{cfg.name} engine K={eng.decode_block}"
+    if [c.request_id for c in comps] != [handles[i].request_id for i in order]:
+        raise AssertionError(f"{what}: completions not in submission order")
+    for i in order:
+        if len(handles[i].result().tokens) != reqs[i].max_new_tokens:
+            raise AssertionError(f"{what}: request {i} has {len(handles[i].result().tokens)} "
+                                 f"tokens, not {reqs[i].max_new_tokens}")
+    pool = eng._pool
+    table = pool.page_table
+    checks = {"admitted == completed == n": st["admitted"] == st["completed"] == n,
+              "slot_reuses == n - capacity": st["slot_reuses"] == n - eng.capacity,
+              "pages_hwm <= kv_pages": st["pages_hwm"] <= st["pages_total"],
+              "no page held after the drain": st["pages_used"] == 0,
+              "every table row at the trash page":
+                  table is None or bool((table == pool.page.trash).all())}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{what}: stats {st} fail {bad}")
+    whole = sum(len(r.prompt) <= eng.chunk for r in reqs)
+    prefills = whole + st["prefill_chunks"]
+    rwkv = sum(kind == "rwkv" for kind, _ in cfg.full_pattern) * cfg.n_groups
+    expect = {QUANT: per_fwd * (prefills + st["decode_micro_steps"]), WKV: rwkv * prefills}
+    if counts != {k: expect.get(k, 0) for k in counts}:
+        raise AssertionError(f"{what}: launches {counts}, expected {expect}")
+    ttft = sorted(c.ttft_s for c in comps)
+    return dict(tokens={i: handles[i].result().tokens for i in order}, stats=st,
+                wall_s=wall, launches={k: counts[k] for k in expect}, step_ms=step_ms,
+                deferred_steps=deferred, ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+                tok_s=sum(len(c.tokens) for c in comps) / wall, whole_prefills=whole)
+
+
+def one_shot_logits(torch, lm, params, cfg, prompt, toks, seq_len, step):
+    """The one-shot greedy logits (float32, one row) at ``step`` of its
+    tokens ``toks``: prefill, then ``step`` decode steps at batch 1."""
+    with torch.no_grad():
+        logits, state = lm.prefill(params, prompt, lm.init_decode_state(cfg, 1, seq_len,
+                                                                         prompt.device), cfg)
+        for i in range(step):
+            tok = torch.tensor([[toks[i]]], dtype=torch.int32, device=prompt.device)
+            logits, state = lm.decode_step(params, state, tok, prompt.shape[1] + i, cfg)
+    return logits[0, -1].float()
+
+
+def replay_at_rows(torch, lm, engine_mod, eng, req, toks, step, dev):
+    """The engine's own computation of one request up to ``step``, outside
+    the engine: its prefill (bucket or chunks, batch 1), the state copied
+    to ``capacity`` rows, and decode steps at that many rows over the
+    tokens ``toks`` (decode rows are independent: the engine's other rows
+    change nothing).  Returns row 0's logits at ``step``."""
+    rows = eng.capacity
+    with torch.no_grad():
+        logits, state = engine_mod.prefill_prompt(eng.serve_params, eng.cfg, req.prompt,
+                                                  eng.seq_len, eng.chunk, dev)
+        state = [{lk: {k: torch.cat([v] * rows) for k, v in layer.items()}
+                  for lk, layer in g.items()} for g in state]
+        for i in range(step):
+            tok = torch.full((rows, 1), toks[i], dtype=torch.int32, device=dev)
+            pos = torch.full((rows,), len(req.prompt) + i, dtype=torch.int32, device=dev)
+            logits, state = lm.decode_step(eng.serve_params, state, tok, pos, eng.cfg)
+    return logits[0, -1].float()
+
+
+def engine_vs_one_shot(torch, dev, lm, serve, engine_mod, eng, reqs, tokens, indices) -> list:
+    """Gate 6: each greedy request of ``indices`` against the port's
+    one-shot path alone on the card (``seq_len`` KV rows).  First-token
+    logits of the engine's prefill against the one-shot prefill in float32
+    (the same weights, computed in float32) within LOGIT_TOL of their
+    scale.  In the path's bf16 the same difference is recorded beside the
+    one-shot's own spread between 1 and ``capacity`` rows of the prompt,
+    not gated: through 32-80 random bf16 layers a last-bit difference
+    grows to a tenth of the logits' scale, the one-shot's included.  Tokens
+    equal to the one-shot serve.generate's; where they part, the parting
+    must be the row count's: the engine's computation of that request
+    replayed at ``capacity`` rows (replay_at_rows) picks the engine's token
+    there (printed with the step, the one-shot's top-two margin and the
+    replay's logit difference)."""
+    cfg, params, rows = eng.cfg, eng.serve_params, eng.capacity
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    first = lambda c, prompt, batch: lm.prefill(
+        params, torch.tensor([prompt] * batch, device=dev),
+        lm.init_decode_state(c, batch, eng.seq_len, dev), c)[0][:, -1].float()
+    out = []
+    for i in indices:
+        req = reqs[i]
+        what = f"{cfg.name} engine request {i} (prompt {len(req.prompt)})"
+        errs = {}
+        with torch.no_grad():
+            for c in (cfg32, cfg):
+                one = first(c, req.prompt, 1)[0]
+                mine = engine_mod.prefill_prompt(params, c, req.prompt, eng.seq_len, eng.chunk,
+                                                 dev)[0][0, -1].float()
+                spread = float((first(c, req.prompt, rows)[0] - one).abs().max())
+                errs[str(c.cdtype).replace("torch.", "")] = (
+                    float((mine - one).abs().max()), max(1.0, float(one.abs().max())), spread)
+        (e32, s32, sp32), (err, scale, spread) = errs["float32"], errs[str(cfg.cdtype).replace(
+            "torch.", "")]
+        if not e32 <= LOGIT_TOL * s32:
+            raise AssertionError(f"{what}: float32 first-token logits differ from one-shot by "
+                                 f"{e32:.3e} (> {LOGIT_TOL} * {s32:.3f})")
+        prompt = torch.tensor([req.prompt], device=dev)
+        one, _ = serve.generate(params, cfg, prompt, eng.seq_len, req.max_new_tokens)
+        one = tuple(one[0].tolist())
+        part = next((j for j, (x, y) in enumerate(zip(one, tokens[i])) if x != y), None)
+        margin = step_err = None
+        if part is not None:
+            one_logits = one_shot_logits(torch, lm, params, cfg, prompt, one, eng.seq_len, part)
+            top2 = torch.topk(one_logits, 2).values
+            margin = float(top2[0] - top2[1])
+            replay = replay_at_rows(torch, lm, engine_mod, eng, req, one, part, dev)
+            step_err = float((replay - one_logits).abs().max())
+            picked = int(torch.argmax(replay))
+            log(f"[engine] {what}: parts from one-shot at step {part} (engine "
+                f"{tokens[i][part]}, one-shot {one[part]}); one-shot top-two margin "
+                f"{margin:.4e}; the engine's computation replayed at {rows} rows picks "
+                f"{picked}, its logits {step_err:.4e} from the one-shot's")
+            if picked != tokens[i][part]:
+                raise AssertionError(f"{what}: tokens part from one-shot at step {part} "
+                                     f"(margin {margin:.4e}) where the row count does not "
+                                     f"explain it")
+        out.append(dict(request=i, prompt=len(req.prompt), first_logit_err=err, scale=scale,
+                        one_shot_rows_spread=spread, first_logit_err_f32=e32, scale_f32=s32,
+                        one_shot_rows_spread_f32=sp32, tokens_equal=part is None,
+                        parts_at=part, margin=margin, step_logit_err=step_err))
+    return out
+
+
+def engine_card_vs_cpu(torch, dev, lm, engine_mod, get_config, arch, page_size,
+                       kv_pages) -> dict:
+    """Gate 7: ``arch`` at kernel-q3 in float32 at full width cut to
+    CPU_LAYERS layers, the same engine (phase 10's geometry, K = 4) on the
+    card and on the CPU (plain versions) over greedy requests of
+    ENGINE_CPU_PROMPTS: first-token logits within LOGIT_TOL of their scale
+    and tokens equal (a step whose CPU top two lie within the tolerance
+    held by its logits alone)."""
+    cfg = get_config(arch, "kernel-q3", compute_dtype="float32", n_layers=CPU_LAYERS)
+    card = lm.prepack_params(
+        lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg)
+    host = _to_cpu(card)
+    g = torch.Generator().manual_seed(SEED + 4)
+    reqs = [engine_mod.Request(prompt=torch.randint(0, cfg.vocab, (P,), generator=g).tolist(),
+                               max_new_tokens=CPU_NEW) for P in ENGINE_CPU_PROMPTS]
+    got = []                       # (tokens, first-token logits, seq_len): CPU, card
+    t0 = time.perf_counter()
+    for params, device in ((host, torch.device("cpu")), (card, dev)):
+        eng = engine_mod.EpimEngine(cfg, params, capacity=ENGINE_CAPACITY,
+                                    max_len=ENGINE_MAX_LEN, page_size=page_size,
+                                    kv_pages=kv_pages, prefill_chunk=ENGINE_CHUNK,
+                                    decode_block=ENGINE_BLOCK, device=device)
+        handles = [eng.submit(r) for r in reqs]
+        eng.drain()
+        logits = [engine_mod.prefill_prompt(params, cfg, r.prompt, eng.seq_len, eng.chunk,
+                                            device)[0][0, -1].float().cpu() for r in reqs]
+        got.append(([h.result().tokens for h in handles], logits, eng.seq_len))
+    cpu_s = time.perf_counter() - t0
+    (cpu_toks, cpu_logits, seq_len), (card_toks, card_logits, _) = got
+    what = f"{arch} kernel-q3 float32 {CPU_LAYERS} layers engine"
+    out = []
+    for i, r in enumerate(reqs):
+        a, b = card_logits[i], cpu_logits[i]
+        scale = max(1.0, float(b.abs().max()))
+        err = float((a - b).abs().max())
+        if not err <= LOGIT_TOL * scale:
+            raise AssertionError(f"{what}: request {i} first-token logits on the card differ "
+                                 f"from the CPU by {err:.3e} (> {LOGIT_TOL} * {scale:.3f})")
+        ta, tb = card_toks[i], cpu_toks[i]
+        part = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
+        if part is not None:
+            top2 = torch.topk(one_shot_logits(torch, lm, host, cfg, torch.tensor([r.prompt]),
+                                              tb, seq_len, part), 2).values
+            gap = float(top2[0] - top2[1])
+            if gap > LOGIT_TOL * scale:
+                raise AssertionError(f"{what}: request {i} tokens {ta} on the card, {tb} on "
+                                     f"the CPU")
+            log(f"[engine-cpu] request {i} step {part}: CPU top two within {gap:.2e}; "
+                f"held by its logits alone")
+        out.append(dict(prompt=len(r.prompt), first_logit_err=err, scale=scale,
+                        tokens=list(tb), tokens_equal=part is None))
+    log(f"[engine-cpu] {what}, prompts {list(ENGINE_CPU_PROMPTS)} + {CPU_NEW}: card vs cpu "
+        f"first-token logits max|d| " + ", ".join(f"{o['first_logit_err']:.2e}" for o in out)
+        + f" (max|logit| {max(o['scale'] for o in out):.3f}); tokens equal "
+        f"{[o['tokens_equal'] for o in out]}; both runs {cpu_s:.1f} s")
+    del card, host
+    torch.cuda.empty_cache()
+    return dict(arch=arch, requests=out, seconds=cpu_s)
+
+
+def engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size, kv_pages,
+                per_fwd, oneshot, launch_counts, reset_launch_counts) -> dict:
+    """Phase 10 for one LM: ``EngineConfig(...).build()`` at kernel-q3, bf16,
+    full width and depth, serving phase 10's requests at K = 4 (counted:
+    gates 1-3), again at K = 1 and in reverse order (gates 1-3 each; gates
+    4 and 5: every request's tokens equal the first run's bit for bit),
+    then the greedy requests of ``oneshot`` against one-shot generate
+    (gate 6)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    geometry = dict(capacity=ENGINE_CAPACITY, max_len=ENGINE_MAX_LEN, page_size=page_size,
+                    kv_pages=kv_pages, prefill_chunk=ENGINE_CHUNK)
+    eng = engine_mod.EngineConfig(arch=arch, epitome="kernel-q3", decode_block=ENGINE_BLOCK,
+                                  seed=SEED, **geometry).build()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, params = eng.cfg, eng.serve_params
+    sites = sum(site_specs(lm, cfg).values()) * cfg.n_groups
+    if sites != per_fwd:
+        raise AssertionError(f"{arch}: {sites} epitomized projections, expected {per_fwd}")
+    reqs = engine_requests(torch, engine_mod.Request, cfg.vocab)
+    n = len(reqs)
+    drive = lambda e, order: engine_drive(torch, e, reqs, order, launch_counts,
+                                          reset_launch_counts, per_fwd)
+    main = drive(eng, range(n))
+    peak = torch.cuda.max_memory_allocated()
+    k1 = drive(engine_mod.EpimEngine(cfg, params, decode_block=1, device=dev, **geometry),
+               range(n))
+    rev = drive(engine_mod.EpimEngine(cfg, params, decode_block=ENGINE_BLOCK, device=dev,
+                                      **geometry), range(n - 1, -1, -1))
+    if page_size and not main["deferred_steps"]:
+        raise AssertionError(f"{arch} engine: {kv_pages} pages never made admission defer")
+    for label, run in (("decode_block 1", k1), ("reverse order", rev)):
+        diff = [i for i in range(n) if run["tokens"][i] != main["tokens"][i]]
+        if diff:
+            raise AssertionError(f"{arch} engine: {label} changes the tokens of requests "
+                                 f"{diff} (bit for bit against decode_block {ENGINE_BLOCK})")
+    t1 = time.perf_counter()
+    vs = engine_vs_one_shot(torch, dev, lm, serve, engine_mod, eng, reqs, main["tokens"],
+                            oneshot)
+    oneshot_s = time.perf_counter() - t1
+    st = main["stats"]
+    # the forwards by row count: bucketed prefills at their bucket, chunks at
+    # the chunk, decode micro-steps at the capacity (kernel #1's T)
+    by_T = {}
+    for r in reqs:
+        if len(r.prompt) <= eng.chunk:
+            L = engine_mod.bucket_len(len(r.prompt), eng.seq_len)
+            by_T[L] = by_T.get(L, 0) + 1
+    by_T_wkv = dict(by_T)
+    by_T[eng.chunk] = by_T.get(eng.chunk, 0) + st["prefill_chunks"]
+    by_T_wkv[eng.chunk] = by_T[eng.chunk]
+    by_T[ENGINE_CAPACITY] = by_T.get(ENGINE_CAPACITY, 0) + st["decode_micro_steps"]
+    med = lambda run, k: statistics.median(run["step_ms"][k]) if run["step_ms"].get(k) else None
+    run = dict(arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+               geometry=dict(geometry, decode_block=ENGINE_BLOCK, seq_len=eng.seq_len,
+                             chunk=eng.chunk),
+               requests=[[len(r.prompt), r.max_new_tokens, r.temperature] for r in reqs],
+               setup_s=setup_s, peak_bytes=peak, stats=st, launches=main["launches"],
+               wall_s=main["wall_s"], tok_s=main["tok_s"], ttft_p50_s=main["ttft_p50_s"],
+               ttft_max_s=main["ttft_max_s"], deferred_steps=main["deferred_steps"],
+               macro_ms_k4=med(main, ENGINE_BLOCK), macro_ms_k1=med(k1, 1),
+               k1=dict(wall_s=k1["wall_s"], tok_s=k1["tok_s"], stats=k1["stats"]),
+               reverse=dict(wall_s=rev["wall_s"], tok_s=rev["tok_s"]),
+               forwards_by_rows=by_T, wkv_by_rows=by_T_wkv, one_shot=vs, one_shot_s=oneshot_s,
+               tokens_sample=list(main["tokens"][0][:8]))
+    p_tot = st["pages_total"]
+    log(f"[engine] {arch} kernel-q3 bf16 {cfg.n_layers} layers, d_model {cfg.d_model}: "
+        f"{n} requests ({len(ENGINE_PROMPTS)} greedy, {len(ENGINE_SAMPLED)} sampled), capacity "
+        f"{ENGINE_CAPACITY}, max_len {ENGINE_MAX_LEN}, chunk {eng.chunk}, pages "
+        f"{'dense' if not p_tot else f'{page_size} tokens x {p_tot}'}; build {setup_s:.1f} s")
+    log(f"[engine] {arch} K={ENGINE_BLOCK}: wall {main['wall_s']:.2f} s, "
+        f"{main['tok_s']:.1f} tok/s, TTFT p50 {1e3 * main['ttft_p50_s']:.1f} ms max "
+        f"{1e3 * main['ttft_max_s']:.1f} ms, macro-steps {st['decode_steps']} "
+        f"({st['decode_micro_steps']} micro), ms per macro-step K={ENGINE_BLOCK} "
+        f"{_ms(run['macro_ms_k4'], 2)}, K=1 {_ms(run['macro_ms_k1'], 2)} (its run "
+        f"{k1['wall_s']:.2f} s, {k1['stats']['decode_steps']} steps), prefill chunks "
+        f"{st['prefill_chunks']} + {main['whole_prefills']} bucketed, pages hwm "
+        f"{st['pages_hwm']}/{p_tot}, steps with a slot waiting on pages "
+        f"{main['deferred_steps']}, peak {peak / 2**30:.2f} GiB; launches "
+        + ", ".join(f"{k} x{v}" for k, v in main["launches"].items())
+        + f" (exact); K=1 and reverse order bit for bit; tokens[0] {run['tokens_sample']}")
+    log(f"[engine] {arch} vs one-shot: "
+        + "; ".join(f"request {o['request']} (prompt {o['prompt']}) first-token max|d| "
+                    f"{o['first_logit_err']:.3e} of {o['scale']:.2f} (one-shot 1 vs "
+                    f"{ENGINE_CAPACITY} rows {o['one_shot_rows_spread']:.3e}), float32 "
+                    f"{o['first_logit_err_f32']:.3e} of {o['scale_f32']:.2f} (rows "
+                    f"{o['one_shot_rows_spread_f32']:.3e}), tokens "
+                    f"{'equal' if o['tokens_equal'] else 'part at ' + str(o['parts_at'])}"
+                    for o in vs) + f"; {oneshot_s:.1f} s")
+    del eng, params
+    return run
 
 
 QM_SHAPES = ((4096, 4096), (4096, 14336), (14336, 4096))   # rwkv6-7b's projections

@@ -151,7 +151,9 @@ def _where(device) -> str:
 
 def _run_lm(plan, args, device) -> None:
     """Serve a legalized '<arch>-smoke' LM plan: plan-driven smoke config,
-    prepacked, greedy generate of a few tokens."""
+    prepacked, greedy generate of a few tokens; with ``--decode-block K``
+    > 1 also through the engine at K micro-steps a dispatch, whose greedy
+    tokens must equal the one-shot generate's."""
     import torch
     from ..kernels import launch_counts, reset_launch_counts
     from ..pim.plan import LM_SMOKE_SUFFIX
@@ -171,6 +173,21 @@ def _run_lm(plan, args, device) -> None:
     reset_launch_counts()
     toks, _ = generate(params, cfg, prompts, P + gen + 1, gen)
     launches = {k: v for k, v in launch_counts().items() if v}
+    if args.decode_block > 1:
+        from .engine import EpimEngine, Request
+        engine = EpimEngine(cfg, params, capacity=B, max_len=P + gen + 1,
+                            decode_block=args.decode_block, device=device)
+        for row in prompts.tolist():
+            engine.submit(Request(prompt=row, max_new_tokens=gen))
+        comps = engine.drain()
+        same = all(tuple(toks[i].tolist()) == c.tokens for i, c in enumerate(comps))
+        st = engine.stats
+        print(f"[plan] engine decode_block={args.decode_block}: "
+              f"steps={st['decode_steps']} micro_steps={st['decode_micro_steps']} "
+              f"bit_identical={same}")
+        if not same:
+            raise AssertionError("the engine's greedy tokens drifted from the "
+                                 "one-shot generate's")
     times = []
     for _ in range(args.iters):
         t0 = time.perf_counter()
@@ -286,6 +303,10 @@ def main(argv=None) -> None:
     s.add_argument("--iters", type=int, default=2)
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--device", default="cuda")
+    s.add_argument("--decode-block", type=int, default=1,
+                   help="LM plans: also serve through the engine at this many "
+                        "decode micro-steps a dispatch and require its greedy "
+                        "tokens to equal the one-shot path's (1 = skip)")
     s.add_argument("--mesh", default="", help="not available yet")
     s.set_defaults(fn=cmd_run)
 

@@ -7,6 +7,9 @@ recurrent state.
         --epitome kernel-q3 --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --plan plan_legal.json --smoke --device cpu     # a '<arch>-smoke' plan
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
+        --epitome kernel-q3 --smoke --device cpu --engine --page-size 16 \\
+        --prefill-chunk 16 --decode-block 4             # and through the engine
 
 (counterpart of ``repro.launch.serve``).  It serves rwkv6-7b and the six
 attention architectures (qwen2-72b, qwen1.5-110b, gemma2-2b, deepseek-67b,
@@ -19,8 +22,11 @@ token: prefill, argmax, then max_new_tokens - 1 decode steps.  Sampled
 decoding (``--temperature`` > 0) draws from a ``torch.Generator`` seeded
 from ``--seed``; its bits cannot match the reference's gumbel draws from a
 JAX key, so only greedy tokens are comparable across the two packages.
-The continuous-batching engine, paging and ``--decode-block`` come with the
-engine slice.
+``--engine`` also serves every prompt through the continuous-batching
+``launch.engine.EpimEngine`` (one request per prompt: ``--page-size``,
+``--kv-pages``, ``--prefill-chunk``, ``--decode-block``) and reports its
+TTFT, steps and pages, and for greedy decoding whether its tokens equal the
+one-shot batch's.
 """
 from __future__ import annotations
 
@@ -36,10 +42,14 @@ from ..models import lm
 def _select(logits: torch.Tensor, temperature: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """(B, vocab) logits -> (B, 1) int32 tokens: argmax when temperature is
-    0, else one draw from softmax(logits / temperature)."""
+    0, else one draw from softmax(logits / temperature) by the exponential
+    race argmax(p / E), E ~ Exp(1) from ``generator`` (what
+    ``torch.multinomial`` draws one sample by, without its host-side check
+    of the probabilities: nothing here waits for the device)."""
     if temperature > 0:
         probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-        tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        race = torch.empty_like(probs).exponential_(generator=generator)
+        tok = torch.argmax(probs / race, dim=-1)
     else:
         tok = torch.argmax(logits, dim=-1)
     return tok.to(torch.int32)[:, None]
@@ -101,6 +111,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="0 = greedy; > 0 samples every generated token")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--engine", action="store_true",
+                    help="also serve the prompts through the continuous-batching "
+                         "EpimEngine (one request per prompt) and report TTFT, "
+                         "steps, pages and agreement")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="engine KV page size in tokens (0 = dense per-slot rows)")
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="engine KV pool pages (0 = capacity * pages per slot; "
+                         "fewer oversubscribe and defer admissions)")
+    ap.add_argument("--prefill-chunk", type=int, default=64,
+                    help="engine prefill chunk in tokens, rounded up to the arch's "
+                         "recurrence alignment (0 = whole-prompt prefill)")
+    ap.add_argument("--decode-block", type=int, default=1,
+                    help="decode micro-steps fused into one engine dispatch")
     return ap
 
 
@@ -123,7 +147,36 @@ def main(argv=None):
           f"{tuple(toks.shape)} in {dt:.2f}s "
           f"({args.requests * args.max_new_tokens / dt:.1f} tok/s)")
     print("[serve] sample:", toks[0, :16].tolist())
+    if args.engine:
+        serve_engine(args, cfg, params, prompts, max_len, toks)
     return toks
+
+
+def serve_engine(args, cfg, params, prompts: torch.Tensor, max_len: int,
+                 toks: torch.Tensor) -> None:
+    """Serve every prompt through the engine (one request each, ``--seed``
+    for the sampled ones) and print its line; greedy tokens are compared
+    with the one-shot batch's ``toks``."""
+    from .engine import EpimEngine, Request
+    engine = EpimEngine(cfg, params, capacity=len(prompts), max_len=max_len,
+                        page_size=args.page_size, kv_pages=args.kv_pages,
+                        prefill_chunk=args.prefill_chunk,
+                        decode_block=args.decode_block, device=prompts.device)
+    for row in prompts.tolist():
+        engine.submit(Request(prompt=row, max_new_tokens=args.max_new_tokens,
+                              temperature=args.temperature, seed=args.seed))
+    comps = engine.drain()
+    ttfts = sorted(c.ttft_s for c in comps)
+    st = engine.stats
+    line = (f"[serve] engine: completed={len(comps)} "
+            f"p50_ttft={ttfts[len(ttfts) // 2] * 1e3:.1f}ms "
+            f"steps={st['decode_steps']} micro_steps={st['decode_micro_steps']} "
+            f"prefill_chunks={st['prefill_chunks']} "
+            f"pages_hwm={st['pages_hwm']}/{st['pages_total']}")
+    if args.temperature == 0.0:
+        same = all(tuple(toks[i].tolist()) == c.tokens for i, c in enumerate(comps))
+        line += f" bit_identical={same}"
+    print(line)
 
 
 if __name__ == "__main__":

@@ -18,8 +18,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..core.layers import apply_linear, init_linear
-from .attention import (CacheSpec, attention, decode_attention, init_attn,
-                        init_kv_cache, quantize_kv)
+from .attention import (CacheSpec, attention, chunked_prefill_attention,
+                        decode_attention, init_attn, init_kv_cache, quantize_kv)
 from .common import act_fn, init_rms_norm, rms_norm
 from .config import LayerKind, ModelConfig, layer_name as _nm
 from .ssm import (init_rwkv, init_rwkv_ffn, init_rwkv_state, rwkv_channel_mix,
@@ -45,13 +45,6 @@ def _check_kinds(cfg: ModelConfig) -> None:
             raise ValueError(f"{cfg.name}: unknown layer kinds {(kind, ffn_kind)}")
 
 
-def _engine_only(what: str):
-    """Refuse an argument of the serving engine's prefill and decode."""
-    raise NotImplementedError(
-        f"{what} belongs to the serving engine; it comes with the engine slice "
-        f"of the port (ROADMAP.md item 9)")
-
-
 # ---------------------------------------------------------------------------
 # FFN (SwiGLU / gelu-MLP)
 # ---------------------------------------------------------------------------
@@ -75,15 +68,16 @@ def ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, prefix: str = "") -> to
 
 
 def _ffn(layer: Dict[str, Any], x: torch.Tensor, ffn_kind: str, cfg: ModelConfig,
-         prefix: str, x_prev: Optional[torch.Tensor] = None):
+         prefix: str, x_prev: Optional[torch.Tensor] = None, valid_len=None):
     """The FFN half of a layer, residual included: (x, the channel mix's
-    last token, or None for the dense FFN)."""
+    last real token, or None for the dense FFN)."""
     h = rms_norm(x, layer["norm2"], cfg.norm_eps)
     if ffn_kind == "dense":
         return x + ffn(layer["ffn"], h, cfg, prefix=prefix), None
     if x_prev is not None:
         x_prev = x_prev.to(h.dtype)
-    f, xp = rwkv_channel_mix(layer["ffn"], h, cfg, x_prev=x_prev, prefix=prefix)
+    f, xp = rwkv_channel_mix(layer["ffn"], h, cfg, x_prev=x_prev, prefix=prefix,
+                             valid_len=valid_len)
     return x + f, xp
 
 
@@ -137,11 +131,19 @@ def prefill_group(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor
     """Full-sequence forward that also fills the decode state: the prompt's
     K/V (or their int8 codes and scales) are written in place at row 0 of
     the state's preallocated caches; the recurrent kinds carry their
-    state.  ``valid_len`` and ``chunk_start`` belong to the serving engine."""
-    if valid_len is not None:
-        _engine_only("valid_len (right-padded bucketed prefill)")
-    if chunk_start is not None:
-        _engine_only("chunk_start (chunked prefill)")
+    state.
+
+    ``valid_len`` (an int or a 0-d device tensor) marks a right-padded
+    prefill (the serving engine's buckets): only the first ``valid_len``
+    rows are real.  The RWKV kinds mask the pads out of their state;
+    attention needs no mask, since pad K/V lie past every real query and
+    decode overwrites them before a mask lets them through.
+
+    ``chunk_start`` makes x one chunk of a chunked prefill, at sequence
+    rows chunk_start.. (``valid_len`` then counts its real rows): the
+    attention kinds write the chunk's K/V into the state's float cache at
+    those rows and attend over it (``chunked_prefill_attention``); the
+    recurrent kinds need nothing more, their carried state is their past."""
     _check_kinds(cfg)
     new_state: Dict[str, Any] = {}
     for i, (kind, ffn_kind) in enumerate(cfg.full_pattern):
@@ -149,7 +151,12 @@ def prefill_group(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor
         ns = dict(st)
         mixer_p = f"L{i}/mixer"
         h = rms_norm(x, layer["norm1"], cfg.norm_eps)
-        if kind in _ATTN:
+        if kind in _ATTN and chunk_start is not None:
+            mix, _ = chunked_prefill_attention(
+                layer["mixer"], h, st, chunk_start, cfg,
+                local=kind == LayerKind.ATTN_LOCAL.value, valid_len=valid_len,
+                prefix=mixer_p)
+        elif kind in _ATTN:
             mix, (k, v) = attention(layer["mixer"], h, cfg,
                                     local=kind == LayerKind.ATTN_LOCAL.value,
                                     positions=positions, return_kv=True, prefix=mixer_p)
@@ -164,11 +171,12 @@ def prefill_group(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor
         else:
             mix, (xp, s) = rwkv_time_mix(layer["mixer"], h, cfg,
                                          state=(st["x_prev"].to(h.dtype), st["s"]),
-                                         prefix=mixer_p)
+                                         prefix=mixer_p, valid_len=valid_len)
             ns["x_prev"], ns["s"] = xp.to(st["x_prev"].dtype), s
         x = x + mix
         if ffn_kind != "none":
-            x, xp2 = _ffn(layer, x, ffn_kind, cfg, f"L{i}/ffn", st.get("ffn_x_prev"))
+            x, xp2 = _ffn(layer, x, ffn_kind, cfg, f"L{i}/ffn", st.get("ffn_x_prev"),
+                          valid_len)
             if xp2 is not None:
                 ns["ffn_x_prev"] = xp2.to(cfg.cdtype)
         new_state[f"L{i}"] = ns
@@ -199,10 +207,10 @@ def decode_group(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,
                  pos, cfg: ModelConfig, page_table=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """x: (B, 1, d); ``pos`` the token's position (an int, or a device
     tensor, scalar or (B,)), where the attention kinds write their cache in
-    place.  Returns (x, new state).  ``page_table`` belongs to the serving
-    engine."""
-    if page_table is not None:
-        _engine_only("page_table (the block-paged KV pool)")
+    place.  Returns (x, new state).  With ``page_table`` ((B, pages per
+    slot), per-row ``pos``) the attention kinds' k/v are the serving
+    engine's block-paged pool (``models.kv_pool``), read and written
+    through the table; the recurrent rows stay dense either way."""
     _check_kinds(cfg)
     new_state: Dict[str, Any] = {}
     for i, (kind, ffn_kind) in enumerate(cfg.full_pattern):
@@ -213,7 +221,7 @@ def decode_group(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,
         if kind in _ATTN:
             mix, _ = decode_attention(layer["mixer"], h, st, pos, cfg,
                                       local=kind == LayerKind.ATTN_LOCAL.value,
-                                      prefix=mixer_p)
+                                      page_table=page_table, prefix=mixer_p)
         else:
             mix, (xp, s) = rwkv_time_mix(layer["mixer"], h, cfg,
                                          state=(st["x_prev"].to(h.dtype), st["s"]),

@@ -11,7 +11,7 @@ unstacks the reference's tree into this layout.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -19,6 +19,7 @@ from ..core.layers import EpLayerConfig, prepack_tree
 from .blocks import apply_group, decode_group, init_group, init_group_state, prefill_group
 from .common import embed_lookup, init_rms_norm, rms_norm, unembed
 from .config import ModelConfig
+from .ssm import last_real
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
@@ -102,14 +103,23 @@ def prefill(params: Dict[str, Any], inputs: torch.Tensor, state: List[Dict[str, 
     decode state.  Returns (last-token logits (B, 1, vocab), new state).
     The attention caches of ``state`` are written in place (the returned
     state holds the same tensors); the recurrent kinds' state is returned
-    new.  ``valid_len`` and ``chunk_start`` belong to the serving engine
-    and raise until its slice."""
+    new.
+
+    ``valid_len`` (an int or a 0-d device tensor) marks a right-padded
+    prefill, as the serving engine pads prompts to buckets: only the first
+    ``valid_len`` rows are real, the logits are taken at row ``valid_len -
+    1`` and the pads leave the recurrent state as the last real token left
+    it.  ``chunk_start`` (an int or a 0-d device tensor) makes ``inputs``
+    one chunk of a chunked prefill at positions chunk_start +
+    arange(S), against a state that carries the earlier chunks (its
+    attention caches in float); ``valid_len`` then counts the chunk's real
+    rows."""
     x = _embed(params, inputs, cfg)
     new_state = []
     for group, st in zip(params["groups"], state):
         x, st = prefill_group(group, st, x, cfg, positions, valid_len, chunk_start)
         new_state.append(st)
-    return _logits(params, x[:, -1:], cfg), new_state
+    return _logits(params, last_real(x, valid_len)[:, None], cfg), new_state
 
 
 def decode_step(params: Dict[str, Any], state: List[Dict[str, Any]], token: torch.Tensor,
@@ -119,11 +129,41 @@ def decode_step(params: Dict[str, Any], state: List[Dict[str, Any]], token: torc
     sequence position: an int, or a device tensor, scalar or (B,) per row
     (never read by the host).  Returns (logits (B, 1, vocab), new state);
     the attention caches of ``state`` are written in place at ``pos``.
-    ``page_table`` belongs to the serving engine and raises until its
-    slice."""
+    ``page_table`` ((B, pages per slot) int, per-row ``pos``): the
+    attention caches are the serving engine's block-paged pool
+    (``models.kv_pool``), read and written through the table."""
     x = _embed(params, token, cfg)
     new_state = []
     for group, st in zip(params["groups"], state):
         x, st = decode_group(group, st, x, pos, cfg, page_table)
         new_state.append(st)
     return _logits(params, x, cfg), new_state
+
+
+def decode_scan(params: Dict[str, Any], state: List[Dict[str, Any]], tok: torch.Tensor,
+                pos: torch.Tensor, cfg: ModelConfig, aux: Any,
+                sample: Callable, k: int, page_table=None):
+    """``k`` decode micro-steps in one call: the serving engine's fused
+    macro-step (the reference's ``lax.scan``; here a Python loop that reads
+    nothing back from the device, so it can be captured in a CUDA graph).
+
+    ``sample(logits, aux) -> (toks, aux, live)`` is the caller's sampling
+    policy: ``logits`` the (B, vocab) rows of this micro-step, ``toks`` the
+    (B,) next tokens, ``live`` a (B,) bool device mask of the rows still
+    generating.  A row that is not live is frozen: its token and position
+    stop advancing (``torch.where`` on the device), so it rewrites the KV
+    row it already owns; its recurrent state runs on into garbage that the
+    next admission overwrites.  ``tok`` (B, 1) and ``pos`` (B,) are device
+    tensors.  ``page_table`` is the same for every micro-step: admission
+    maps every page a request will touch.
+
+    Returns (state, tok, pos, aux, toks (k, B), live (k, B))."""
+    toks, lives = [], []
+    for _ in range(k):
+        logits, state = decode_step(params, state, tok, pos, cfg, page_table)
+        nxt, aux, live = sample(logits[:, -1], aux)
+        tok = torch.where(live[:, None], nxt[:, None].to(tok.dtype), tok)
+        pos = torch.where(live, pos + 1, pos)
+        toks.append(nxt)
+        lives.append(live)
+    return state, tok, pos, aux, torch.stack(toks), torch.stack(lives)

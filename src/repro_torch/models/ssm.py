@@ -9,8 +9,9 @@ kernel on the card, its plain version on the CPU); a decode step (one
 token) is the plain recurrence, as in the reference, which runs no kernel
 there.
 
-Right-padded (``valid_len``) and chunked (``chunk_start``) prefill belong to
-the serving engine and come with it.
+A right-padded prefill (``valid_len``, the serving engine's bucketed and
+chunked prefills) masks its pad rows so they leave the carried state as
+the last real token left it, and carries the last real token's x.
 """
 from __future__ import annotations
 
@@ -111,6 +112,17 @@ def rwkv_chunked(r, k, v, logw, u, state, chunk: int = 64):
     return ops.wkv6(r, k, v, logw, u, state, chunk=chunk)
 
 
+def last_real(x: torch.Tensor, valid_len=None) -> torch.Tensor:
+    """x[:, valid_len - 1] (x[:, -1] without ``valid_len``): an int, or a
+    0-d device tensor read by a device index, never by the host."""
+    if valid_len is None:
+        return x[:, -1]
+    if isinstance(valid_len, torch.Tensor):
+        idx = (valid_len.reshape(1) - 1).to(device=x.device, dtype=torch.long)
+        return x.index_select(1, idx)[:, 0]
+    return x[:, valid_len - 1]
+
+
 def rwkv_step(r, k, v, logw, u, state):
     """Single-token recurrence (decode).  r/k/v/logw: (B, H, K)."""
     rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
@@ -124,9 +136,15 @@ def rwkv_step(r, k, v, logw, u, state):
 
 def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  chunk: int = 0, prefix: str = ""):
+                  chunk: int = 0, prefix: str = "", valid_len=None):
     """Full RWKV6 time-mixing block.  state = (x_prev (B, d), S (B, H, K, K)).
-    Returns (out, (x_last, S'))."""
+    Returns (out, (x_last, S')).
+
+    ``valid_len`` (an int or a 0-d device tensor) marks a right-padded
+    prefill whose first ``valid_len`` rows are real: k and log w are zeroed
+    on the pad rows, so their kv products never reach the state and their
+    decay exp(0) = 1 keeps the cumsum past the last real token; the real
+    rows keep their bits, since the pads sit after them."""
     chunk = chunk or cfg.rwkv_chunk
     B, S, d = x.shape
     H = cfg.n_heads
@@ -138,6 +156,10 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
         x_prev, S0 = state
     r, k, v, g, logw = _rwkv_inputs(p, x, x_prev, cfg, prefix)
     rh, kh, vh, lwh = (_heads(t, H) for t in (r, k, v, logw))
+    if valid_len is not None:
+        real = (torch.arange(S, device=x.device) < valid_len)[None, :, None, None]
+        kh = torch.where(real, kh, torch.zeros((), dtype=kh.dtype, device=x.device))
+        lwh = torch.where(real, lwh, torch.zeros((), dtype=lwh.dtype, device=x.device))
     if S == 1:
         o, S1 = rwkv_step(rh[:, 0], kh[:, 0], vh[:, 0], lwh[:, 0], p["u"], S0)
         o = o[:, None]
@@ -151,7 +173,7 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     o = ((o32 - mean) * torch.rsqrt(var + 1e-5)).reshape(B, S, d)
     o = (o * p["ln_x"].to(torch.float32)).to(x.dtype)
     out = apply_linear(p["wo"], o * g, cfg.ep(d, d, _nm(prefix, "wo")))
-    return out, (x[:, -1], S1)
+    return out, (last_real(x, valid_len), S1)
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device="cuda"):
@@ -179,8 +201,11 @@ def init_rwkv_ffn(generator: torch.Generator, cfg: ModelConfig, prefix: str = ""
 
 
 def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                     x_prev: Optional[torch.Tensor] = None, prefix: str = ""):
-    """Pointwise over (shifted) positions.  Returns (out, x_last)."""
+                     x_prev: Optional[torch.Tensor] = None, prefix: str = "",
+                     valid_len=None):
+    """Pointwise over (shifted) positions, so a right-padded prefill
+    (``valid_len``) only carries x at the last real token.  Returns (out,
+    x_last)."""
     B, S, d = x.shape
     if x_prev is None:
         x_prev = x.new_zeros((B, d))
@@ -191,4 +216,4 @@ def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k = torch.square(torch.relu(k))
     kv = apply_linear(p["wv"], k, cfg.ep(cfg.d_ff, d, _nm(prefix, "wv")))
     r = torch.sigmoid(apply_linear(p["wr"], xr, cfg.ep(d, d, _nm(prefix, "wr"))))
-    return r * kv, x[:, -1]
+    return r * kv, last_real(x, valid_len)

@@ -605,3 +605,57 @@ def test_quant_matmul_long_contraction_vs_float64(T, cuda_device):
     y, plain = quant_matmul(x, q, s, z), ref.quant_matmul_ref(x, q, s, z)
     torch.testing.assert_close(y.double(), exact, **TOL)
     assert (y.double() - exact).abs().max() <= (plain.double() - exact).abs().max()
+
+
+def test_wkv6_kernel_carries_h0_across_launches(cuda_device):
+    """A chunked prefill's second chunk starts from the first chunk's hT:
+    two launches of 64 tokens against one launch over both chunks (the
+    rwkv6-7b shape, bf16 r, k, v), within the WKV tolerance."""
+    r, k, v, lw, u, _ = _wkv_inputs(1, 128, 64, 64, cuda_device, torch.bfloat16)
+    reset_launch_counts()
+    o1, h1 = wkv6_chunked(r[:, :64], k[:, :64], v[:, :64], lw[:, :64], u, None, chunk=64)
+    o2, h2 = wkv6_chunked(r[:, 64:].contiguous(), k[:, 64:].contiguous(), v[:, 64:].contiguous(),
+                          lw[:, 64:].contiguous(), u, h1, chunk=64)
+    o, h = wkv6_chunked(r, k, v, lw, u, None, chunk=64)
+    torch.cuda.synchronize()
+    assert launch_counts()["wkv6_chunked"] == 3
+    torch.testing.assert_close(torch.cat([o1, o2], 1), o, **WKV)
+    torch.testing.assert_close(h2, h, **WKV)
+
+
+def _engine_sites(cfg):
+    """Kernel #1 launches a forward: the epitomized int8 projections."""
+    from repro_torch.models import lm
+    return cfg.n_groups * sum(lc.is_epitome and lc.quant is not None and lc.mode == "kernel"
+                              for lc in lm.lm_layer_configs(cfg).values())
+
+
+@pytest.mark.parametrize("arch,page_size,chunk", [("rwkv6-7b", 0, 64), ("qwen2-72b", 16, 16)])
+def test_smoke_engine_on_card(arch, page_size, chunk, cuda_device):
+    """The engine at smoke size on the card (bf16, kernel-q3): K = 4 gives
+    K = 1's tokens bit for bit, so does the reverse arrival order, greedy
+    and sampled; every prefill and decode micro-step launches kernel #1 at
+    each epitomized projection, every prefill (bucket or chunk) kernel #4
+    once per RWKV layer."""
+    from repro_torch.launch.engine import EngineConfig, Request
+    rng = np.random.default_rng(0)
+    lens = (5, 70, 13, 40, 9) if arch == "rwkv6-7b" else (6, 35, 11, 21, 9)
+    reqs = [Request(prompt=tuple(rng.integers(0, 192, P).tolist()), max_new_tokens=4 + i,
+                    temperature=0.8 if i % 2 else 0.0, seed=i) for i, P in enumerate(lens)]
+    runs = []
+    for k, order in ((1, range(5)), (4, range(5)), (4, range(4, -1, -1))):
+        eng = EngineConfig(arch=arch, epitome="kernel-q3", smoke=True, capacity=2, max_len=96,
+                           page_size=page_size, prefill_chunk=chunk, decode_block=k).build()
+        reset_launch_counts()
+        handles = {i: eng.submit(reqs[i]) for i in order}
+        eng.drain()
+        torch.cuda.synchronize()
+        counts, st = launch_counts(), eng.stats
+        prefills = sum(P <= eng.chunk for P in lens) + st["prefill_chunks"]
+        assert st["prefill_chunks"] == sum(-(-P // eng.chunk) for P in lens if P > eng.chunk)
+        assert counts["quant_epitome_matmul_blocks"] == \
+            _engine_sites(eng.cfg) * (prefills + st["decode_micro_steps"])
+        rwkv_layers = sum(kind == "rwkv" for kind, _ in eng.cfg.full_pattern) * eng.cfg.n_groups
+        assert counts["wkv6_chunked"] == rwkv_layers * prefills
+        runs.append({i: h.result().tokens for i, h in handles.items()})
+    assert runs[0] == runs[1] == runs[2]

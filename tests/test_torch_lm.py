@@ -497,15 +497,40 @@ def test_generate_refuses_a_cache_too_short_for_its_tokens():
 
 
 def test_engine_arguments_wait_for_the_engine_slice():
-    _, tc, _, tp, inputs, nxt, _, _ = attn_runs("qwen2-72b", 16)["float32"]
-    state = lm.init_decode_state(tc, 2, A_MAX, "cpu")
+    """The serving engine's three arguments, which raised until the engine
+    slice, now run and match the reference (qwen2-72b smoke, float32):
+    ``prefill(valid_len=)`` and ``prefill(chunk_start=)`` against the
+    reference's prefill with the same argument, and ``decode_step(
+    page_table=)`` over the prompt's caches cut into pages against the
+    reference's dense decode (and the port's, bit for bit)."""
+    jc, tc, jp, tp, inputs, nxt, _, (_, jl2, _, _, _) = attn_runs("qwen2-72b", 16)["float32"]
     x = torch.from_numpy(inputs)
-    for kw in (dict(valid_len=4), dict(chunk_start=0)):
-        with pytest.raises(NotImplementedError, match="engine slice .*item 9"):
-            lm.prefill(tp, x, state, tc, **kw)
-    with pytest.raises(NotImplementedError, match="engine slice .*item 9"):
-        lm.decode_step(tp, state, torch.from_numpy(nxt), A_PROMPT, tc,
-                       page_table=torch.zeros((2, 1), dtype=torch.int32))
+    from jax.experimental.pallas import tpu as pltpu
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
+        float_kv = lambda st: jax.tree.map(lambda t: t.astype(jnp.float32), st)
+        ref = {"valid_len": jlm.prefill(jp, jnp.asarray(inputs), jlm.init_decode_state(jc, 2, A_MAX),
+                                        jc, valid_len=jnp.int32(4))[0],
+               "chunk_start": jlm.prefill(jp, jnp.asarray(inputs),
+                                          float_kv(jlm.init_decode_state(jc, 2, A_MAX)), jc,
+                                          chunk_start=jnp.int32(0))[0]}
+    jax.clear_caches()
+    with torch.no_grad():
+        for kw in (dict(valid_len=4), dict(chunk_start=0)):
+            state = lm.init_decode_state(tc, 2, A_MAX, "cpu")
+            logits, _ = lm.prefill(tp, x, state, tc, **kw)
+            _close(logits, ref[next(iter(kw))], F32_TOL)
+        _, st = lm.prefill(tp, x, lm.init_decode_state(tc, 2, A_MAX, "cpu"), tc)
+        page, pps = 4, A_MAX // 4                   # slot b owns pages b*pps .. b*pps + pps-1
+        table = torch.arange(2 * pps, dtype=torch.int32).reshape(2, pps)
+        paged = [{lk: {k: torch.cat([v.reshape(2 * pps, page, *v.shape[2:]),
+                                     torch.zeros((1, page) + v.shape[2:], dtype=v.dtype)])
+                       for k, v in layer.items()} for lk, layer in g.items()} for g in st]
+        pos = torch.full((2,), A_PROMPT)
+        l_paged, _ = lm.decode_step(tp, paged, torch.from_numpy(nxt), pos, tc, page_table=table)
+        l_dense, _ = lm.decode_step(tp, st, torch.from_numpy(nxt), pos, tc)
+    _close(l_paged, jl2, F32_TOL)
+    assert torch.equal(l_paged, l_dense)
 
 
 # -- shared pieces ---------------------------------------------------------------
