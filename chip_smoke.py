@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
-Seven main paths, each at the full width of its model:
+Eight main paths, each at the full width of its model:
 
 * EPIM-ResNet-50 at 3-bit epitome-aware quantization,
   ``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
@@ -29,7 +29,13 @@ Seven main paths, each at the full width of its model:
   -> ``submit`` -> ``step``, serving rwkv6-7b (dense slot rows) and
   qwen2-72b (block-paged KV, an oversubscribed pool) at kernel-q3 in bf16
   at full width and depth: bucketed and chunked prefill (kernel #4 from
-  the carried state of the last chunk), fused decode macro-steps.
+  the carried state of the last chunk), fused decode macro-steps;
+* serving phi3.5-moe at kernel-q3 with bf16 parameters (32 layers, d_model
+  4096, 16 experts of ff 6400, top 2, vocab 32064): attention and the MoE
+  FFN (every expert on every token, the masked combine), kernel #1 at the
+  four attention projections, through ``serve.generate`` and through
+  ``launch.engine.EpimEngine``, whose MoE prompts prefill whole at their
+  exact length.
 
 Phases:
 
@@ -129,11 +135,27 @@ Phases:
              (the one-shot decodes at 1 row).  Kernel #1 and #4 at the
              engine's rows against their plain versions and timed; a 2-layer
              float32 engine on the card against the CPU's (1e-4).
+12. MoE LM — phi3.5-moe kernel-q3, bf16 parameters from seed 0, at the
+             first of 32, 28, 24 layers that leaves 1.5 GiB of the card free
+             (the bytes held logged): (a) kernel #1 at its two epitomized
+             specs as phase 9 takes them; (b) phase 5's generate (4 x 256 +
+             32, exactly 128 launches a forward at 32 layers), three
+             prefills bit for bit, timed and profiled, the MoE FFNs' device
+             time beside kernel #1's; (d) phase 10's requests through the
+             engine on the same weights (pages of 16, none deferred): every
+             prompt prefilled whole at its length, 69 micro-steps at K = 4,
+             launches exact, K = 1 and reverse order bit for bit, requests
+             0, 2, 4, 7 against one-shot in bf16 (a float32 pass of the
+             full model does not fit beside it), kernel #1 at the engine's
+             rows; then, the model freed, (c) phase 6 at 2 float32 layers
+             with the router's experts equal on the card and the CPU (the
+             smallest top-k logit gap logged) and phase 10's 2-layer
+             float32 engine card vs CPU.
 11. times  — each kernel's times and bounds summed over the launches of
              the main paths (the ResNet forwards, one LM generate at each
-             variant and of each attention LM, the quant_matmul calls, the
-             engine's K = 4 runs); kernel #2 beside kernel #1 plus the fold
-             on each ResNet path.
+             variant and of each attention LM and of the MoE LM, the
+             quant_matmul calls, the engine's K = 4 runs); kernel #2 beside
+             kernel #1 plus the fold on each ResNet path.  Run last.
 
 Any failure exits nonzero.  The line before the last is a JSON object
 listing the kernels; the last line is ``{"ok": true, "device": ...}``.
@@ -145,12 +167,16 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+# phase 12 holds a 76 GiB model on an 80 GB card: grow segments rather than
+# strand freed blocks (set before torch is imported)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 ROOT = Path(__file__).resolve().parent
 BATCH, IMAGE, SEED = 32, 224, 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -207,6 +233,21 @@ ENGINE_PROMPTS = (5, 37, 64, 65, 130, 200, 256, 288)
 ENGINE_SAMPLED, ENGINE_TEMPERATURE = (6, 100), 0.8
 ENGINE_NEW = (16, 24, 32)
 ENGINE_CPU_PROMPTS = (5, 130)   # the 2-layer float32 card-vs-CPU engine run
+# phase 12, the MoE LM: phi3.5-moe kernel-q3 at full width with bf16
+# parameters (the published weights' dtype; float32 experts alone would be
+# 161 GB), kernel #1 at wq, wk, wv and wo of every layer (the experts are
+# plain batched matmuls, never epitomized).  Depth: the first of MOE_DEPTHS whose
+# parameters leave MOE_WORKSPACE bytes of the card free (the phase peaks
+# 1.1-1.4 GiB above its parameters on the H100).  Its engine takes phase
+# 10's requests on dense-capacity pages of 16 (kv_pages 0) and prefills
+# every prompt whole at its length, so the K = 4 run makes MOE_MICRO decode
+# micro-steps (the schedule, counted on the CPU at smoke size: it does not
+# depend on the weights); MOE_ONESHOT are the greedy requests held to
+# one-shot generate
+MOE_ARCH, MOE_SITES = "phi3.5-moe-42b-a6.6b", 4
+MOE_DEPTHS = (32, 28, 24)
+MOE_WORKSPACE = 3 << 29   # 1.5 GiB
+MOE_PAGE, MOE_MICRO, MOE_ONESHOT = 16, 69, (0, 2, 4, 7)
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/quant_epitome_matmul.cu",
@@ -227,8 +268,15 @@ KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
 QUANT = "quant_epitome_matmul_blocks"
 
 
+# phase 12 runs the helpers of phases 5-10 on the MoE LM and prints their
+# lines under its own tags ([lm] -> [moe], ...)
+_RETAG = {}
+
+
 def log(*a):
-    print(*a, flush=True)
+    line = " ".join(str(x) for x in a)
+    tag = next((t for t in _RETAG if line.startswith(t)), None)
+    print(line if tag is None else _RETAG[tag] + line[len(tag):], flush=True)
 
 
 def card_line() -> str:
@@ -485,6 +533,16 @@ def main() -> int:
         launches[QUANT] += run["launches"][QUANT]
         launches[WKV] += run["launches"][WKV]
 
+    # -- 12. the MoE LM: phi3.5-moe kernel-q3, one-shot and through the engine --
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_rows, moe_report = moe_phase(torch, dev, gen, ops, ref, WRAPPERS, lm, serve, get_config,
+                                     launch_counts, reset_launch_counts)
+    rows += moe_rows
+    launches[QUANT] += (moe_report["lm"]["launches"][QUANT]
+                        + moe_report["engine"]["launches"][QUANT])
+
     # -- 11. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
@@ -547,7 +605,7 @@ def main() -> int:
                   lm_card_vs_cpu=lm_cpu, attention_lms=attn_runs,
                   attention_card_vs_cpu=attn_cpu, engine=engine_runs,
                   engine_card_vs_cpu=engine_cpu, fold_probe=fold, plan=plan_run["plan"],
-                  quant_matmul_vs_f64=qm_f64,
+                  quant_matmul_vs_f64=qm_f64, moe=moe_report,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -557,7 +615,8 @@ def main() -> int:
         f"quant_matmul {report['quant_matmul_s']:.1f}, "
         f"plan {report['plan_s']:.1f}, "
         + ", ".join(f"{a} {t:.1f}" for a, t in report["attention_s"].items()) + ", engine "
-        + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items()) + ")")
+        + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items())
+        + f", MoE {moe_report['seconds']:.1f})")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
     # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
@@ -960,19 +1019,23 @@ def wkv6_ops(B, S, H, K, L) -> tuple:
 
 
 def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_launch_counts,
-            requests=LM_REQUESTS, prompt=LM_PROMPT, new=LM_NEW) -> dict:
+            requests=LM_REQUESTS, prompt=LM_PROMPT, new=LM_NEW, built=None) -> dict:
     """An LM (``cfg``, at ``variant``) at full width and depth from seeded
     weights: generate ``new`` greedy tokens for ``requests`` prompts of
     ``prompt`` random tokens with exactly the launches of ``expect``
     ({kernel: launches}) and none of any other kernel, then prefill (three
-    times, bit for bit) and decode timed and profiled."""
+    times, bit for bit) and decode timed and profiled.  ``built`` (params,
+    seconds) passes parameters the caller drew and keeps."""
     name = cfg.name
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
-    params = lm.prepack_params(params, cfg)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    if built is None:
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+        params = lm.prepack_params(params, cfg)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    else:
+        params, setup_s = built
     prompts = torch.randint(0, cfg.vocab, (requests, prompt), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(SEED + 1))
     max_len = prompt + new + 1
@@ -1236,7 +1299,7 @@ def engine_drive(torch, eng, reqs, order, launch_counts, reset_launch_counts,
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"{what}: stats {st} fail {bad}")
-    whole = sum(len(r.prompt) <= eng.chunk for r in reqs)
+    whole = sum(not eng.chunk or len(r.prompt) <= eng.chunk for r in reqs)
     prefills = whole + st["prefill_chunks"]
     rwkv = sum(kind == "rwkv" for kind, _ in cfg.full_pattern) * cfg.n_groups
     expect = {QUANT: per_fwd * (prefills + st["decode_micro_steps"]), WKV: rwkv * prefills}
@@ -1280,7 +1343,8 @@ def replay_at_rows(torch, lm, engine_mod, eng, req, toks, step, dev):
     return logits[0, -1].float()
 
 
-def engine_vs_one_shot(torch, dev, lm, serve, engine_mod, eng, reqs, tokens, indices) -> list:
+def engine_vs_one_shot(torch, dev, lm, serve, engine_mod, eng, reqs, tokens, indices,
+                       f32=True) -> list:
     """Gate 6: each greedy request of ``indices`` against the port's
     one-shot path alone on the card (``seq_len`` KV rows).  First-token
     logits of the engine's prefill against the one-shot prefill in float32
@@ -1293,7 +1357,9 @@ def engine_vs_one_shot(torch, dev, lm, serve, engine_mod, eng, reqs, tokens, ind
     must be the row count's: the engine's computation of that request
     replayed at ``capacity`` rows (replay_at_rows) picks the engine's token
     there (printed with the step, the one-shot's top-two margin and the
-    replay's logit difference)."""
+    replay's logit difference).  Without ``f32`` (a model whose float32
+    pass does not fit beside its bf16 weights) the float32 reading is not
+    taken and the path's dtype is recorded alone."""
     cfg, params, rows = eng.cfg, eng.serve_params, eng.capacity
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     first = lambda c, prompt, batch: lm.prefill(
@@ -1305,16 +1371,16 @@ def engine_vs_one_shot(torch, dev, lm, serve, engine_mod, eng, reqs, tokens, ind
         what = f"{cfg.name} engine request {i} (prompt {len(req.prompt)})"
         errs = {}
         with torch.no_grad():
-            for c in (cfg32, cfg):
+            for c in ((cfg32, cfg) if f32 else (cfg,)):
                 one = first(c, req.prompt, 1)[0]
                 mine = engine_mod.prefill_prompt(params, c, req.prompt, eng.seq_len, eng.chunk,
                                                  dev)[0][0, -1].float()
                 spread = float((first(c, req.prompt, rows)[0] - one).abs().max())
                 errs[str(c.cdtype).replace("torch.", "")] = (
                     float((mine - one).abs().max()), max(1.0, float(one.abs().max())), spread)
-        (e32, s32, sp32), (err, scale, spread) = errs["float32"], errs[str(cfg.cdtype).replace(
-            "torch.", "")]
-        if not e32 <= LOGIT_TOL * s32:
+        (e32, s32, sp32), (err, scale, spread) = errs.get("float32", (None,) * 3), errs[
+            str(cfg.cdtype).replace("torch.", "")]
+        if f32 and not e32 <= LOGIT_TOL * s32:
             raise AssertionError(f"{what}: float32 first-token logits differ from one-shot by "
                                  f"{e32:.3e} (> {LOGIT_TOL} * {s32:.3f})")
         prompt = torch.tensor([req.prompt], device=dev)
@@ -1405,19 +1471,26 @@ def engine_card_vs_cpu(torch, dev, lm, engine_mod, get_config, arch, page_size,
 
 
 def engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size, kv_pages,
-                per_fwd, oneshot, launch_counts, reset_launch_counts) -> dict:
+                per_fwd, oneshot, launch_counts, reset_launch_counts, built=None,
+                micro=None) -> dict:
     """Phase 10 for one LM: ``EngineConfig(...).build()`` at kernel-q3, bf16,
-    full width and depth, serving phase 10's requests at K = 4 (counted:
-    gates 1-3), again at K = 1 and in reverse order (gates 1-3 each; gates
-    4 and 5: every request's tokens equal the first run's bit for bit),
-    then the greedy requests of ``oneshot`` against one-shot generate
-    (gate 6)."""
+    full width and depth (or ``EpimEngine`` over ``built``, (cfg, params)
+    the caller drew and keeps), serving phase 10's requests at K = 4
+    (counted: gates 1-3), again at K = 1 and in reverse order (gates 1-3
+    each; gates 4 and 5: every request's tokens equal the first run's bit
+    for bit), then the greedy requests of ``oneshot`` against one-shot
+    generate (gate 6).  A MoE model's engine prefills every prompt whole
+    at its exact length (gated), and its K = 4 run makes ``micro`` decode
+    micro-steps, the count of its schedule on the CPU."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     geometry = dict(capacity=ENGINE_CAPACITY, max_len=ENGINE_MAX_LEN, page_size=page_size,
                     kv_pages=kv_pages, prefill_chunk=ENGINE_CHUNK)
-    eng = engine_mod.EngineConfig(arch=arch, epitome="kernel-q3", decode_block=ENGINE_BLOCK,
-                                  seed=SEED, **geometry).build()
+    if built is None:
+        eng = engine_mod.EngineConfig(arch=arch, epitome="kernel-q3",
+                                      decode_block=ENGINE_BLOCK, seed=SEED, **geometry).build()
+    else:
+        eng = engine_mod.EpimEngine(*built, decode_block=ENGINE_BLOCK, device=dev, **geometry)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     cfg, params = eng.cfg, eng.serve_params
@@ -1434,8 +1507,17 @@ def engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size, 
                range(n))
     rev = drive(engine_mod.EpimEngine(cfg, params, decode_block=ENGINE_BLOCK, device=dev,
                                       **geometry), range(n - 1, -1, -1))
-    if page_size and not main["deferred_steps"]:
+    if kv_pages and not main["deferred_steps"]:
         raise AssertionError(f"{arch} engine: {kv_pages} pages never made admission defer")
+    if not eng.bucket_prompts:
+        exact = {("bucket", len(r.prompt)) for r in reqs}
+        if eng.chunk or main["stats"]["prefill_chunks"] or eng._prefill_shapes != exact:
+            raise AssertionError(f"{arch} engine: chunk {eng.chunk}, prefills "
+                                 f"{sorted(eng._prefill_shapes)}: not every prompt whole at "
+                                 f"its exact length")
+    if micro is not None and main["stats"]["decode_micro_steps"] != micro:
+        raise AssertionError(f"{arch} engine: {main['stats']['decode_micro_steps']} decode "
+                             f"micro-steps, the schedule makes {micro}")
     for label, run in (("decode_block 1", k1), ("reverse order", rev)):
         diff = [i for i in range(n) if run["tokens"][i] != main["tokens"][i]]
         if diff:
@@ -1443,19 +1525,21 @@ def engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size, 
                                  f"{diff} (bit for bit against decode_block {ENGINE_BLOCK})")
     t1 = time.perf_counter()
     vs = engine_vs_one_shot(torch, dev, lm, serve, engine_mod, eng, reqs, main["tokens"],
-                            oneshot)
+                            oneshot, f32=built is None)
     oneshot_s = time.perf_counter() - t1
     st = main["stats"]
-    # the forwards by row count: bucketed prefills at their bucket, chunks at
-    # the chunk, decode micro-steps at the capacity (kernel #1's T)
+    # the forwards by row count: whole prefills at their bucket (a MoE
+    # model's at the prompt's length), chunks at the chunk, decode
+    # micro-steps at the capacity (kernel #1's T)
     by_T = {}
     for r in reqs:
-        if len(r.prompt) <= eng.chunk:
-            L = engine_mod.bucket_len(len(r.prompt), eng.seq_len)
+        if not eng.chunk or len(r.prompt) <= eng.chunk:
+            L = engine_mod.prefill_len(cfg, len(r.prompt), eng.seq_len)
             by_T[L] = by_T.get(L, 0) + 1
     by_T_wkv = dict(by_T)
-    by_T[eng.chunk] = by_T.get(eng.chunk, 0) + st["prefill_chunks"]
-    by_T_wkv[eng.chunk] = by_T[eng.chunk]
+    if st["prefill_chunks"]:
+        by_T[eng.chunk] = by_T.get(eng.chunk, 0) + st["prefill_chunks"]
+        by_T_wkv[eng.chunk] = by_T[eng.chunk]
     by_T[ENGINE_CAPACITY] = by_T.get(ENGINE_CAPACITY, 0) + st["decode_micro_steps"]
     med = lambda run, k: statistics.median(run["step_ms"][k]) if run["step_ms"].get(k) else None
     run = dict(arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
@@ -1481,21 +1565,176 @@ def engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size, 
         f"({st['decode_micro_steps']} micro), ms per macro-step K={ENGINE_BLOCK} "
         f"{_ms(run['macro_ms_k4'], 2)}, K=1 {_ms(run['macro_ms_k1'], 2)} (its run "
         f"{k1['wall_s']:.2f} s, {k1['stats']['decode_steps']} steps), prefill chunks "
-        f"{st['prefill_chunks']} + {main['whole_prefills']} bucketed, pages hwm "
+        f"{st['prefill_chunks']} + {main['whole_prefills']} whole "
+        f"({'bucketed' if eng.bucket_prompts else 'exact length'}), pages hwm "
         f"{st['pages_hwm']}/{p_tot}, steps with a slot waiting on pages "
         f"{main['deferred_steps']}, peak {peak / 2**30:.2f} GiB; launches "
         + ", ".join(f"{k} x{v}" for k, v in main["launches"].items())
         + f" (exact); K=1 and reverse order bit for bit; tokens[0] {run['tokens_sample']}")
+    f32 = lambda o: ("" if o["first_logit_err_f32"] is None else
+                     f", float32 {o['first_logit_err_f32']:.3e} of {o['scale_f32']:.2f} (rows "
+                     f"{o['one_shot_rows_spread_f32']:.3e})")
     log(f"[engine] {arch} vs one-shot: "
         + "; ".join(f"request {o['request']} (prompt {o['prompt']}) first-token max|d| "
                     f"{o['first_logit_err']:.3e} of {o['scale']:.2f} (one-shot 1 vs "
-                    f"{ENGINE_CAPACITY} rows {o['one_shot_rows_spread']:.3e}), float32 "
-                    f"{o['first_logit_err_f32']:.3e} of {o['scale_f32']:.2f} (rows "
-                    f"{o['one_shot_rows_spread_f32']:.3e}), tokens "
+                    f"{ENGINE_CAPACITY} rows {o['one_shot_rows_spread']:.3e}){f32(o)}, tokens "
                     f"{'equal' if o['tokens_equal'] else 'part at ' + str(o['parts_at'])}"
                     for o in vs) + f"; {oneshot_s:.1f} s")
     del eng, params
     return run
+
+
+def moe_build(torch, dev, lm, get_config):
+    """phi3.5-moe kernel-q3 with bf16 parameters drawn from SEED on the
+    card, at the first depth of MOE_DEPTHS that leaves MOE_WORKSPACE bytes
+    free.  Returns (cfg, params, {depth, bytes held, bytes free, setup s,
+    the depths tried and the bytes each held})."""
+    import gc
+    tried = []
+    for depth in MOE_DEPTHS:
+        cfg = get_config(MOE_ARCH, "kernel-q3", param_dtype="bfloat16", n_layers=depth)
+        t0 = time.perf_counter()
+        params = lm.prepack_params(
+            lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        held = torch.cuda.memory_allocated()
+        tried.append(dict(depth=depth, bytes=held, free=free))
+        log(f"[moe] {MOE_ARCH} kernel-q3 bf16 at {depth} layers: parameters and all else "
+            f"allocated {held / 2**30:.2f} GiB ({held} bytes), card free {free / 2**30:.2f} "
+            f"of {total / 2**30:.2f} GiB; init+prepack {setup_s:.1f} s")
+        if free >= MOE_WORKSPACE or depth == MOE_DEPTHS[-1]:
+            return cfg, params, dict(depth=depth, bytes=held, free=free, total=total,
+                                     setup_s=setup_s, tried=tried)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+class route_recorder:
+    """Records every ``moe._route`` call while active: (device, expert
+    indices, the smallest gap between each token's k-th and (k+1)-th
+    router logit)."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe, self.seen = torch, moe, []
+
+    def __enter__(self):
+        self.orig = orig = self.moe._route
+
+        def rec(x2d, router, cfg):
+            w, e = orig(x2d, router, cfg)
+            top = self.torch.topk(x2d.float() @ router, cfg.top_k + 1, dim=-1).values
+            self.seen.append((x2d.device.type, e.cpu(), float((top[:, -2] - top[:, -1]).min())))
+            return w, e
+        self.moe._route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+
+def moe_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, launch_counts,
+              reset_launch_counts):
+    """Phase 12: phi3.5-moe kernel-q3 (moe_build), (a) kernel #1 at its two
+    epitomized specs (quant_lm_rows); (b) serve.generate, 4 x 256 + 32
+    greedy, exactly MOE_SITES launches a layer a forward, three prefills
+    bit for bit, timed and profiled, with the MoE FFNs' device time (one
+    layer's moe_ffn at the prefill's and a decode step's rows, times the
+    layers) beside kernel #1's; (d) the engine on the same weights
+    (engine_path: exact-length prefills, K = 1 and reverse order bit for
+    bit, one-shot), then kernel #1 at the engine's rows.  With the model
+    freed, (c) the 2-layer float32 model card against CPU (logits, greedy
+    tokens, the router's experts equal), and the 2-layer float32 engine.
+    Returns (kernel rows, report)."""
+    import gc
+    from repro_torch.launch import engine as engine_mod
+    from repro_torch.models import moe
+    t_phase = time.perf_counter()
+    _RETAG.update({"[lm]": "[moe]", "[lm-kernels]": "[moe-kernels]", "[lm-cpu]": "[moe-cpu]",
+                   "[profile] lm": "[profile] moe", "[engine]": "[moe-engine]",
+                   "[engine-cpu]": "[moe-cpu]"})
+    cfg, params, built = moe_build(torch, dev, lm, get_config)
+    sites = sum(site_specs(lm, cfg).values()) * cfg.n_groups
+    if sites != MOE_SITES * cfg.n_layers:
+        raise AssertionError(f"{MOE_ARCH}: {sites} epitomized projections, expected "
+                             f"{MOE_SITES * cfg.n_layers}")
+    per_fwd = MOE_SITES * cfg.n_layers
+    # (a) kernel #1 at the path's prefill and decode rows
+    rows = quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, MOE_ARCH,
+                         ((LM_REQUESTS * LM_PROMPT, 1), (LM_REQUESTS, LM_NEW - 1)), LM_REQUESTS)
+    torch.cuda.empty_cache()
+    # (b) serve.generate
+    run = lm_path(torch, dev, lm, serve, cfg, "kernel-q3", {QUANT: per_fwd * LM_NEW},
+                  launch_counts, reset_launch_counts, built=(params, built["setup_s"]))
+    ffn0 = params["groups"][0]["L0"]["ffn"]
+    share = {}
+    with torch.no_grad():
+        for label, S, busy, prof in (
+                ("prefill", LM_PROMPT, run["prefill_busy_ms"], run["prefill_device_breakdown"]),
+                ("decode", 1, run["decode_busy_ms"], run["decode_device_breakdown"])):
+            h = torch.randn(LM_REQUESTS, S, cfg.d_model, device=dev, generator=gen).to(cfg.cdtype)
+            layer_ms = time_ms(torch, lambda: moe.moe_ffn(ffn0, h, cfg))
+            # the three expert products alone, as moe_dense runs them
+            xe = h.reshape(-1, cfg.d_model).expand(cfg.n_experts, -1, -1)
+            g = torch.bmm(xe, ffn0["w_gate"])
+            bmm_ms = (2 * time_ms(torch, lambda: torch.bmm(xe, ffn0["w_gate"]))
+                      + time_ms(torch, lambda: torch.bmm(g, ffn0["w_down"])))
+            k1 = sum(ms for name, ms, _ in prof if "epim_mma::" in name)
+            share[label] = dict(moe_layer_ms=layer_ms, moe_ms=layer_ms * cfg.n_layers,
+                                moe_bmm_layer_ms=bmm_ms, moe_bmm_ms=bmm_ms * cfg.n_layers,
+                                busy_ms=busy, kernel1_ms=k1)
+            log(f"[moe] {label}: device busy {busy:.3f} ms; MoE FFN {layer_ms:.3f} ms a layer "
+                f"x {cfg.n_layers} = {layer_ms * cfg.n_layers:.3f} ms "
+                f"({100 * layer_ms * cfg.n_layers / busy:.1f} % of busy), its three expert "
+                f"products {bmm_ms * cfg.n_layers:.3f} ms "
+                f"({100 * bmm_ms * cfg.n_layers / busy:.1f} %); kernel #1 {k1:.3f} ms "
+                f"({100 * k1 / busy:.1f} %)")
+            del h, xe, g
+    run.update(depth=built, moe_share=share)
+    torch.cuda.empty_cache()
+    # (d) the engine on the same weights
+    eng_run = engine_path(torch, dev, lm, serve, engine_mod, get_config, MOE_ARCH, MOE_PAGE, 0,
+                          per_fwd, MOE_ONESHOT, launch_counts, reset_launch_counts,
+                          built=(cfg, params), micro=MOE_MICRO)
+    exact = [o["request"] for o in eng_run["one_shot"] if o["first_logit_err"] == 0.0]
+    log(f"[moe-engine] exact-length first-token logits bit-equal to one-shot's for requests "
+        f"{exact} of {list(MOE_ONESHOT)}"
+        + ("" if len(exact) == len(MOE_ONESHOT) else " (not all: see the lines above)"))
+    del params, ffn0
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, f"{MOE_ARCH} engine",
+                          sorted(eng_run["forwards_by_rows"].items()), ENGINE_CAPACITY)
+    torch.cuda.empty_cache()
+    # (c) card against CPU, 2 float32 layers, the router's experts recorded
+    with route_recorder(torch, moe) as rr:
+        cpu = lm_card_vs_cpu(torch, dev, lm, get_config, MOE_ARCH, "kernel-q3")
+    # the CPU's run first, then the card's on the same tokens
+    n = len(rr.seen) // 2
+    on_cpu = [(e, gap) for d, e, gap in rr.seen[:n]]
+    on_card = [e for d, e, _ in rr.seen[n:]]
+    if 2 * n != len(rr.seen) or {d for d, _, _ in rr.seen[:n]} != {"cpu"} \
+            or {d for d, _, _ in rr.seen[n:]} != {dev.type} \
+            or not all(torch.equal(a, b) for (a, _), b in zip(on_cpu, on_card)):
+        raise AssertionError(f"{MOE_ARCH}: the router picks other experts on the card than "
+                             f"on the CPU")
+    gap = min(g for _, g in on_cpu)
+    log(f"[moe-cpu] {MOE_ARCH} float32 {CPU_LAYERS} layers: the router's experts equal on the "
+        f"card and the CPU over {len(on_cpu)} routings ({sum(e.shape[0] for e, _ in on_cpu)} "
+        f"tokens); smallest gap between a token's k-th and (k+1)-th router logit {gap:.3e}")
+    eng_cpu = engine_card_vs_cpu(torch, dev, lm, engine_mod, get_config, MOE_ARCH, MOE_PAGE, 0)
+    seconds = time.perf_counter() - t_phase
+    _RETAG.clear()
+    log(f"[moe] phase 12 {seconds:.1f} s at {cfg.n_layers} layers"
+        + ("" if cfg.n_layers == MOE_DEPTHS[0] else
+           f" (cut from {MOE_DEPTHS[0]}: " + ", ".join(
+               f"{t['depth']} layers held {t['bytes']} bytes, {t['free']} free"
+               for t in built["tried"]) + ")"))
+    return rows, dict(lm=run, engine=eng_run, card_vs_cpu=cpu, router=dict(
+        routings=len(on_cpu), min_gap=gap), engine_card_vs_cpu=eng_cpu, seconds=seconds)
 
 
 QM_SHAPES = ((4096, 4096), (4096, 14336), (14336, 4096))   # rwkv6-7b's projections

@@ -13,7 +13,10 @@ them).
 
 ``lm_params_from_jax`` returns the LM's tree as ``models.lm`` keeps it: the
 reference stacks every group leaf over a leading group axis, the port keeps
-a list of per-group dicts, so ``groups`` is unstacked.
+a list of per-group dicts, so ``groups`` is unstacked.  The MoE FFN's
+``router`` and its expert tensors cross the same way: ``w_gate``, ``w_up``
+and ``w_down`` are arrays under ``moe`` ((G, E, d, ff) stacked) and dicts
+(``E``, ``Eq``, ...) under the dense FFN.
 """
 from __future__ import annotations
 
@@ -41,7 +44,16 @@ def params_from_jax(tree: Mapping, device="cuda") -> dict:
 
 LM_LEAVES = ("embed", "head", "final_norm", "norm1", "norm2",
              "mu", "lora_A", "lora_B", "w0", "wd_A", "wd_B", "u", "ln_x",
-             "mu_k", "mu_r", "E", "W", "b", "Eq", "Es", "Ez")
+             "mu_k", "mu_r", "E", "W", "b", "Eq", "Es", "Ez",
+             "router", "w_gate", "w_up", "w_down")
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A copy of a numpy array as a tensor; bfloat16 arrays (ml_dtypes',
+    which numpy cannot hand to torch) cross by their 16 bits."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a, copy=True).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
 
 
 def _lm_tree(tree: Mapping, device, index=None) -> dict:
@@ -51,7 +63,7 @@ def _lm_tree(tree: Mapping, device, index=None) -> dict:
             out[k] = _lm_tree(v, device, index)
         elif k in LM_LEAVES:
             a = np.asarray(v) if index is None else np.asarray(v)[index]
-            out[k] = torch.from_numpy(np.array(a, copy=True)).to(device)
+            out[k] = _tensor(a).to(device)
         else:
             raise KeyError(f"unknown LM parameter leaf {k!r} (expected one of {LM_LEAVES})")
     return out

@@ -233,10 +233,13 @@ def pack_blocks(spec: EpitomeSpec, qcfg: QuantConfig,
 
 def pack_epitome(E: torch.Tensor, spec: EpitomeSpec, qcfg: QuantConfig,
                  blocks: Optional[tuple] = None) -> PackedEpitome:
-    """Quantize an epitome into the kernel's storage layout."""
+    """Quantize an epitome into the kernel's storage layout: int8 codes and
+    a float32 (scale, zero) per block.  A bf16 epitome's scales and zeros
+    are computed in bf16, as the reference's are, then widened (exactly):
+    the reference's kernel body widens them to float32 too."""
     bk, bn = pack_blocks(spec, qcfg, blocks)
     q, scales, zeros = quantize_epitome_packed(E, spec, qcfg, (bk, bn))
-    return PackedEpitome(q, scales, zeros, bk, bn)
+    return PackedEpitome(q, scales.float(), zeros.float(), bk, bn)
 
 
 def quant_epitome_matmul(x: torch.Tensor, E: Optional[torch.Tensor],

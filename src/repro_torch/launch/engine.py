@@ -66,7 +66,10 @@ step, interleaved with decode; the chunk is rounded up to
 boundaries, and the transient chunk state holds attention K/V in float32
 as the one-shot prefill attends its fresh K/V (the scatter into the pool
 rounds once, where the one-shot path rounds).  An int8 KV cache prefills
-whole prompts: a second chunk would attend dequantized rows.
+whole prompts: a second chunk would attend dequantized rows.  A MoE
+architecture prefills every prompt whole and at its exact length, as the
+reference's does (its capacity routing couples the tokens of a dispatch,
+and pads would take expert-queue ranks).
 
 Where bits agree
 ----------------
@@ -190,6 +193,17 @@ def bucket_len(P: int, seq_len: int) -> int:
     return min(max(8, 1 << (P - 1).bit_length()), seq_len)
 
 
+def buckets_prompts(cfg) -> bool:
+    """Whether whole prompts pad to a bucket: not for a MoE architecture,
+    whose prompts prefill at their exact length and never in chunks."""
+    return "moe" not in cfg.ffn_pattern
+
+
+def prefill_len(cfg, P: int, seq_len: int) -> int:
+    """Rows of the whole-prompt prefill of a P-token prompt."""
+    return bucket_len(P, seq_len) if buckets_prompts(cfg) else P
+
+
 def prefill_bucket(params, cfg, prompt: Sequence[int], L: int, seq_len: int, device):
     """One prompt right-padded to L rows into a fresh batch-1 state of
     ``seq_len`` KV rows.  Returns (last real token's logits (1, 1, vocab),
@@ -230,7 +244,7 @@ def prefill_prompt(params, cfg, prompt: Sequence[int], seq_len: int, chunk: int,
     token's logits (1, 1, vocab), batch-1 state).  The engine runs the
     same calls, one chunk a step."""
     if not chunk or len(prompt) <= chunk:
-        return prefill_bucket(params, cfg, prompt, bucket_len(len(prompt), seq_len),
+        return prefill_bucket(params, cfg, prompt, prefill_len(cfg, len(prompt), seq_len),
                               seq_len, device)
     state = fresh_chunk_state(cfg, seq_len, chunk, device)
     for lo in range(0, len(prompt), chunk):
@@ -297,7 +311,8 @@ class EpimEngine:
         self._pool = SlotStatePool(cfg, capacity, max_len, page_size=page_size,
                                    kv_pages=kv_pages, device=self.device)
         self.seq_len = self._pool.seq_len   # KV rows of a prefill and a slot
-        if prefill_chunk > 0 and cfg.kv_cache_bits != 8:
+        self.bucket_prompts = buckets_prompts(cfg)
+        if prefill_chunk > 0 and self.bucket_prompts and cfg.kv_cache_bits != 8:
             align = recurrence_alignment(cfg)
             self.chunk = -(-prefill_chunk // align) * align
         else:
@@ -493,7 +508,7 @@ class EpimEngine:
                 rec, fresh_chunk_state(self.cfg, self.seq_len, self.chunk, self.device))
             self._advance_prefill()
             return
-        L = bucket_len(P, self.seq_len)
+        L = prefill_len(self.cfg, P, self.seq_len)
         self._prefill_shapes.add(("bucket", L))
         logits, state = prefill_bucket(self.serve_params, self.cfg, req.prompt, L,
                                        self.seq_len, self.device)

@@ -10,11 +10,15 @@ recurrent state.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
         --epitome kernel-q3 --smoke --device cpu --engine --page-size 16 \\
         --prefill-chunk 16 --decode-block 4             # and through the engine
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3.5-moe-42b-a6.6b --epitome kernel-q3 --smoke --device cpu \\
+        --engine --decode-block 4                       # a MoE FFN
 
-(counterpart of ``repro.launch.serve``).  It serves rwkv6-7b and the six
-attention architectures (qwen2-72b, qwen1.5-110b, gemma2-2b, deepseek-67b,
-musicgen-large, internvl2-76b; the last two take token ids here, their
-embedding inputs through ``models.lm`` directly).  Parameters are drawn from
+(counterpart of ``repro.launch.serve``).  It serves rwkv6-7b, the six
+attention architectures with the dense FFN (qwen2-72b, qwen1.5-110b,
+gemma2-2b, deepseek-67b, musicgen-large, internvl2-76b; the last two take
+token ids here, their embedding inputs through ``models.lm`` directly) and
+the two with the MoE FFN (phi3.5-moe-42b-a6.6b, grok-1-314b).  Parameters are drawn from
 ``--seed`` on the serving device and, for a kernel x quant variant such as
 ``kernel-q3``, prepacked once into int8 codes, so every forward feeds the
 fused kernel stored codes.  Greedy decoding follows the reference token for
@@ -98,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="rwkv6-7b",
                     help="rwkv6-7b, qwen2-72b, qwen1.5-110b, gemma2-2b, deepseek-67b, "
-                         "musicgen-large or internvl2-76b")
+                         "musicgen-large, internvl2-76b, phi3.5-moe-42b-a6.6b or "
+                         "grok-1-314b")
     ap.add_argument("--epitome", default="off")
     ap.add_argument("--plan", default="",
                     help="EpitomePlan JSON driving per-layer epitome "

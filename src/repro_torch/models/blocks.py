@@ -3,9 +3,9 @@ model (counterpart of ``repro.models.blocks``).  lm.py keeps one parameter
 dict per group and loops over them.
 
 The port runs the attention kinds (``attn``, sliding-window ``attn_local``)
-with the dense SwiGLU/gelu FFN, and the RWKV6 kinds (the ``rwkv`` mixer and
-the ``rwkv_ffn`` channel mix).  Mamba and the MoE FFN come with later
-slices and raise here until then.
+with the dense SwiGLU/gelu FFN or the MoE FFN (``models.moe``), and the
+RWKV6 kinds (the ``rwkv`` mixer and the ``rwkv_ffn`` channel mix).  Mamba
+comes with a later slice and raises here until then.
 
 Prefill and decode update the attention caches of the state they are given
 in place (and return them in the new state); the recurrent kinds return new
@@ -22,15 +22,15 @@ from .attention import (CacheSpec, attention, chunked_prefill_attention,
                         decode_attention, init_attn, init_kv_cache, quantize_kv)
 from .common import act_fn, init_rms_norm, rms_norm
 from .config import LayerKind, ModelConfig, layer_name as _nm
+from .moe import init_moe, moe_ffn
 from .ssm import (init_rwkv, init_rwkv_ffn, init_rwkv_state, rwkv_channel_mix,
                   rwkv_time_mix)
 
 _ATTN = (LayerKind.ATTN.value, LayerKind.ATTN_LOCAL.value)
 _MIXERS = _ATTN + (LayerKind.RWKV.value,)
-_FFNS = ("dense", "rwkv_ffn", "none")
+_FFNS = ("dense", "moe", "rwkv_ffn", "none")
 _LATER = {
     LayerKind.MAMBA.value: "the Mamba slice of the port (ROADMAP.md item 11)",
-    "moe": "the MoE slice of the port (ROADMAP.md item 10)",
 }
 
 
@@ -46,7 +46,7 @@ def _check_kinds(cfg: ModelConfig) -> None:
 
 
 # ---------------------------------------------------------------------------
-# FFN (SwiGLU / gelu-MLP)
+# FFN (SwiGLU / gelu-MLP; the MoE FFN in models.moe)
 # ---------------------------------------------------------------------------
 def init_ffn(generator: torch.Generator, cfg: ModelConfig, prefix: str = "",
              device="cuda") -> dict:
@@ -70,10 +70,12 @@ def ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, prefix: str = "") -> to
 def _ffn(layer: Dict[str, Any], x: torch.Tensor, ffn_kind: str, cfg: ModelConfig,
          prefix: str, x_prev: Optional[torch.Tensor] = None, valid_len=None):
     """The FFN half of a layer, residual included: (x, the channel mix's
-    last real token, or None for the dense FFN)."""
+    last real token, or None for the dense and MoE FFNs)."""
     h = rms_norm(x, layer["norm2"], cfg.norm_eps)
     if ffn_kind == "dense":
         return x + ffn(layer["ffn"], h, cfg, prefix=prefix), None
+    if ffn_kind == "moe":
+        return x + moe_ffn(layer["ffn"], h, cfg), None
     if x_prev is not None:
         x_prev = x_prev.to(h.dtype)
     f, xp = rwkv_channel_mix(layer["ffn"], h, cfg, x_prev=x_prev, prefix=prefix,
@@ -99,6 +101,8 @@ def init_group(generator: torch.Generator, cfg: ModelConfig,
             layer["norm2"] = init_rms_norm(cfg.d_model, cfg.pdtype, device)
         if ffn_kind == "dense":
             layer["ffn"] = init_ffn(generator, cfg, prefix=ffn_p, device=device)
+        elif ffn_kind == "moe":
+            layer["ffn"] = init_moe(generator, cfg, device=device)
         elif ffn_kind == "rwkv_ffn":
             layer["ffn"] = init_rwkv_ffn(generator, cfg, prefix=ffn_p, device=device)
         params[f"L{i}"] = layer

@@ -7,6 +7,8 @@ collects the same tests.  Run them on a machine with an H100:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Imports only torch, numpy and the port (that machine has no JAX)."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -361,7 +363,7 @@ def test_quant_epitome_matmul_at_attention_lm_shapes(args, dtype, T, cuda_device
         assert all(torch.equal(a, y) for a in again)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-72b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen2-72b", "gemma2-2b", "phi3.5-moe-42b-a6.6b"])
 @pytest.mark.parametrize("bits", [16, 8])
 def test_smoke_attention_lm_on_card_matches_cpu(arch, bits, cuda_device):
     """An attention architecture's smoke config at kernel-q3 in float32
@@ -630,7 +632,8 @@ def _engine_sites(cfg):
                               for lc in lm.lm_layer_configs(cfg).values())
 
 
-@pytest.mark.parametrize("arch,page_size,chunk", [("rwkv6-7b", 0, 64), ("qwen2-72b", 16, 16)])
+@pytest.mark.parametrize("arch,page_size,chunk", [("rwkv6-7b", 0, 64), ("qwen2-72b", 16, 16),
+                                                ("phi3.5-moe-42b-a6.6b", 16, 16)])
 def test_smoke_engine_on_card(arch, page_size, chunk, cuda_device):
     """The engine at smoke size on the card (bf16, kernel-q3): K = 4 gives
     K = 1's tokens bit for bit, so does the reverse arrival order, greedy
@@ -651,11 +654,48 @@ def test_smoke_engine_on_card(arch, page_size, chunk, cuda_device):
         eng.drain()
         torch.cuda.synchronize()
         counts, st = launch_counts(), eng.stats
-        prefills = sum(P <= eng.chunk for P in lens) + st["prefill_chunks"]
-        assert st["prefill_chunks"] == sum(-(-P // eng.chunk) for P in lens if P > eng.chunk)
+        # a MoE arch prefills every prompt whole (eng.chunk is 0)
+        whole = [P for P in lens if not eng.chunk or P <= eng.chunk]
+        prefills = len(whole) + st["prefill_chunks"]
+        assert st["prefill_chunks"] == sum(-(-P // eng.chunk) for P in lens if P not in whole)
         assert counts["quant_epitome_matmul_blocks"] == \
             _engine_sites(eng.cfg) * (prefills + st["decode_micro_steps"])
         rwkv_layers = sum(kind == "rwkv" for kind, _ in eng.cfg.full_pattern) * eng.cfg.n_groups
         assert counts["wkv6_chunked"] == rwkv_layers * prefills
         runs.append({i: h.result().tokens for i, h in handles.items()})
     assert runs[0] == runs[1] == runs[2]
+
+
+@functools.lru_cache(maxsize=1)
+def _phi35_moe_layer():
+    """One MoE layer at phi3.5-moe's width (E 16, d 4096, ff 6400, top 2),
+    float32, drawn on the CPU from a seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("phi3.5-moe-42b-a6.6b", n_layers=1)
+    return cfg, moe.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+
+
+@pytest.mark.parametrize("T", [4, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dense_at_phi35_width_matches_cpu(dtype, T, cuda_device):
+    """moe_dense at phi3.5-moe's width, one layer, card against CPU: the
+    router picks the same experts, the output within the kernels'
+    tolerance of its dtype."""
+    import dataclasses
+    from repro_torch.models import moe
+    cfg0, cpu32 = _phi35_moe_layer()
+    name = str(dtype).replace("torch.", "")
+    cfg = dataclasses.replace(cfg0, param_dtype=name, compute_dtype=name)
+    assert (cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.top_k) == (16, 4096, 6400, 2)
+    cpu = {k: (v if k == "router" else v.to(dtype)) for k, v in cpu32.items()}
+    card = {k: v.to(cuda_device) for k, v in cpu.items()}
+    x = torch.randn(2, T // 2, cfg.d_model, generator=torch.Generator().manual_seed(T)).to(dtype)
+    _, e_card = moe._route(x.reshape(-1, cfg.d_model).to(cuda_device), card["router"], cfg)
+    _, e_cpu = moe._route(x.reshape(-1, cfg.d_model), cpu["router"], cfg)
+    assert torch.equal(e_card.cpu(), e_cpu)
+    y = moe.moe_dense(card, x.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and tuple(y.shape) == (2, T // 2, cfg.d_model)
+    torch.testing.assert_close(y.cpu(), moe.moe_dense(cpu, x, cfg),
+                               **(TOL if dtype == torch.float32 else BF16))

@@ -38,13 +38,18 @@ from repro_torch.models import lm
 F32_TOL = 1e-4          # tests/test_torch_lm.py: float32 logits against the reference
 # per arch: (KV rows of a slot, prefill chunk, requests (prompt length,
 # max_new_tokens, temperature)); rwkv6-7b's chunk is its 64-token window, so
-# its long prompt takes two chunks, qwen2-72b's three
+# its long prompt takes two chunks, qwen2-72b's three; phi3.5-moe's engine
+# prefills every prompt whole at its exact length (the MoE rule), whatever
+# chunk it is given
 ARCHS = {
     "rwkv6-7b": (96, 64, ((5, 6, 0.0), (9, 5, 0.0), (70, 4, 0.0), (13, 9, 0.0),
                           (7, 6, 0.9), (66, 5, 1.2))),
     "qwen2-72b": (48, 16, ((6, 6, 0.0), (11, 5, 0.0), (35, 4, 0.0), (21, 8, 0.0),
                            (9, 5, 0.8), (20, 6, 1.1))),
+    "phi3.5-moe-42b-a6.6b": (48, 16, ((6, 6, 0.0), (11, 5, 0.0), (35, 4, 0.0), (21, 8, 0.0),
+                                      (9, 5, 0.8), (20, 6, 1.1))),
 }
+MOE = "phi3.5-moe-42b-a6.6b"
 _SETUP, _REF_TOKENS = {}, {}
 
 
@@ -174,7 +179,7 @@ def test_prefill_chunks_match_reference(arch, pallas_alias):
     valid_len=), from a state whose attention K/V are float32."""
     jc, tc, jp, tp = setup(arch)
     rows, chunk, _ = ARCHS[arch]
-    P = {"rwkv6-7b": 70, "qwen2-72b": 35}[arch]
+    P = {"rwkv6-7b": 70, "qwen2-72b": 35, MOE: 35}[arch]
     prompt = np.random.default_rng(2).integers(0, tc.vocab, P).astype(np.int32)
     jst = _j_state(jc, rows, True)
     tst = engine_mod.fresh_chunk_state(tc, rows, chunk, "cpu")
@@ -296,7 +301,7 @@ def test_cpu_decode_rows_independence(arch):
 # -- the engine against one-shot ------------------------------------------------
 # (arch, page size, prefill chunk): pages on and off, chunked and whole
 LAYOUTS = [("rwkv6-7b", 0, 64), ("rwkv6-7b", 0, 0), ("qwen2-72b", 16, 16),
-           ("qwen2-72b", 0, 16), ("qwen2-72b", 16, 0)]
+           ("qwen2-72b", 0, 16), ("qwen2-72b", 16, 0), (MOE, 16, 16)]
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
@@ -310,7 +315,7 @@ def test_engine_matches_one_shot(arch, page, chunk, k, pallas_alias):
     got = _serve(eng, reqs)
     st = eng.stats
     assert st["completed"] == st["admitted"] == len(reqs) and st["slot_reuses"] == 3
-    assert (st["prefill_chunks"] > 0) == bool(chunk)
+    assert (st["prefill_chunks"] > 0) == bool(eng.chunk) == (bool(chunk) and arch != MOE)
     assert st["pages_total"] == (9 if page else 0) and st["pages_used"] == 0
     for i, req in enumerate(reqs):
         assert len(got[i]) == req.max_new_tokens
@@ -468,6 +473,26 @@ def test_chunked_prefill_respects_recurrence_alignment():
     assert _engine("qwen2-72b", prefill_chunk=16).chunk == 16     # attention only: 1
 
 
+def test_moe_arch_prefills_exact_length(pallas_alias):
+    """A MoE architecture never buckets (tests/test_engine.py:302) nor
+    chunks (tests/test_paged_pool.py:192): a 5-token prompt prefills at L
+    = 5 and a 35-token one whole, whatever prefill_chunk says, and both
+    keep the reference's one-shot tokens; rwkv6-7b still buckets."""
+    eng = _engine(MOE, capacity=2, prefill_chunk=16)
+    assert not eng.bucket_prompts and eng.chunk == 0
+    assert [engine_mod.prefill_len(eng.cfg, P, 48) for P in (1, 5, 9, 35)] == [1, 5, 9, 35]
+    reqs = [_requests(MOE)[i] for i in (0, 2)]            # 6 and 35 tokens
+    reqs[0] = dataclasses.replace(reqs[0], prompt=reqs[0].prompt[:5])
+    got = _serve(eng, reqs)
+    assert eng._prefill_shapes == {("bucket", 5), ("bucket", 35)}
+    assert eng.stats["prefill_chunks"] == 0 and eng.stats["prefill_traces"] == 2
+    for i, req in enumerate(reqs):
+        assert got[i] == _reference_one_shot(MOE, req, eng.seq_len), i
+    rwkv = _engine("rwkv6-7b", capacity=1)
+    assert rwkv.bucket_prompts and [engine_mod.prefill_len(rwkv.cfg, P, 32)
+                                    for P in (2, 5, 9, 30)] == [8, 8, 16, 32]
+
+
 def test_chunking_off_for_int8_kv():
     """An int8 KV cache prefills whole prompts: a second chunk would attend
     dequantized rows the one-shot path attends fresh."""
@@ -553,7 +578,8 @@ def test_engine_config_build(tmp_path):
 @pytest.mark.parametrize("arch,extra", [
     ("qwen2-72b", ["--page-size", "16", "--kv-pages", "6", "--prefill-chunk", "16",
                    "--decode-block", "4"]),
-    ("rwkv6-7b", ["--page-size", "0", "--prefill-chunk", "64", "--decode-block", "2"])])
+    ("rwkv6-7b", ["--page-size", "0", "--prefill-chunk", "64", "--decode-block", "2"]),
+    (MOE, ["--page-size", "16", "--prefill-chunk", "16", "--decode-block", "4"])])
 def test_serve_cli_engine(arch, extra, capsys):
     toks = serve.main(["--arch", arch, "--smoke", "--epitome", "kernel-q3", "--device", "cpu",
                        "--requests", "3", "--prompt-len", "70" if arch == "rwkv6-7b" else "20",
@@ -563,6 +589,8 @@ def test_serve_cli_engine(arch, extra, capsys):
     line = next(l for l in out.splitlines() if l.startswith("[serve] engine:"))
     assert "completed=3" in line and "bit_identical=True" in line and "p50_ttft=" in line
     assert "prefill_chunks=" in line and "pages_hwm=" in line and "micro_steps=" in line
+    if arch == MOE:                        # whole prompts, never chunked
+        assert "prefill_chunks=0" in line
 
 
 def test_plan_run_decode_block_on_lm_plan(tmp_path, capsys):

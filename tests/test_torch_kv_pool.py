@@ -21,7 +21,8 @@ from repro_torch.models import lm
 from repro_torch.models.kv_pool import (PageSpec, SlotStatePool, gather_slot,
                                         paged_leaf_paths)
 
-ARCHS = ("rwkv6-7b", "qwen2-72b", "gemma2-2b")
+# phi3.5-moe: attention with the MoE FFN, whose layers carry no state but K/V
+ARCHS = ("rwkv6-7b", "qwen2-72b", "gemma2-2b", "phi3.5-moe-42b-a6.6b")
 
 
 def _pools(arch, capacity, max_len, bits=16, **kw):

@@ -1,7 +1,8 @@
 """Port parity: the LMs of repro_torch (configs, per-site epitome specs,
 prepack, prefill, decode, generate) against the JAX reference, with the
 reference's parameters carried across by ``convert.lm_params_from_jax``:
-rwkv6-7b, and the six attention architectures with the dense FFN.
+rwkv6-7b, the six attention architectures with the dense FFN, and the two
+with the MoE FFN (phi3.5-moe, grok-1).
 
 The reference's kernel-q3 path runs its Pallas kernels in interpret mode,
 which look up ``pltpu.TPUCompilerParams`` (renamed ``CompilerParams`` in
@@ -185,9 +186,11 @@ def test_plans_and_other_layer_kinds_wait_for_their_slices():
     cfg = get_config("rwkv6-7b", "off", plan=plan)
     assert dict(cfg.layer_config) == dict(plan.layer_configs())
     assert lm.lm_layer_configs(cfg)["L0/ffn/wv"] == dict(plan.layer_configs())["L0/ffn/wv"]
+    # the MoE FFN no longer waits (its slice is ported); Mamba still does
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="MoE slice .*item 10"):
-        lm.init_params(g, get_smoke_config("phi3.5-moe-42b-a6.6b"), "cpu")
+    moe_cfg = get_smoke_config("phi3.5-moe-42b-a6.6b")
+    params = lm.init_params(g, moe_cfg, "cpu")
+    assert set(params["groups"][0]["L0"]["ffn"]) == {"router", "w_gate", "w_up", "w_down"}
     with pytest.raises(NotImplementedError, match="Mamba slice .*item 11"):
         lm.init_decode_state(get_smoke_config("jamba-1.5-large-398b"), 1, 8, "cpu")
 
@@ -531,6 +534,135 @@ def test_engine_arguments_wait_for_the_engine_slice():
         l_dense, _ = lm.decode_step(tp, st, torch.from_numpy(nxt), pos, tc)
     _close(l_paged, jl2, F32_TOL)
     assert torch.equal(l_paged, l_dense)
+
+
+# -- the MoE architectures ---------------------------------------------------
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "grok-1-314b")
+MOE_VARIANTS = ("off", "kernel", "kernel-q3")
+_MOE_RUNS = {}
+
+
+def moe_runs(arch, variant):
+    """(jax cfg, port cfg, jax params, port params, prompts (2, A_PROMPT),
+    next tokens (2, 1), reference (prefill logits, decode logits, generate
+    tokens)) for ``arch``'s smoke config at ``variant`` in float32, the
+    reference's tree carried across (prepacked at kernel-q3), built once
+    per module run with the reference's Pallas kernels under the alias."""
+    if (arch, variant) in _MOE_RUNS:
+        return _MOE_RUNS[(arch, variant)]
+    from jax.experimental.pallas import tpu as pltpu
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
+        rng = np.random.default_rng(8)
+        jc = dataclasses.replace(jget_smoke(arch, variant), compute_dtype="float32")
+        tc = dataclasses.replace(get_smoke_config(arch, variant), compute_dtype="float32")
+        tree = jax.tree.map(np.asarray, jlm.init_params(jax.random.PRNGKey(3), jc))
+        jp = jlm.prepack_params(jax.tree.map(jnp.asarray, tree), jc)
+        tp = lm.prepack_params(lm_params_from_jax(tree, tc, "cpu"), tc)
+        prompts = rng.integers(0, tc.vocab, (2, A_PROMPT)).astype(np.int32)
+        nxt = rng.integers(0, tc.vocab, (2, 1)).astype(np.int32)
+        logits, st = jlm.prefill(jp, jnp.asarray(prompts), jlm.init_decode_state(jc, 2, A_MAX), jc)
+        logits2, _ = jlm.decode_step(jp, st, jnp.asarray(nxt), jnp.int32(A_PROMPT), jc)
+        toks, _ = jserve.generate(jp, jc, jnp.asarray(prompts), A_MAX, A_NEW)
+        runs = jax.tree.map(np.array, (logits, logits2, toks))
+    jax.clear_caches()
+    _MOE_RUNS[(arch, variant)] = (jc, tc, jp, tp, prompts, nxt, runs)
+    return _MOE_RUNS[(arch, variant)]
+
+
+@pytest.mark.parametrize("variant", MOE_VARIANTS)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_archs_prefill_and_decode_logits(arch, variant):
+    """Prefill and one decode step, float32, held to the reference; the
+    decode state is the attention layers' K/V alone (the MoE FFN carries
+    none), as the reference's."""
+    jc, tc, _, tp, prompts, nxt, (jl, jl2, _) = moe_runs(arch, variant)
+    assert lm.needs_prepack(tc) == (variant == "kernel-q3")
+    before = launch_counts()
+    with torch.no_grad():
+        state = lm.init_decode_state(tc, 2, A_MAX, "cpu")
+        assert all(set(layer) == {"k", "v"} for g in state for layer in g.values())
+        jstate = jlm.init_decode_state(jc, 2, A_MAX)
+        assert {lk: set(v) for lk, v in jstate.items()} == \
+            {lk: set(v) for lk, v in state[0].items()}
+        logits, st = lm.prefill(tp, torch.from_numpy(prompts), state, tc)
+        logits2, _ = lm.decode_step(tp, st, torch.from_numpy(nxt), A_PROMPT, tc)
+    assert logits.dtype == torch.float32 and tuple(logits.shape) == (2, 1, tc.vocab)
+    _close(logits, jl, F32_TOL)
+    _close(logits2, jl2, F32_TOL)
+    assert launch_counts() == before          # CPU tensors run the plain versions
+
+
+@pytest.mark.parametrize("variant", MOE_VARIANTS)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_archs_greedy_tokens_equal_reference(arch, variant):
+    _, tc, _, tp, prompts, _, runs = moe_runs(arch, variant)
+    toks, state = serve.generate(tp, tc, torch.from_numpy(prompts), A_MAX, A_NEW)
+    assert toks.dtype == torch.int32 and tuple(toks.shape) == (2, A_NEW)
+    np.testing.assert_array_equal(toks.numpy(), runs[2])
+    assert len(state) == tc.n_groups
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_archs_converter_keeps_every_leaf(arch):
+    """The whole tree crosses: the router and the (E, d, ff) experts of
+    every group, beside the attention's epitomes and the norms."""
+    _, tc, jp, tp, _, _, _ = moe_runs(arch, "kernel-q3")
+    n_ref = sum(int(np.prod(np.shape(l))) for l in jax.tree.leaves(jp))
+    assert sum(t.numel() for t in jax.tree.leaves(tp)) == n_ref
+    for g in range(tc.n_groups):
+        f = tp["groups"][g]["L0"]["ffn"]
+        assert tuple(f["w_gate"].shape) == (tc.n_experts, tc.d_model, tc.d_ff)
+        assert tuple(f["w_down"].shape) == (tc.n_experts, tc.d_ff, tc.d_model)
+        assert f["router"].dtype == torch.float32
+        np.testing.assert_array_equal(f["w_up"].numpy(),
+                                      np.asarray(jp["groups"]["L0"]["ffn"]["w_up"][g]))
+
+
+def test_moe_bf16_parameters_as_the_card_serves_them():
+    """phi3.5-moe smoke at kernel-q3 with bf16 parameters and compute, as
+    the card serves the full model: the prepacked scales and zeros are the
+    reference's bf16 values widened to the kernel's float32, the codes
+    equal, and prefill and decode logits within BF16_TOL."""
+    from jax.experimental.pallas import tpu as pltpu
+    arch, over = "phi3.5-moe-42b-a6.6b", dict(param_dtype="bfloat16")
+    jc = dataclasses.replace(jget_smoke(arch, "kernel-q3"), **over)
+    tc = dataclasses.replace(get_smoke_config(arch, "kernel-q3"), **over)
+    tree = jax.tree.map(np.asarray, jlm.init_params(jax.random.PRNGKey(3), jc))
+    rng = np.random.default_rng(9)
+    prompts = rng.integers(0, tc.vocab, (2, A_PROMPT)).astype(np.int32)
+    nxt = rng.integers(0, tc.vocab, (2, 1)).astype(np.int32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
+        jp = jlm.prepack_params(jax.tree.map(jnp.asarray, tree), jc)
+        jl, st = jlm.prefill(jp, jnp.asarray(prompts), jlm.init_decode_state(jc, 2, A_MAX), jc)
+        jl2, _ = jlm.decode_step(jp, st, jnp.asarray(nxt), jnp.int32(A_PROMPT), jc)
+    jax.clear_caches()
+    tp = lm.prepack_params(lm_params_from_jax(tree, tc, "cpu"), tc)
+    for g in range(tc.n_groups):
+        for w in ("wq", "wk", "wv", "wo"):
+            a, b = tp["groups"][g]["L0"]["mixer"][w], jp["groups"]["L0"]["mixer"][w]
+            assert a["E"].dtype == torch.bfloat16 and a["Es"].dtype == a["Ez"].dtype == torch.float32
+            np.testing.assert_array_equal(a["Eq"].numpy(), np.asarray(b["Eq"][g]))
+            for s in ("Es", "Ez"):
+                np.testing.assert_array_equal(a[s].numpy(), np.asarray(b[s][g], np.float32))
+        assert tp["groups"][g]["L0"]["ffn"]["w_up"].dtype == torch.bfloat16
+    with torch.no_grad():
+        logits, st = lm.prefill(tp, torch.from_numpy(prompts),
+                                lm.init_decode_state(tc, 2, A_MAX, "cpu"), tc)
+        logits2, _ = lm.decode_step(tp, st, torch.from_numpy(nxt), A_PROMPT, tc)
+    assert logits.dtype == torch.bfloat16
+    _close(logits, np.asarray(jl, np.float32), BF16_TOL)
+    _close(logits2, np.asarray(jl2, np.float32), BF16_TOL)
+
+
+def test_serve_cli_moe_arch_on_cpu(capsys):
+    toks = serve.main(["--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--epitome", "kernel-q3",
+                       "--device", "cpu", "--requests", "2", "--prompt-len", "10",
+                       "--max-new-tokens", "3"])
+    assert tuple(toks.shape) == (2, 3) and int(toks.min()) >= 0 and int(toks.max()) < 192
+    out = capsys.readouterr().out
+    assert "[serve] phi3.5-moe-42b-a6.6b epitome=kernel-q3 (prepacked)" in out
 
 
 # -- shared pieces ---------------------------------------------------------------
