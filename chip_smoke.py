@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
-Eight main paths, each at the full width of its model:
+Nine main paths, each at the full width of its model:
 
 * EPIM-ResNet-50 at 3-bit epitome-aware quantization,
   ``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
@@ -35,7 +35,12 @@ Eight main paths, each at the full width of its model:
   FFN (every expert on every token, the masked combine), kernel #1 at the
   four attention projections, through ``serve.generate`` and through
   ``launch.engine.EpimEngine``, whose MoE prompts prefill whole at their
-  exact length.
+  exact length;
+* training rwkv6-7b at folded-q3 (fake-quantized epitomes) at full width
+  and depth, ``train.loop.init_state`` -> ``make_train_step`` ->
+  ``train_loop`` (what ``launch.train`` runs): each layer a launch of kernel
+  #4 forward, again in the backward's recompute, and one of its backward
+  kernel (``wkv6_chunked_bwd``).
 
 Phases:
 
@@ -151,11 +156,33 @@ Phases:
              with the router's experts equal on the card and the CPU (the
              smallest top-k logit gap logged) and phase 10's 2-layer
              float32 engine card vs CPU.
+13. training — rwkv6-7b folded-q3, after phase 12 has freed the card:
+             (a) the WKV backward kernel at 8 x 256 tokens x 64 heads of 64
+             (bf16 r, k, v with a zero state, counted; float32 with h0 and
+             dhT, and with neither; a ragged S = 250) against its plain
+             version and against autograd through the chunked plain forward
+             (the WKV gate), three launches bit for bit, timed beside its
+             plain version and its bound (fp32 rate), and kernel #4 forward
+             at the same shape; (b) 2 float32 layers at full width, 2 x 64
+             tokens: loss, every gradient leaf and the parameters after one
+             AdamW step on the card against the CPU; kernel and kernel-q3
+             refuse backward() on the card; (c) 32 layers, bf16 compute,
+             float32 AdamW moments, SyntheticData 8 x 256: a warm-up step
+             (exactly 64 forward and 32 backward WKV launches, no kernel #1
+             or #3; u, w0 and the E of wr/wk/wv with non-zero gradients),
+             5 timed steps through train_loop (counted; losses and grad
+             norms finite and > 0), one step profiled, the optimizer and
+             fake quant timed, peak memory; the warm-up step again from a
+             fresh state of the same seed: loss, gradients and new state bit
+             for bit; (d) 2 layers: an async checkpoint at step 2 restored
+             into a fresh state, whose steps 2-3 equal the straight run's bit
+             for bit.
 11. times  — each kernel's times and bounds summed over the launches of
              the main paths (the ResNet forwards, one LM generate at each
              variant and of each attention LM and of the MoE LM, the
-             quant_matmul calls, the engine's K = 4 runs); kernel #2 beside
-             kernel #1 plus the fold on each ResNet path.  Run last.
+             quant_matmul calls, the engine's K = 4 runs, the 5 timed
+             training steps); kernel #2 beside kernel #1 plus the fold on
+             each ResNet path.  Run last.
 
 Any failure exits nonzero.  The line before the last is a JSON object
 listing the kernels; the last line is ``{"ok": true, "device": ...}``.
@@ -248,6 +275,20 @@ MOE_ARCH, MOE_SITES = "phi3.5-moe-42b-a6.6b", 4
 MOE_DEPTHS = (32, 28, 24)
 MOE_WORKSPACE = 3 << 29   # 1.5 GiB
 MOE_PAGE, MOE_MICRO, MOE_ONESHOT = 16, 69, (0, 2, 4, 7)
+# phase 13, training: rwkv6-7b folded-q3 (fake-quantized epitomes, the
+# reference's QAT mode) at full width and depth, bf16 compute with float32
+# parameters and AdamW moments (37.5 GB of state), TRAIN_BATCH x TRAIN_SEQ
+# tokens a step; the card-vs-CPU and restart checks at CPU_LAYERS layers and
+# TRAIN_CPU_BATCH x TRAIN_CPU_SEQ.  Gradients and parameters are held at the
+# WKV gate |g - ref| <= GRAD_TOL + GRAD_TOL |ref|: the stricter of the WKV's
+# (tests/test_kernels.py:85) and the reference's folded-gradient tolerance
+# (rtol 1e-3, atol 1e-2; tests/test_epitome.py:91)
+TRAIN_ARCH, TRAIN_VARIANT = "rwkv6-7b", "folded-q3"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 5
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 64
+TRAIN_CPU_LR = 1e-2         # the card-vs-CPU AdamW step: no warm-up, so it moves ~lr
+GRAD_TOL = 1e-3
+WKV_BWD = "wkv6_chunked_bwd"
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/quant_epitome_matmul.cu",
@@ -264,6 +305,11 @@ KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_matmul": (
         "src/repro_torch/kernels/csrc/quant_matmul.cu",
         "src/repro/kernels/quant_matmul.py:41"),
+    # kernel #4's gradient: the TPU package differentiates its jnp
+    # recurrence (src/repro/models/ssm.py:127) and has no backward kernel
+    "wkv6_chunked_bwd": (
+        "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+        "src/repro/kernels/wkv6.py:58"),
 }
 QUANT = "quant_epitome_matmul_blocks"
 
@@ -543,6 +589,13 @@ def main() -> int:
     launches[QUANT] += (moe_report["lm"]["launches"][QUANT]
                         + moe_report["engine"]["launches"][QUANT])
 
+    # -- 13. training: rwkv6-7b folded-q3 at full width and depth -----------------
+    train_rows, train_report = train_phase(torch, dev, gen, ref, WRAPPERS, lm, get_config,
+                                           launch_counts, reset_launch_counts)
+    rows += train_rows
+    launches[WKV] += train_report["run"]["launches"][WKV]
+    launches[WKV_BWD] = train_report["run"]["launches"][WKV_BWD]
+
     # -- 11. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
@@ -605,7 +658,7 @@ def main() -> int:
                   lm_card_vs_cpu=lm_cpu, attention_lms=attn_runs,
                   attention_card_vs_cpu=attn_cpu, engine=engine_runs,
                   engine_card_vs_cpu=engine_cpu, fold_probe=fold, plan=plan_run["plan"],
-                  quant_matmul_vs_f64=qm_f64, moe=moe_report,
+                  quant_matmul_vs_f64=qm_f64, moe=moe_report, train=train_report,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -616,7 +669,7 @@ def main() -> int:
         f"plan {report['plan_s']:.1f}, "
         + ", ".join(f"{a} {t:.1f}" for a, t in report["attention_s"].items()) + ", engine "
         + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items())
-        + f", MoE {moe_report['seconds']:.1f})")
+        + f", MoE {moe_report['seconds']:.1f}, training {train_report['seconds']:.1f})")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
     # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
@@ -974,6 +1027,8 @@ def tc_seconds(name, flops, dtype, products=None):
         return 3 * flops / TF32_TC_FLOPS
     if name == WKV:
         return max(3 * products / TF32_TC_FLOPS, (flops - products) / FP32_FLOPS)
+    if name == WKV_BWD:      # no tensor-core work: all of it at the fp32 rate
+        return flops / FP32_FLOPS
     raise ValueError(f"no tensor-core bound for {name}")
 
 
@@ -1735,6 +1790,410 @@ def moe_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, launch
                for t in built["tried"]) + ")"))
     return rows, dict(lm=run, engine=eng_run, card_vs_cpu=cpu, router=dict(
         routings=len(on_cpu), min_gap=gap), engine_card_vs_cpu=eng_cpu, seconds=seconds)
+
+
+
+# -- phase 13: training ------------------------------------------------------------
+def wkv_bwd_ops(B, S, H, K) -> float:
+    """Operations of the WKV's gradient as the token recurrence computes it
+    (kernels/ref.py, wkv6_chunked_bwd_ref), per (batch, token, head): the
+    state forward (S w, k v, their sum: 3 K^2), dr's, dk's and dv's products
+    with a state (2 K^2 each), dlogw's (2 K^2) and dS's update (3 K^2), plus
+    the per-channel terms (do . v, the bonus, u k dov, r u dov, du, w's
+    product and the sums: 18 K).  The kernel's second rebuild of each state
+    from the stored ones is not counted: the function needs one."""
+    return float(B * S * H * (14 * K * K + 18 * K))
+
+
+def wkv_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
+    """Phase 13 (a): the WKV backward kernel at the training shape (B, S)
+    against its plain version and against autograd through the chunked
+    plain forward (the WKV gate), three times bit for bit, timed.  Cases:
+    r, k, v in bf16 with a zero h0 and no dhT (the LM's, counted
+    ``launches``), float32 with h0 and dhT, float32 with neither, and a
+    ragged S."""
+    B, S, H, K = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd
+    f = lambda *s: torch.randn(s, device=dev, generator=gen)
+    rows = []
+    for dtype, h0_kind, dh, seq in ((cfg.cdtype, "zero", False, S), (torch.float32, "random", True, S),
+                                    (torch.float32, None, False, S),
+                                    (cfg.cdtype, "random", True, S - 6)):
+        dname = str(dtype).replace("torch.", "")
+        r, k_, v = (f(B, seq, H, K).to(dtype) for _ in range(3))
+        lw, u = -torch.exp(f(B, seq, H, K) * 0.5), f(H, K) * 0.1
+        h0 = {None: None, "zero": torch.zeros(B, H, K, K, device=dev),
+              "random": f(B, H, K, K) * 0.5}[h0_kind]
+        do, dhT = f(B, seq, H, K), (f(B, H, K, K) if dh else None)
+        what = f"{WKV_BWD} {dname} S={seq} h0={h0_kind} dhT={'random' if dh else None}"
+        kernel = lambda: wrappers[WKV_BWD](r, k_, v, lw, u, h0, do, dhT)
+        plain = lambda: ref.wkv6_chunked_bwd_ref(r, k_, v, lw, u, h0, do, dhT)
+        outs = [kernel() for _ in range(3)]
+        if not all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0])):
+            raise AssertionError(f"{what}: three identical launches differ")
+        names = ("dr", "dk", "dv", "dlogw", "du", "dh0")
+        err = max(max_err(torch, a, b, WKV_TOL, f"{what} {n}")
+                  for a, b, n in zip(outs[0], plain(), names))
+        # autograd through the chunked plain forward (float32 r, k, v: the
+        # plain version reads bf16 ones as these float32 values)
+        ins = [t.float().requires_grad_(True) for t in (r, k_, v, lw, u)]
+        state = None if h0 is None else h0.clone().requires_grad_(True)
+        o, hT = ref.wkv6_chunked_ref(*ins, state, chunk=cfg.rwkv_chunk)
+        out = (o * do).sum() + ((hT * dhT).sum() if dh else 0.0)
+        grads = torch.autograd.grad(out, ins + ([state] if state is not None else []))
+        err_auto = max(max_err(torch, a, b, WKV_TOL, f"{what} {n} (autograd)")
+                       for a, b, n in zip(outs[0], grads, names))
+        del ins, state, o, hT, out, grads, outs
+        esz = r.element_size()
+        n = B * seq * H * K
+        nbytes = (3.0 * esz * n + 4.0 * 2 * n + 4.0 * H * K
+                  + 4.0 * B * H * K * K * ((h0 is not None) + dh)       # h0, dhT read
+                  + 4.0 * 4 * n + 4.0 * H * K + 4.0 * B * H * K * K)    # dr dk dv dlogw du dh0
+        scratch = 4.0 * B * H * -(-seq // 8) * 4096
+        row = timed_row(torch, WKV_BWD, kernel, plain, None, nbytes, wkv_bwd_ops(B, seq, H, K))
+        row.update(B=B, S=seq, H=H, K=K, dtype=dname, h0=h0_kind, dhT=dh, max_abs_err=err,
+                   max_abs_err_autograd=err_auto, scratch_bytes=scratch, path=path,
+                   count=launches if (dtype == cfg.cdtype and h0_kind == "zero" and not dh
+                                      and seq == S) else 0)
+        rows.append(row)
+        log(f"[train-kernels] {what} B={B} H={H} K={K} x{row['count']}: max_err "
+            f"{err:.2e} (plain), {err_auto:.2e} (autograd of the chunked forward); 3 launches "
+            f"bit for bit; ms={row['ms']:.4f} (eager {row['ms_eager']:.4f}) plain_ms="
+            f"{row['plain_ms']:.3f} library_ms=none bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}; {nbytes / 1e9:.3f} GB, {row['flops'] / 1e9:.2f} GFLOP at "
+            f"the fp32 rate; scratch {scratch / 1e9:.3f} GB not counted)")
+        del r, k_, v, lw, u, h0, do, dhT
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _checksum(torch, tensors) -> list:
+    """Two integer sums of each tensor's bits (plain and position-weighted,
+    both exact in int64 arithmetic, whatever the order): equal lists mean
+    equal bits, short of a collision."""
+    out = []
+    for t in tensors:
+        t = t.detach().contiguous()
+        bits = t.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[t.element_size()])
+        bits = bits.reshape(-1).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append((int(bits.sum()), int((bits * w).sum())))
+        del bits, w
+    return out
+
+
+def train_card_vs_cpu(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves):
+    """Phase 13 (b): rwkv6-7b folded-q3 in float32 at full width, cut to
+    CPU_LAYERS layers, TRAIN_CPU_BATCH x TRAIN_CPU_SEQ tokens: the loss and
+    every gradient leaf on the card against the CPU (plain versions), and
+    one AdamW step (lr TRAIN_CPU_LR, no warm-up) taken on both devices from
+    the CPU's gradients, each parameter's change within 1e-3 lr of the
+    CPU's.  The step is held on one set of gradients because Adam's first
+    update g / (|g| + eps) is about +-lr per element: an element whose
+    gradient lies within the devices' rounding of zero may take it in
+    either sign, so the gradients are held leaf by leaf instead."""
+    from repro_torch.train.tree import tree_map
+    cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT, compute_dtype="float32", n_layers=CPU_LAYERS)
+    card = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    host = _to_cpu(card)
+    batch = SyntheticData(cfg.vocab, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, seed=SEED).batch(0)
+    opt = optimizer.AdamWConfig(lr=TRAIN_CPU_LR, warmup_steps=0)
+    t0 = time.perf_counter()
+    h_loss, h_grads = loop.loss_and_grads(host, batch, cfg)
+    cpu_s = time.perf_counter() - t0
+    c_loss, c_grads = loop.loss_and_grads(card, {k: v.to(dev) for k, v in batch.items()}, cfg)
+    what = f"{TRAIN_ARCH} {TRAIN_VARIANT} float32 {CPU_LAYERS} layers"
+    scale = max(1.0, abs(float(h_loss)))
+    loss_err = abs(float(c_loss) - float(h_loss))
+    if not loss_err <= LOGIT_TOL * scale:
+        raise AssertionError(f"{what}: loss {float(c_loss)} on the card, {float(h_loss)} on "
+                             f"the CPU")
+    g_err, n_leaves = 0.0, len(leaves(h_grads))
+    for i, (a, b) in enumerate(zip(leaves(c_grads), leaves(h_grads))):
+        if bool(a.abs().max() > 0) != bool(b.abs().max() > 0):
+            raise AssertionError(f"{what}: gradient leaf {i} is zero on one device only")
+        g_err = max(g_err, max_err(torch, a.cpu(), b, GRAD_TOL, f"{what} gradient leaf {i}"))
+    nonzero = sum(bool(b.abs().max() > 0) for b in leaves(h_grads))
+    del c_grads
+    old = [p.detach().clone() for p in leaves(host)]
+    for params, grads in ((card, tree_map(lambda g: g.to(dev), h_grads)), (host, h_grads)):
+        st = {"params": params, "opt": optimizer.adamw_init(params, opt),
+              "step": torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)}
+        loop.apply_grads(st, grads, opt)
+        del st, grads
+    step_tol, p_err, moved = 1e-3 * opt.lr, 0.0, 0.0
+    for i, (p0, a, b) in enumerate(zip(old, leaves(card), leaves(host))):
+        d_card, d_cpu = a.detach().cpu() - p0, b.detach() - p0
+        err = float((d_card - d_cpu).abs().max())
+        if not err <= step_tol:
+            raise AssertionError(f"{what}: parameter {i} moved {err:.3e} apart in one AdamW "
+                                 f"step on the same gradients (gate {step_tol:.1e})")
+        p_err, moved = max(p_err, err), max(moved, float(d_cpu.abs().max()))
+    if not moved > 0.5 * opt.lr:
+        raise AssertionError(f"{what}: one AdamW step at lr {opt.lr} moved no parameter "
+                             f"past {moved:.3e}")
+    log(f"[train-cpu] {what}, {TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}: loss {float(c_loss):.6f} card, "
+        f"{float(h_loss):.6f} cpu (|d| {loss_err:.2e}); {n_leaves} gradient leaves, "
+        f"{nonzero} non-zero on both, max |d| {g_err:.2e} (gate {GRAD_TOL} + {GRAD_TOL} |ref|); "
+        f"one AdamW step at lr {opt.lr} on the CPU's gradients: changes up to {moved:.3e}, "
+        f"card vs cpu max |d| {p_err:.2e} (gate {step_tol:.1e}); cpu loss and grads "
+        f"{cpu_s:.1f} s")
+    del card, host, h_grads, old
+    torch.cuda.empty_cache()
+    return dict(loss_card=float(c_loss), loss_cpu=float(h_loss), loss_err=loss_err,
+                grad_max_abs_err=g_err, leaves=n_leaves, nonzero_leaves=nonzero,
+                step_lr=opt.lr, step_max_change=moved, step_max_abs_err=p_err, cpu_s=cpu_s)
+
+
+def train_refusals(torch, dev, lm, get_config, loop, leaves) -> list:
+    """Phase 13: on the card, loss_fn's backward at kernel and kernel-q3
+    (2 layers, full width, bf16) raises NotImplementedError."""
+    out = []
+    for variant in ("kernel", "kernel-q3"):
+        cfg = get_config(TRAIN_ARCH, variant, n_layers=CPU_LAYERS)
+        params = lm.prepack_params(
+            lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg)
+        for p in leaves(params):
+            if p.is_floating_point():
+                p.requires_grad_(True)
+        toks = torch.randint(0, cfg.vocab, (1, 65), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(SEED))
+        loss = lm.loss_fn(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, cfg)
+        try:
+            loss.backward()
+        except NotImplementedError as e:
+            out.append(variant)
+            log(f"[train] {TRAIN_ARCH} {variant} on the card: loss {float(loss.detach()):.4f}; "
+                f"backward refused: {str(e)[:60]}...")
+        else:
+            raise AssertionError(f"{TRAIN_ARCH} {variant}: backward ran on the card")
+        del params, loss
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
+               launch_counts, reset_launch_counts) -> dict:
+    """Phase 13 (c): rwkv6-7b folded-q3 at full width and depth (bf16
+    compute, float32 parameters and moments) through init_state ->
+    make_train_step -> train_loop on SyntheticData(vocab, TRAIN_SEQ,
+    TRAIN_BATCH): a warm-up step taken in its two parts (loss_and_grads,
+    apply_grads) with the launches and non-zero gradients checked, then
+    TRAIN_STEPS timed steps through train_loop (the main path, counted),
+    one profiled, the optimizer and fake quant timed, and the warm-up step
+    taken again from a fresh state of the same seed: loss, gradients and
+    the new state bit for bit."""
+    from repro_torch.core.quant import fake_quant
+    cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT)
+    opt, tcfg = optimizer.AdamWConfig(), loop.TrainConfig(checkpoint_every=10 ** 9, log_every=1)
+    data = SyntheticData(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
+    per_step = {WKV: 2 * cfg.n_layers, WKV_BWD: cfg.n_layers}
+    what = f"{TRAIN_ARCH} {TRAIN_VARIANT}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = loop.init_state(torch.Generator(device=dev).manual_seed(SEED), cfg, opt, tcfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    batch0 = {k: v.to(dev) for k, v in data.batch(0).items()}
+
+    def first_step(state):
+        reset_launch_counts()
+        loss, grads = loop.loss_and_grads(state["params"], batch0, cfg)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if counts != {k: per_step.get(k, 0) for k in counts}:
+            raise AssertionError(f"{what}: a step launched {counts}, expected {per_step}")
+        sums = _checksum(torch, leaves(grads))
+        flat = leaves(grads)
+        names = [n for n, _ in _named(state["params"])]
+        wkv = [(g, name) for g, name in zip(flat, names) if "mixer" in name and (
+            name.rsplit("/", 1)[-1] in ("u", "w0") or name.endswith(("wr/E", "wk/E", "wv/E")))]
+        if len(wkv) != 5 * cfg.n_layers:
+            raise AssertionError(f"{what}: {len(wkv)} leaves named u, w0, wr/wk/wv E, "
+                                 f"expected 5 a layer")
+        for g, name in wkv:
+            if not bool(g.abs().max() > 0):
+                raise AssertionError(f"{what}: {name} has a zero gradient")
+        state, metrics = loop.apply_grads(state, grads, opt)
+        del grads, flat
+        return state, float(loss), sums, _checksum(torch, leaves(state)), float(metrics["grad_norm"])
+
+    t0 = time.perf_counter()
+    state, loss0, gsum0, ssum0, gn0 = first_step(state)
+    warm_s = time.perf_counter() - t0
+    if not (math.isfinite(loss0) and loss0 > 0 and math.isfinite(gn0) and gn0 > 0):
+        raise AssertionError(f"{what}: warm-up loss {loss0}, grad norm {gn0}")
+    # the main path: TRAIN_STEPS steps through train_loop, counted
+    step_fn = loop.make_train_step(cfg, opt, tcfg)
+    norms = []
+
+    def recorded(st, batch):
+        st, m = step_fn(st, batch)
+        norms.append(float(m["grad_norm"]))
+        return st, m
+    reset_launch_counts()
+    state, hist = loop.train_loop(state, recorded, data, 1 + TRAIN_STEPS, train_cfg=tcfg,
+                                  log=lambda line: log(f"[train] {line}"))
+    counts = launch_counts()
+    expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    if counts != {k: expect.get(k, 0) for k in counts}:
+        raise AssertionError(f"{what}: {TRAIN_STEPS} steps launched {counts}, expected {expect}")
+    if len(hist["loss"]) != TRAIN_STEPS or not all(
+            math.isfinite(x) and x > 0 for x in hist["loss"] + norms):
+        raise AssertionError(f"{what}: losses {hist['loss']}, grad norms {norms}")
+    step_ms = statistics.median(hist["step_time"]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    # one step profiled, and its WKV kernels' device time
+    prof = device_breakdown(torch, lambda: step_fn(state, data.batch(1 + TRAIN_STEPS)))
+    busy = sum(ms for _, ms, _ in prof)
+    wkv_fwd = sum(ms for name, ms, _ in prof if "wkv6_kernel" in name)
+    wkv_bwd = sum(ms for name, ms, _ in prof if "wkv6_bwd_kernel" in name or "du_reduce" in name)
+    # the optimizer alone (two steps on one gradient) and fake quant per site
+    _, grads = loop.loss_and_grads(state["params"], batch0, cfg)
+    opt_ms = []
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loop.apply_grads(state, grads, opt)
+        end.record()
+        torch.cuda.synchronize()
+        opt_ms.append(start.elapsed_time(end))
+    del grads
+    fq = 0.0
+    g0 = state["params"]["groups"][0]
+    with torch.no_grad():
+        for name, lc in lm.lm_layer_configs(cfg).items():
+            layer, kind, w = name.split("/")
+            E = g0[layer][kind][w]["E"]
+            fq += time_ms(torch, lambda: fake_quant(E, lc.spec, lc.quant))
+    # the forward and its recompute quantize every site, the backward none
+    fq_step = 2 * cfg.n_groups * fq
+    del state
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the warm-up step again, from a fresh state of the same seed
+    state = loop.init_state(torch.Generator(device=dev).manual_seed(SEED), cfg, opt, tcfg, dev)
+    state, loss1, gsum1, ssum1, _ = first_step(state)
+    if loss1 != loss0 or gsum1 != gsum0 or ssum1 != ssum0:
+        raise AssertionError(f"{what}: two steps from one state on one batch differ: loss "
+                             f"{loss0} vs {loss1}, gradients equal {gsum1 == gsum0}, new "
+                             f"state equal {ssum1 == ssum0}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    run = dict(arch=TRAIN_ARCH, variant=TRAIN_VARIANT, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab, params=n_params,
+               state_bytes=state_bytes, batch=[TRAIN_BATCH, TRAIN_SEQ], init_s=init_s,
+               warmup_s=warm_s, losses=hist["loss"], grad_norms=norms,
+               step_ms=[t * 1e3 for t in hist["step_time"]], step_ms_median=step_ms,
+               tokens_s=tokens_s, peak_bytes=peak, launches=counts, launches_per_step=per_step,
+               device_busy_ms=busy, device_breakdown=prof[:20], wkv_fwd_ms=wkv_fwd,
+               wkv_bwd_ms=wkv_bwd, optimizer_ms=opt_ms, fake_quant_ms=fq_step,
+               repeat_loss=[loss0, loss1])
+    log(f"[train] {what} bf16 compute, {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters, state {state_bytes / 2**30:.2f} "
+        f"GiB, init {init_s:.1f} s, warm-up step {warm_s:.1f} s")
+    log(f"[train] {what} {TRAIN_BATCH}x{TRAIN_SEQ}: step median {step_ms:.1f} ms (runs "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in hist['step_time'])}) = {tokens_s:.0f} tokens/s; "
+        f"losses {', '.join(f'{x:.4f}' for x in hist['loss'])}; grad norms "
+        f"{', '.join(f'{x:.3f}' for x in norms)}; launches {counts} over {TRAIN_STEPS} steps; "
+        f"peak {peak / 2**30:.2f} GiB")
+    log(f"[train] {what} one step: device busy {busy:.1f} ms of {step_ms:.1f}; WKV forward "
+        f"{wkv_fwd:.2f} ms, backward {wkv_bwd:.2f} ms; fake quant {fq_step:.1f} ms (layer "
+        f"0's 8 sites {fq:.3f} ms x 2 x {cfg.n_groups}); optimizer "
+        f"{', '.join(f'{t:.1f}' for t in opt_ms)} ms; the warm-up step repeated from a fresh "
+        f"state: loss, gradients and new state bit for bit")
+    for kname, ms, n in prof[:10]:
+        log(f"[profile] train {what}: {ms:9.3f} ms  x{n:<5d} {kname[:90]}")
+    return run
+
+
+def _named(tree, prefix=""):
+    """(path, leaf) pairs of a parameter tree, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named(v, f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _named(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def train_restart(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
+                  CheckpointManager) -> dict:
+    """Phase 13 (d): rwkv6-7b folded-q3 at full width cut to CPU_LAYERS
+    layers: steps 0-1 with an async checkpoint at step 2, steps 2-3 on; a
+    fresh state restored from the checkpoint takes steps 2-3 again, with
+    the same losses and the same final state bit for bit."""
+    import shutil
+    cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT, n_layers=CPU_LAYERS)
+    opt, tcfg = optimizer.AdamWConfig(), loop.TrainConfig(checkpoint_every=2, log_every=10)
+    data = SyntheticData(cfg.vocab, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, seed=SEED)
+    step_fn = loop.make_train_step(cfg, opt, tcfg)
+    directory = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    ckpt = CheckpointManager(str(directory), keep=1)
+    quiet = lambda *a: None
+    state = loop.init_state(torch.Generator(device=dev).manual_seed(SEED), cfg, opt, tcfg, dev)
+    t0 = time.perf_counter()
+    state, first = loop.train_loop(state, step_fn, data, 2, ckpt=ckpt, train_cfg=tcfg, log=quiet)
+    save_s = time.perf_counter() - t0
+    state, rest = loop.train_loop(state, step_fn, data, 4, train_cfg=tcfg, log=quiet)
+    straight = _checksum(torch, leaves(state))
+    del state
+    torch.cuda.empty_cache()
+    fresh = loop.init_state(torch.Generator(device=dev).manual_seed(SEED + 1), cfg, opt, tcfg, dev)
+    t0 = time.perf_counter()
+    step, restored = ckpt.restore(fresh)
+    restore_s = time.perf_counter() - t0
+    del fresh
+    restored, again = loop.train_loop(restored, step_fn, data, 4, train_cfg=tcfg, log=quiet)
+    ckpt_bytes = sum(p.stat().st_size for p in directory.rglob("*") if p.is_file())
+    if step != 2 or again["loss"] != rest["loss"] or _checksum(torch, leaves(restored)) != straight:
+        raise AssertionError(f"{TRAIN_ARCH}: the run restored at step {step} differs: losses "
+                             f"{again['loss']} vs {rest['loss']}")
+    log(f"[train-restart] {TRAIN_ARCH} {TRAIN_VARIANT} {CPU_LAYERS} layers, "
+        f"{TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}: async checkpoint at step 2 ({ckpt_bytes / 2**30:.2f} "
+        f"GiB on disk; steps 0-1 and the write {save_s:.1f} s), restored into a fresh state in "
+        f"{restore_s:.1f} s; steps 2-3 losses {', '.join(f'{x:.6f}' for x in again['loss'])} "
+        f"and the final state equal the straight run's bit for bit")
+    del restored
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(losses=first["loss"] + rest["loss"], restored_losses=again["loss"],
+                checkpoint_bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s)
+
+
+def train_phase(torch, dev, gen, ref, wrappers, lm, get_config, launch_counts,
+                reset_launch_counts) -> tuple:
+    """Phase 13: training.  Returns (kernel rows, report)."""
+    import gc
+    from repro_torch.train import loop, optimizer
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import SyntheticData
+    from repro_torch.train.tree import leaves
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT)
+    path = f"{TRAIN_ARCH} {TRAIN_VARIANT} train"
+    steps_fwd, steps_bwd = 2 * cfg.n_layers * TRAIN_STEPS, cfg.n_layers * TRAIN_STEPS
+    rows = wkv_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, steps_bwd)
+    # kernel #4 forward at the training shape (a zero state: rwkv_time_mix's)
+    rows += wkv_rows(torch, dev, gen, ref, wrappers, cfg, path, TRAIN_BATCH, TRAIN_SEQ, steps_fwd)
+    torch.cuda.empty_cache()
+    card_cpu = train_card_vs_cpu(torch, dev, lm, get_config, loop, optimizer, SyntheticData,
+                                 leaves)
+    refused = train_refusals(torch, dev, lm, get_config, loop, leaves)
+    run = train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
+                     launch_counts, reset_launch_counts)
+    restart = train_restart(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
+                            CheckpointManager)
+    seconds = time.perf_counter() - t_phase
+    log(f"[train] phase 13 {seconds:.1f} s")
+    return rows, dict(run=run, card_vs_cpu=card_cpu, refused=refused, restart=restart,
+                      seconds=seconds)
 
 
 QM_SHAPES = ((4096, 4096), (4096, 14336), (14336, 4096))   # rwkv6-7b's projections

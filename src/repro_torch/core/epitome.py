@@ -5,7 +5,8 @@ An epitome ``E`` is a small learnable (m, n) matrix; a sampler takes
 (M, N) weight ``W`` in crossbar space (rows = c_in*kh*kw word lines, cols =
 c_out bit lines).  Patch offsets are static, so the IFAT/IFRT/OFAT tables of
 the PIM datapath become numpy index maps fixed when a layer is built;
-reconstruction is a gather and the epitome-space matmul a scatter-add.
+reconstruction is a gather, and the epitome-space matmul's fold, a sum of
+each epitome row's preimages, is a gather and a sum too.
 
 Counterpart of ``repro.core.epitome``: the spec, its offsets and index maps
 are the same numpy code, so every integer table equals the reference's.
@@ -13,8 +14,9 @@ are the same numpy code, so every integer table equals the reference's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -206,20 +208,88 @@ def wrapped_matmul(x: torch.Tensor, E: torch.Tensor,
     return torch.cat(pieces, dim=-1)
 
 
+def preimage_table(index_map: np.ndarray, size: int) -> np.ndarray:
+    """(size, c) table of the positions i with index_map[i] == u for each u
+    < size, ascending, c the most any u receives; the padding points at
+    position len(index_map), which ``gather_sum`` makes a zero."""
+    index_map = np.asarray(index_map)
+    n = len(index_map)
+    order = np.argsort(index_map, kind="stable")
+    counts = np.bincount(index_map, minlength=size)
+    rows = index_map[order]
+    table = np.full((size, max(1, int(counts.max(initial=0)))), n, dtype=np.int64)
+    table[rows, np.arange(n) - (np.cumsum(counts) - counts)[rows]] = order
+    return table
+
+
+class FoldTables(NamedTuple):
+    """A spec's index maps and their preimage tables on one device."""
+    rmap: torch.Tensor     # (M,) epitome row of each virtual row
+    cmap: torch.Tensor     # (N,) epitome column of each virtual column
+    rows: torch.Tensor     # (c*m,) preimage_table(rmap, m), column by column
+    cols: torch.Tensor     # (c'*n,) preimage_table(cmap, n), column by column
+
+
+@functools.lru_cache(maxsize=None)
+def fold_tables(spec: "EpitomeSpec", device: torch.device) -> FoldTables:
+    """Copied to the device once per (spec, device)."""
+    rmap, cmap = spec.row_index_map(), spec.col_index_map()
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.long, device=device)
+    return FoldTables(put(rmap), put(cmap), put(preimage_table(rmap, spec.m).T.reshape(-1)),
+                      put(preimage_table(cmap, spec.n).T.reshape(-1)))
+
+
+def gather_sum(x: torch.Tensor, table: torch.Tensor, size: int) -> torch.Tensor:
+    """(..., size): entry u sums the entries of x's last dim that a
+    preimage table (flattened column by column) lists for u, in float32
+    and in ascending order, rounded once to x's dtype.  A gather and a sum
+    repeat bit for bit on the card, where a scatter-add (``index_add_``)
+    adds with atomics in an order that changes from run to run."""
+    xp = torch.nn.functional.pad(x, (0, 1))              # the padding's zero
+    gathered = xp.index_select(-1, table)
+    return gathered.unflatten(-1, (-1, size)).sum(-2, dtype=torch.float32).to(x.dtype)
+
+
+class _FoldedMatmul(torch.autograd.Function):
+    """y = fold(x) @ E, then the column gather, with its gradient written
+    out as gathers and products: dy_ep sums dy over each epitome column's
+    preimages, dE = fold(x)^T dy_ep, dx = (dy_ep E^T) gathered by the row
+    map.  No step scatters, so forward and backward repeat bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, E, spec):
+        t = fold_tables(spec, x.device)
+        folded = gather_sum(x, t.rows, spec.m)             # (..., m)
+        Ec = E.to(x.dtype)
+        ctx.save_for_backward(folded, Ec)
+        ctx.spec, ctx.E_dtype = spec, E.dtype
+        return (folded @ Ec).index_select(-1, t.cmap)      # (..., N)
+
+    @staticmethod
+    def backward(ctx, dy):
+        folded, Ec = ctx.saved_tensors
+        spec = ctx.spec
+        t = fold_tables(spec, dy.device)
+        dy_ep = gather_sum(dy, t.cols, spec.n)             # (..., n)
+        dx = dE = None
+        if ctx.needs_input_grad[0]:
+            dx = (dy_ep @ Ec.T).index_select(-1, t.rmap)
+        if ctx.needs_input_grad[1]:
+            dE = (folded.reshape(-1, spec.m).T @ dy_ep.reshape(-1, spec.n)).to(ctx.E_dtype)
+        return dx, dE, None
+
+
 def folded_matmul(x: torch.Tensor, E: torch.Tensor,
                   spec: EpitomeSpec) -> torch.Tensor:
     """Epitome-space matmul: y = fold(x) @ E, then a static column gather.
 
         y[t, j] = sum_u ( sum_{i in rmap^-1(u)} x[t, i] ) * E[u, cmap[j]]
 
-    The fold scatter-adds virtual fan-in into epitome rows (``index_add_``
-    in place of the reference's segment_sum); FLOPs and bytes fall by about
-    the compression rate.  Exact; gradients flow by transposition."""
-    rmap = _index(spec.row_index_map(), x)
-    cmap = _index(spec.col_index_map(), x)
-    folded = x.new_zeros(*x.shape[:-1], spec.m).index_add_(-1, rmap, x)
-    y_ep = folded @ E.to(x.dtype)                      # (..., n)
-    return y_ep.index_select(-1, cmap)                 # (..., N)
+    The fold gathers each epitome row's preimages and sums them in float32
+    (``gather_sum``; the reference's segment_sum), and the gradient is
+    gathers and products too (``_FoldedMatmul``); FLOPs and bytes fall by
+    about the compression rate.  Exact up to the float32 fold."""
+    return _FoldedMatmul.apply(x, E, spec)
 
 
 # ---------------------------------------------------------------------------

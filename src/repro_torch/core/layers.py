@@ -16,8 +16,10 @@ Execution modes for an epitomized weight:
 
 Linear layers and convolutions share one dispatcher: a conv lowers to its
 im2col patch matrix (rows = output positions, cols = kh*kw*cin) and runs
-the same ladder.  'kernel' + quant is inference-only: the int8 codes are
-rounded with no straight-through estimator, so its backward raises.
+the same ladder.  'kernel' is inference-only, as in the reference, whose
+Pallas kernels have no gradient: with quant the int8 codes are rounded with
+no straight-through estimator, and the unquantized kernel has no backward
+kernel, so both backwards raise.  Training runs 'folded' (folded-q3).
 """
 from __future__ import annotations
 
@@ -90,6 +92,22 @@ class _QuantKernel(torch.autograd.Function):
             "and switch to the fused kernel for serving.")
 
 
+class _FpKernel(torch.autograd.Function):
+    """The epitome kernel (#3), opaque to autograd: its backward refuses,
+    as ``jax.grad`` through the reference's ``pallas_call`` does."""
+
+    @staticmethod
+    def forward(ctx, x, E, spec):
+        return epitome_matmul(x, E, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "mode='kernel' is inference-only: the epitome kernel has no "
+            "backward. Train with mode='folded' (the 'folded' or 'folded-q3' "
+            "variants) and serve the trained epitomes with the kernel.")
+
+
 def _pack(E: torch.Tensor, cfg: EpLayerConfig) -> PackedEpitome:
     with torch.no_grad():
         return pack_epitome(E, cfg.spec, cfg.quant, blocks=cfg.blocks)
@@ -143,7 +161,7 @@ def _dispatch_epitome_matmul(params: dict, x: torch.Tensor,
         if cfg.quant is not None:
             packed = _packed_of(params, cfg) if "Eq" in params else _pack(E, cfg)
             return _QuantKernel.apply(x, E, cfg, packed)
-        return epitome_matmul(x, E, cfg.spec)
+        return _FpKernel.apply(x, E, cfg.spec)
     if cfg.quant is not None:
         E = fake_quant(E, cfg.spec, cfg.quant)
     if cfg.mode == "reconstruct":

@@ -13,7 +13,9 @@ quant_epitome_matmul  — the same over int8 codes with one (scale, zero)
                         ``csrc/epitome_mma.cuh``)
 wkv6                  — the chunked RWKV6 WKV with a carried state, its
                         chunk products on the TF32 tensor cores, r, k, v
-                        in bfloat16 or float32 (``csrc/wkv6.cu``)
+                        in bfloat16 or float32 (``csrc/wkv6.cu``), and its
+                        gradient, the token recurrence backward from
+                        states stored every 8 tokens (``csrc/wkv6_bwd.cu``)
 quant_matmul          — a dense int8 dequant matmul with one (scale, zero)
                         per 256 x 256 crossbar tile, float32 or bfloat16
                         activations (``csrc/quant_matmul.cu`` on
@@ -30,7 +32,7 @@ from .epitome_matmul import epitome_matmul_blocks
 from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
                                    quant_epitome_matmul_fused_fold)
 from .quant_matmul import quant_matmul
-from .wkv6 import wkv6_chunked
+from .wkv6 import wkv6_chunked, wkv6_chunked_bwd
 
 KERNELS = {
     "quant_epitome_matmul_blocks": quant_epitome_matmul_blocks,
@@ -38,6 +40,7 @@ KERNELS = {
     "epitome_matmul_blocks": epitome_matmul_blocks,
     "wkv6_chunked": wkv6_chunked,
     "quant_matmul": quant_matmul,
+    "wkv6_chunked_bwd": wkv6_chunked_bwd,
 }
 
 

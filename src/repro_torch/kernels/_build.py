@@ -48,6 +48,10 @@ LIBRARIES = {
     "wkv6": ("wkv6.cu", {
         "wkv6_chunked_launch": [_P] * 8 + [_I] * 6 + [_P],
     }),
+    "wkv6_bwd": ("wkv6_bwd.cu", {
+        "wkv6_chunked_bwd_launch": [_P] * 16 + [_I] * 5 + [_P],
+        "wkv6_chunked_bwd_scratch": [_I] * 3 + [_P],
+    }),
 }
 
 _lock = threading.Lock()

@@ -21,13 +21,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.epitome import EpitomeSpec
+from ..core.epitome import EpitomeSpec, fold_tables, gather_sum, preimage_table
 from ..core.quant import QuantConfig, quantize_epitome_packed
 from .epitome_matmul import epitome_matmul_blocks
 from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
                                    quant_epitome_matmul_fused_fold)
 from .quant_matmul import quant_matmul as _quant_matmul
-from .wkv6 import wkv6_chunked
+from .wkv6 import WKV6
 
 
 def kernel_col_blocks(spec: EpitomeSpec,
@@ -66,13 +66,7 @@ def fold_table(spec: EpitomeSpec) -> np.ndarray:
     """(m, c) table of the virtual rows that fold into each epitome row,
     ascending, c the most any row receives; the padding points at row M,
     which ``fold_rows`` makes a zero column."""
-    rmap = spec.row_index_map()
-    order = np.argsort(rmap, kind="stable")
-    counts = np.bincount(rmap, minlength=spec.m)
-    rows = rmap[order]
-    table = np.full((spec.m, counts.max()), spec.M, dtype=np.int64)
-    table[rows, np.arange(spec.M) - (np.cumsum(counts) - counts)[rows]] = order
-    return table
+    return preimage_table(spec.row_index_map(), spec.m)
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,7 +76,7 @@ def spec_tables(spec: EpitomeSpec, bn: int, device: torch.device) -> SpecTables:
     stall the host on every layer."""
     def put(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
-    return SpecTables(torch.as_tensor(fold_table(spec).T.reshape(-1), device=device),
+    return SpecTables(fold_tables(spec, device).rows,
                       put(kernel_col_blocks(spec, bn)), put(spec.row_offsets()))
 
 
@@ -95,9 +89,7 @@ def fold_rows(x: torch.Tensor, spec: EpitomeSpec) -> torch.Tensor:
     (``index_add_``) adds with atomics in an order that changes from run to
     run: in float32 that moved one last bit now and then, enough to move a
     32-layer bf16 LM's logits by 0.4 between identical prefills."""
-    xp = F.pad(x, (0, 1))                               # column M is the zero
-    gathered = xp.index_select(-1, spec_tables(spec, spec.bn, x.device).fold)
-    return gathered.unflatten(-1, (-1, spec.m)).sum(-2, dtype=torch.float32).to(x.dtype)
+    return gather_sum(x, spec_tables(spec, spec.bn, x.device).fold, spec.m)
 
 
 def epitome_matmul(x: torch.Tensor, E: torch.Tensor, spec: EpitomeSpec, *,
@@ -178,10 +170,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     state), both float32, as ``ssm.rwkv_chunked`` computes them in float32;
     the caller casts o back.  r, k and v pass as they come (float32, or the
     LM's bfloat16, which the kernel reads directly); logw, u and the state
-    are float32."""
+    are float32.  The call goes through ``WKV6``: one launch of kernel #4,
+    and, where autograd records, the WKV backward kernel as its gradient."""
     f32 = lambda t: t.to(torch.float32).contiguous()
-    return wkv6_chunked(r.contiguous(), k.contiguous(), v.contiguous(), f32(logw), f32(u),
-                        None if state is None else f32(state), chunk=chunk)
+    return WKV6.apply(r.contiguous(), k.contiguous(), v.contiguous(), f32(logw),
+                      f32(u), None if state is None else f32(state), chunk)
 
 
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,

@@ -130,3 +130,46 @@ def wkv6_naive_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         S_c = S_c * w[:, t, :, :, None] + kv
     o = torch.stack(outs, 1) if outs else rf.new_zeros((B, 0, H, K))
     return o, S_c
+
+
+def wkv6_chunked_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         logw: torch.Tensor, u: torch.Tensor,
+                         state: Optional[torch.Tensor], do: torch.Tensor,
+                         dhT: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """The gradient of the WKV recurrence, token by token, in float32: given
+    ``do`` (B, S, H, K), the gradient of o, and ``dhT`` (B, H, K, K), that
+    of the final state (None: zero), with w_t = exp(logw_t) and dS the
+    gradient of the state after token t, backward in t:
+        dr_t = S_{t-1} do_t + u k_t (do_t . v_t)
+        dk_t = r_t u (do_t . v_t) + dS v_t
+        dv_t = (sum_i r_t u k_t) do_t + dS^T k_t
+        dlogw_t = w_t * rowsum(dS * S_{t-1})
+        du += r_t k_t (do_t . v_t),   dS <- diag(w_t) dS + r_t^T do_t
+    The states S_{t-1} come from a forward sweep from ``state`` (None:
+    zero).  Returns (dr, dk, dv, dlogw, du, dh0), float32; dh0 is the
+    gradient of the initial state."""
+    B, S, H, K = r.shape
+    rf, kf, vf, dof = r.float(), k.float(), v.float(), do.float()
+    w = logw.float().exp()
+    uf = u.float()
+    S_c = (torch.zeros((B, H, K, K), device=r.device) if state is None
+           else state.float())
+    states = []
+    for t in range(S):
+        states.append(S_c)
+        S_c = S_c * w[:, t, :, :, None] + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    dS = (torch.zeros((B, H, K, K), device=r.device) if dhT is None
+          else dhT.float())
+    dr, dk, dv, dlw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros((H, K), device=r.device)
+    for t in reversed(range(S)):
+        rt, kt, vt, dot, wt = rf[:, t], kf[:, t], vf[:, t], dof[:, t], w[:, t]
+        dov = (dot * vt).sum(-1)[..., None]                         # (B, H, 1)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", states[t], dot) + uf * kt * dov
+        du = du + (rt * kt * dov).sum(0)
+        dk[:, t] = rt * uf * dov + torch.einsum("bhij,bhj->bhi", dS, vt)
+        bonus = (rt * uf * kt).sum(-1)[..., None]                   # (B, H, 1)
+        dv[:, t] = bonus * dot + torch.einsum("bhij,bhi->bhj", dS, kt)
+        dlw[:, t] = wt * (dS * states[t]).sum(-1)
+        dS = dS * wt[..., None] + rt[..., :, None] * dot[..., None, :]
+    return dr, dk, dv, dlw, du, dS

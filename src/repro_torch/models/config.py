@@ -6,9 +6,10 @@ local/global alternation).  Each pattern position names a sequence mixer and
 an FFN kind.  The fields, their defaults and the per-site epitome
 resolution (``ModelConfig.ep``) are the reference's; ``pdtype``/``cdtype``
 are torch dtypes.  Fields of the layer kinds not ported yet (MoE, Mamba)
-are kept so the ten architectures stay data; the reference's sharding and
-rematerialisation knobs have no counterpart on one card, while
-``kv_cache_bits`` (the int8 KV cache of the attention kinds) is kept.
+are kept so the ten architectures stay data; the reference's sharding
+knobs have no counterpart on one card, while ``remat_policy`` (what the
+training forward keeps of each group) and ``kv_cache_bits`` (the int8 KV
+cache of the attention kinds) are kept.
 """
 from __future__ import annotations
 
@@ -131,6 +132,10 @@ class ModelConfig:
     attn_kv_chunk: int = 512
     rwkv_chunk: int = 64
     mamba_chunk: int = 128
+
+    # what lm.forward(remat=True) keeps of each group for the backward:
+    # nothing (recompute the group) | dots (keep the matmul outputs)
+    remat_policy: str = "nothing"
 
     # KV cache of the attention kinds: 16 = the compute dtype, 8 = int8
     # codes with one fp16 scale per (token, head)

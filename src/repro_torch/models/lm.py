@@ -1,4 +1,4 @@
-"""Full language model: init, prepack, forward, prefill and decode
+"""Full language model: init, prepack, forward, loss, prefill and decode
 (counterpart of ``repro.models.lm``).
 
 The reference stacks every group's leaves over a leading group axis and
@@ -10,10 +10,13 @@ unstacks the reference's tree into this layout.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.layers import EpLayerConfig, prepack_tree
 from .blocks import apply_group, decode_group, init_group, init_group_state, prefill_group
@@ -78,15 +81,62 @@ def _logits(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.
     return unembed(x, head, cfg.logit_softcap)
 
 
+# the matmuls without batch dims (x @ W flattens to aten.mm), which
+# remat_policy "dots" keeps, as jax's dots_with_no_batch_dims_saveable keeps
+# dot_generals without batch dims (a batched einsum is a bmm: recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_group(group, x, cfg: ModelConfig, positions):
+    """apply_group under activation checkpointing (the reference's
+    jax.checkpoint): the backward runs the group again, keeping nothing of
+    its first run but its input, or (remat_policy "dots") its matmul
+    outputs too.  The forward draws no random numbers, so no RNG state is
+    kept."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "nothing":
+        raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not "
+                         f"'nothing' or 'dots'")
+    return checkpoint(apply_group, group, x, cfg, positions, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def forward(params: Dict[str, Any], inputs: torch.Tensor, cfg: ModelConfig,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+            positions: Optional[torch.Tensor] = None, remat: bool = True) -> torch.Tensor:
     """inputs: (B, S) int token ids, or (B, S, d) embeddings.  Returns
     logits (B, S, vocab).  ``positions`` ((S,) or (B, S)) place RoPE;
-    0..S-1 by default."""
+    0..S-1 by default.  ``remat``: where autograd records, each group runs
+    under activation checkpointing (``cfg.remat_policy``), as the reference
+    remats each group of its scan; without grad it changes nothing."""
     x = _embed(params, inputs, cfg)
+    body = _remat_group if remat and torch.is_grad_enabled() else apply_group
     for group in params["groups"]:
-        x = apply_group(group, x, cfg, positions)
+        x = body(group, x, cfg, positions)
     return _logits(params, x, cfg)
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross entropy, the mean over the tokens of ``mask``.
+    batch: tokens (B, S) (or embeds (B, S, d)), labels (B, S), optional
+    mask (B, S).  Logits in float32; the label's log-likelihood by gather,
+    the same numbers as the reference's one-hot select."""
+    inputs = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    logits = forward(params, inputs, cfg).to(torch.float32)
+    labels = batch["labels"]
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.to(torch.long)[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+    nll = (logz - ll) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

@@ -699,3 +699,132 @@ def test_moe_dense_at_phi35_width_matches_cpu(dtype, T, cuda_device):
     assert y.dtype == dtype and tuple(y.shape) == (2, T // 2, cfg.d_model)
     torch.testing.assert_close(y.cpu(), moe.moe_dense(cpu, x, cfg),
                                **(TOL if dtype == torch.float32 else BF16))
+
+
+# -- training: the WKV backward kernel, folded_matmul, a train step ------------
+def _wkv_bwd_case(B, S, H, K, dtype, state, dh, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=g)
+    r, k, v = (f(B, S, H, K).to(dtype) for _ in range(3))
+    lw, u = -torch.exp(f(B, S, H, K) * 0.5), f(H, K) * 0.1
+    h0 = f(B, H, K, K) * 0.5 if state else None
+    do, dhT = f(B, S, H, K), (f(B, H, K, K) if dh else None)
+    to = lambda t: None if t is None else t.to(device)
+    return [to(t) for t in (r, k, v, lw, u, h0, do, dhT)]
+
+
+@pytest.mark.parametrize("B,S,H,K,dtype,state,dh", [
+    (2, 64, 2, 64, torch.float32, True, True), (2, 50, 2, 64, torch.bfloat16, True, False),
+    (1, 37, 3, 12, torch.float32, True, True), (2, 256, 4, 64, torch.bfloat16, False, True),
+    (1, 5, 1, 8, torch.float32, False, False)])
+def test_wkv6_bwd_kernel_matches_plain_and_repeats(B, S, H, K, dtype, state, dh, cuda_device):
+    """The backward kernel against wkv6_chunked_bwd_ref (the WKV gate),
+    float32 and bf16 r, k, v, ragged S, K = 12, with and without h0 and
+    dhT; one launch a call; three calls bit for bit."""
+    from repro_torch.kernels.wkv6 import wkv6_chunked_bwd
+    args = _wkv_bwd_case(B, S, H, K, dtype, state, dh, cuda_device)
+    reset_launch_counts()
+    outs = [wkv6_chunked_bwd(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert launch_counts()["wkv6_chunked_bwd"] == 3
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+    assert all(t.dtype == torch.float32 for t in outs[0])
+    for a, b in zip(outs[0], ref.wkv6_chunked_bwd_ref(*args)):
+        torch.testing.assert_close(a, b, **WKV)
+
+
+def test_wkv6_autograd_on_card_launches_both_kernels(cuda_device):
+    """ops.wkv6 under autograd: kernel #4 forward, the backward kernel once;
+    bf16 r, k, v get bf16 gradients, the rest float32; against the CPU's
+    plain gradient."""
+    r, k, v, lw, u, h0, do, _ = _wkv_bwd_case(2, 50, 2, 16, torch.bfloat16, True, False,
+                                              cuda_device, seed=1)
+    ins = [t.clone().requires_grad_(True) for t in (r, k, v, lw, u, h0)]
+    reset_launch_counts()
+    o, hT = ops.wkv6(*ins)
+    (o * do).sum().backward()
+    counts = launch_counts()
+    assert counts["wkv6_chunked"] == 1 and counts["wkv6_chunked_bwd"] == 1
+    assert [t.grad.dtype for t in ins] == [torch.bfloat16] * 3 + [torch.float32] * 3
+    cpu = [t.detach().cpu().requires_grad_(True) for t in ins]
+    oc, _ = ops.wkv6(*cpu)
+    (oc * do.cpu()).sum().backward()
+    for a, b in zip(ins, cpu):
+        torch.testing.assert_close(a.grad.cpu().float(), b.grad.float(),
+                                   **(WKV if a.dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_folded_matmul_repeats_bit_for_bit_on_card(dtype, cuda_device):
+    """folded_matmul at rwkv6-7b's (4096, 14336) projection, forward and
+    backward three times: the same bits (gathers, no scatter-add)."""
+    from repro_torch.core.epitome import folded_matmul
+    spec = EpitomeSpec(*LM_SHAPES[1])
+    g = torch.Generator().manual_seed(2)
+    x0 = torch.randn(512, spec.M, generator=g).to(cuda_device, dtype)
+    E0 = (torch.randn(spec.m, spec.n, generator=g) / spec.M ** 0.5).to(cuda_device)
+    dy = torch.randn(512, spec.N, generator=g).to(cuda_device, dtype)
+    runs = []
+    for _ in range(3):
+        x, E = x0.clone().requires_grad_(True), E0.clone().requires_grad_(True)
+        y = folded_matmul(x, E, spec)
+        y.backward(dy)
+        runs.append((y.detach(), x.grad, E.grad))
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+    y_cpu = folded_matmul(x0.cpu(), E0.cpu(), spec)
+    torch.testing.assert_close(runs[0][0].cpu(), y_cpu, **(TOL if dtype == torch.float32 else BF16))
+
+
+def test_smoke_rwkv6_folded_q3_train_step_on_card_matches_cpu(cuda_device):
+    """One make_train_step step of the rwkv6-7b smoke config at folded-q3 in
+    float32 on the card: 2 x layers WKV forward launches (the remat
+    recompute) and one backward a layer, twice from one state bit for bit.
+    Against the CPU: the loss, the grad norm and every gradient leaf at the
+    WKV gate (1e-3 + 1e-3 |ref|), and the AdamW step (lr 1e-2, no warm-up)
+    on the CPU's gradients, its parameter change within 1e-3 lr of the
+    CPU's.  The step is held on one set of gradients because Adam's first
+    update g / (|g| + eps) is about +-lr per element: an element whose
+    gradient lies within the devices' rounding of zero may take it in
+    either sign, so the gradients are held leaf by leaf instead."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import loop, optimizer
+    from repro_torch.train.data import SyntheticData
+    from repro_torch.train.tree import leaves, tree_map
+    cfg = dataclasses.replace(get_smoke_config("rwkv6-7b", "folded-q3"), compute_dtype="float32")
+    opt = optimizer.AdamWConfig(lr=1e-2, warmup_steps=0)
+    batch = SyntheticData(cfg.vocab, 80, 2, seed=1).batch(0)
+    init = lambda device: loop.init_state(torch.Generator().manual_seed(0), cfg, opt,
+                                          device=device)
+    runs = []
+    for _ in range(2):
+        state = init(cuda_device)
+        reset_launch_counts()
+        state, m = loop.make_train_step(cfg, opt)(state, batch)
+        counts = launch_counts()
+        assert counts["wkv6_chunked"] == 2 * cfg.n_layers
+        assert counts["wkv6_chunked_bwd"] == cfg.n_layers
+        assert counts["quant_epitome_matmul_blocks"] == counts["epitome_matmul_blocks"] == 0
+        runs.append((m, [t.detach().cpu() for t in leaves(state)]))
+    (m1, s1), (m2, s2) = runs
+    assert torch.equal(m1["loss"], m2["loss"]) and all(torch.equal(a, b) for a, b in zip(s1, s2))
+    host, card = init("cpu"), init(cuda_device)
+    h_loss, h_grads = loop.loss_and_grads(host["params"], batch, cfg)
+    c_loss, c_grads = loop.loss_and_grads(
+        card["params"], {k: v.to(cuda_device) for k, v in batch.items()}, cfg)
+    assert torch.equal(c_loss, m1["loss"])
+    torch.testing.assert_close(c_loss.cpu(), h_loss, rtol=1e-4, atol=1e-4)
+    for a, b in zip(leaves(c_grads), leaves(h_grads)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+    old = [p.detach().clone() for p in leaves(host["params"])]
+    _, mh = loop.apply_grads(host, h_grads, opt)
+    torch.testing.assert_close(m1["grad_norm"].cpu(), mh["grad_norm"], rtol=1e-3, atol=1e-4)
+    loop.apply_grads(card, tree_map(lambda g: g.to(cuda_device), h_grads), opt)
+    moved = 0.0
+    for p0, a, b in zip(old, leaves(card["params"]), leaves(host["params"])):
+        torch.testing.assert_close(a.detach().cpu() - p0, b.detach() - p0,
+                                   rtol=0, atol=1e-3 * opt.lr)
+        moved = max(moved, float((b.detach() - p0).abs().max()))
+    assert moved > 0.5 * opt.lr

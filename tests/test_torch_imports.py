@@ -21,7 +21,8 @@ def _imported_modules(tree):
 
 def test_port_files_found():
     names = {p.name for p in FILES}
-    assert {"__init__.py", "ops.py", "resnet.py", "chip_smoke.py"} <= names
+    assert {"__init__.py", "ops.py", "resnet.py", "chip_smoke.py", "optimizer.py", "data.py",
+            "checkpoint.py", "loop.py", "train.py", "tree.py"} <= names
     assert len(FILES) >= 15
 
 

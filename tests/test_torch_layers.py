@@ -207,3 +207,72 @@ def test_prepack_tree_packs_named_kernel_quant_sites_only():
     assert out["L0"]["norm1"] is tree["L0"]["norm1"]
     ref = jl.prepack_linear({"E": jnp.asarray(E.numpy())}, jcfg)
     np.testing.assert_array_equal(out["L0"]["mixer"]["wr"]["Eq"].numpy(), np.asarray(ref["Eq"]))
+
+
+# -- training: the folded path's gradient, and the kernel modes' refusal ------
+# (M, N, m, n, bm, bn): aligned, every column block wrapped, spread
+# (overlapping) offsets with ragged edges on both axes
+GRAD_SPECS = [(512, 768, 256, 256, 128, 256), SPEC_WRAPPED, (100, 90, 37, 29, 16, 16)]
+
+
+@pytest.mark.parametrize("spec", GRAD_SPECS)
+@pytest.mark.parametrize("dtype,jdtype,tol", [
+    (torch.float32, jnp.float32, 2e-4), (torch.bfloat16, jnp.bfloat16, 5e-2)])
+def test_folded_matmul_grads_match_reference(spec, dtype, jdtype, tol):
+    """y, dx and dE of folded_matmul against jax.grad of the reference's
+    folded_matmul (segment_sum fold, take gather).  float32 at this file's
+    tolerance; bfloat16 at the LM tests' BF16_TOL of each result's scale:
+    the port sums the fold and dy's column preimages in float32 and rounds
+    once, the reference adds in bf16 (the deviation ROADMAP section 3
+    records for ops.fold_rows)."""
+    from repro.core.epitome import folded_matmul as jfolded
+    from repro_torch.core.epitome import folded_matmul
+    js, ts = JSpec(*spec), TSpec(*spec)
+    x = _images((2, 3, spec[0]), seed=11)
+    E = _images(spec[2:4], seed=12) / 10.0
+    dy = _images((2, 3, spec[1]), seed=13)
+    f = lambda x_, E_: jnp.sum(jfolded(x_, E_, js).astype(jnp.float32) * dy)
+    jy = jfolded(jnp.asarray(x, jdtype), jnp.asarray(E), js)
+    jdx, jdE = jax.grad(f, argnums=(0, 1))(jnp.asarray(x, jdtype), jnp.asarray(E))
+    xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+    Et = torch.from_numpy(E).requires_grad_(True)
+    y = folded_matmul(xt, Et, ts)
+    (y.float() * torch.from_numpy(dy)).sum().backward()
+    assert y.dtype == dtype and xt.grad.dtype == dtype and Et.grad.dtype == torch.float32
+    for a, r in ((y, jy), (xt.grad, jdx), (Et.grad, jdE)):
+        r = np.asarray(r, np.float32)
+        err, scale = float(np.abs(a.detach().float().numpy() - r).max()), float(np.abs(r).max())
+        assert err <= tol * max(1.0, scale), f"{err:.3e} > {tol} * {scale:.3e}"
+
+
+def test_folded_matmul_gathers_and_never_scatters():
+    """Forward and backward of folded_matmul run gathers, sums and products
+    only: no index_add_, scatter or accumulating index_put, which add with
+    atomics in a changing order on the card (ops.fold_rows' finding)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.epitome import folded_matmul
+    spec = TSpec(*SPEC_WRAPPED)
+    x = torch.from_numpy(_images((4, spec.M), seed=14)).requires_grad_(True)
+    E = torch.from_numpy(_images((spec.m, spec.n), seed=15)).requires_grad_(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        folded_matmul(x, E, spec).square().sum().backward()
+    ops = {e.key for e in prof.key_averages()}
+    assert "aten::index_select" in ops
+    assert not [o for o in ops if "index_add" in o or "scatter" in o or "index_put" in o], ops
+    assert x.grad is not None and E.grad is not None
+
+
+@pytest.mark.parametrize("bits", [None, 3])
+def test_kernel_modes_refuse_training_and_serve_without_grad(bits):
+    """mode='kernel', quantized or not, raises NotImplementedError on
+    backward (the reference's pallas_call has no gradient); without grad
+    the kernel path runs as it always did."""
+    _, tcfg = _cfgs(SPEC, "kernel", bits)
+    E = torch.from_numpy(_images(SPEC[2:4], seed=8)).requires_grad_(True)
+    x = torch.from_numpy(_images((4, SPEC[0])))
+    y = tl.apply_linear({"E": E}, x, tcfg)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        y.sum().backward()
+    with torch.no_grad():
+        y0 = tl.apply_linear({"E": E}, x, tcfg)
+    assert y0.grad_fn is None and torch.equal(y0, y.detach())

@@ -104,3 +104,83 @@ def test_non_cpu_non_cuda_tensor_raises():
     x = torch.empty(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         wkv6_chunked(x, x, x, x, torch.empty(2, 8, device="meta"))
+
+
+# -- the gradient -----------------------------------------------------------------
+# the reference's WKV cases (tests/test_kernels.py:67-72, 85): ragged S = 50,
+# K = 64 in one chunk of 64, each from a non-zero state
+GRAD_CASES = [(1, 16, 1, 8, 8), (2, 50, 2, 8, 16), (2, 50, 2, 64, 64), (1, 80, 2, 16, 64)]
+
+
+def _jax_grads(d, chunk):
+    """jax.grad of sum(o * do) + sum(hT * dhT) through the LM's chunked
+    recurrence, repro.models.ssm.rwkv_chunked."""
+    import jax
+
+    def f(r, k, v, lw, u, s):
+        o, hT = jssm.rwkv_chunked(r, k, v, lw, u, s, chunk=chunk)
+        return jnp.sum(o * d["do"]) + jnp.sum(hT * d["dh"])
+    return [np.asarray(g) for g in jax.grad(f, argnums=tuple(range(6)))(
+        *(jnp.asarray(d[n]) for n in ("r", "k", "v", "lw", "u", "s")))]
+
+
+def _grad_inputs(B, S, H, K, seed):
+    d = _inputs(B, S, H, K, seed=seed, state=True)
+    rng = np.random.default_rng(seed + 100)
+    d["do"] = rng.standard_normal((B, S, H, K)).astype(np.float32)
+    d["dh"] = rng.standard_normal((B, H, K, K)).astype(np.float32)
+    return d
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", GRAD_CASES)
+def test_bwd_ref_and_autograd_match_jax_grad(B, S, H, K, chunk):
+    """wkv6_chunked_bwd_ref and the gradient of ops.wkv6 (through WKV6)
+    against jax.grad of the reference's rwkv_chunked, at the WKV gate
+    |g - ref| <= 1e-3 + 1e-3 |ref|."""
+    d = _grad_inputs(B, S, H, K, seed=4)
+    ref = _jax_grads(d, chunk)
+    names = ("r", "k", "v", "lw", "u", "s")
+    plain = tref.wkv6_chunked_bwd_ref(*(_t(d[n]) for n in names), _t(d["do"]), _t(d["dh"]))
+    ins = [_t(d[n]).requires_grad_(True) for n in names]
+    before = launch_counts()
+    o, hT = tops.wkv6(*ins, chunk=chunk)
+    assert o.grad_fn is not None and type(o.grad_fn).__name__ == "WKV6Backward"
+    auto = torch.autograd.grad((o * _t(d["do"])).sum() + (hT * _t(d["dh"])).sum(), ins)
+    assert launch_counts() == before          # CPU tensors: the plain versions
+    for name, a, b, r in zip(names, plain, auto, ref):
+        np.testing.assert_allclose(a.numpy(), r, **TOL, err_msg=f"plain d{name}")
+        np.testing.assert_allclose(b.numpy(), r, **TOL, err_msg=f"autograd d{name}")
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", [(2, 50, 2, 64, 64), (1, 7, 2, 12, 64)])
+def test_bwd_ref_matches_autograd_of_the_chunked_plain_version(B, S, H, K, chunk):
+    """The token-form gradient against torch.autograd through the chunked
+    wkv6_chunked_ref (which kernel #4 mirrors); K = 12 and S = 7 ragged."""
+    d = _grad_inputs(B, S, H, K, seed=5)
+    names = ("r", "k", "v", "lw", "u", "s")
+    ins = [_t(d[n]).requires_grad_(True) for n in names]
+    o, hT = tref.wkv6_chunked_ref(*ins, chunk=chunk)
+    auto = torch.autograd.grad((o * _t(d["do"])).sum() + (hT * _t(d["dh"])).sum(), ins)
+    plain = tref.wkv6_chunked_bwd_ref(*(_t(d[n]) for n in names), _t(d["do"]), _t(d["dh"]))
+    for name, a, r in zip(names, plain, auto):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), **TOL, err_msg=f"d{name}")
+
+
+def test_wkv6_grads_in_each_inputs_dtype_and_zero_state():
+    """bf16 r, k, v get bf16 gradients, logw and u float32; a zero state
+    (None) has no gradient; an unused final state needs no dhT; without
+    grad, or with nothing that requires it, ops.wkv6 records nothing."""
+    d = _grad_inputs(1, 20, 2, 8, seed=6)
+    rkv = [_t(d[n]).bfloat16().requires_grad_(True) for n in ("r", "k", "v")]
+    lw, u = _t(d["lw"]).requires_grad_(True), _t(d["u"]).requires_grad_(True)
+    o, hT = tops.wkv6(*rkv, lw, u)
+    o.sum().backward()
+    assert [t.grad.dtype for t in rkv] == [torch.bfloat16] * 3
+    assert lw.grad.dtype == u.grad.dtype == torch.float32 and lw.grad.shape == lw.shape
+    plain = tref.wkv6_chunked_bwd_ref(*(t.detach() for t in (*rkv, lw, u)), None,
+                                      torch.ones(o.shape))
+    for t, g in zip((*rkv, lw, u), plain):
+        torch.testing.assert_close(t.grad, g.to(t.grad.dtype))
+    with torch.no_grad():
+        assert tops.wkv6(*rkv, lw, u)[0].grad_fn is None
+    assert tops.wkv6(*(t.detach() for t in (*rkv, lw, u)))[0].grad_fn is None
