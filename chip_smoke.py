@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
+    python3 chip_smoke.py --time-wkv-bwd TREE   # the WKV backward of checkout TREE alone
 
 Nine main paths, each at the full width of its model:
 
@@ -195,6 +196,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1020,15 +1022,18 @@ def tc_seconds(name, flops, dtype, products=None):
     the bf16 rate, kernel #3 at 3 x FLOPs over the TF32 rate for float32
     (3xTF32) or at the bf16 rate for bf16, and the WKV's four chunk
     ``products`` at 3 x FLOPs over the TF32 rate or the rest of its FLOPs at
-    the fp32 rate, whichever is longer."""
+    the fp32 rate, whichever is longer.  For the WKV's gradient ``products``
+    is its chunked form's (all, products), taken the same way; ``flops``,
+    the token form's count, sets its fp32-rate bound."""
     if name in TC_KERNELS or (name == FP_KERNEL and dtype == "bfloat16"):
         return flops / BF16_TC_FLOPS
     if name == FP_KERNEL:
         return 3 * flops / TF32_TC_FLOPS
     if name == WKV:
         return max(3 * products / TF32_TC_FLOPS, (flops - products) / FP32_FLOPS)
-    if name == WKV_BWD:      # no tensor-core work: all of it at the fp32 rate
-        return flops / FP32_FLOPS
+    if name == WKV_BWD:      # its chunked form's (all, products): wkv_bwd_chunked_ops
+        chunked, products = products
+        return max(3 * products / TF32_TC_FLOPS, (chunked - products) / FP32_FLOPS)
     raise ValueError(f"no tensor-core bound for {name}")
 
 
@@ -1800,9 +1805,43 @@ def wkv_bwd_ops(B, S, H, K) -> float:
     state forward (S w, k v, their sum: 3 K^2), dr's, dk's and dv's products
     with a state (2 K^2 each), dlogw's (2 K^2) and dS's update (3 K^2), plus
     the per-channel terms (do . v, the bonus, u k dov, r u dov, du, w's
-    product and the sums: 18 K).  The kernel's second rebuild of each state
-    from the stored ones is not counted: the function needs one."""
+    product and the sums: 18 K).  Its fp32-rate bound."""
     return float(B * S * H * (14 * K * K + 18 * K))
+
+
+def wkv_bwd_chunked_ops(B, S, H, K, L=64) -> tuple:
+    """Operations of the WKV's gradient in the chunked form the kernel
+    computes (csrc/wkv6_bwd.cu), per (batch, head, chunk of L tokens), with
+    P = L(L-1)/2 causal pairs: ten products, the five over pairs (the
+    scores, dA = do v^T, A^T do, dr's and dk's through dA: 2 P K each) and
+    the five with a state (do S0^T, v dS^T, the decayed k's dS, dS0's r^T
+    do, sweep 1's state update: 2 L K^2 each); the rest, the pairs' decays
+    (subtract, exp and three multiplies: 5 P K), the two cumsums (2 L K),
+    the decayed operands of the state products (5 L K + 4 K^2), the bonus
+    terms, do . v, du, P, Q and the dlogw scan (20 L K) and C (2 K^2).
+    Returns (all, products)."""
+    pairs = L * (L - 1) // 2
+    products = 5 * 2 * pairs * K + 5 * 2 * L * K * K
+    rest = 5 * pairs * K + 27 * L * K + 6 * K * K
+    n = B * H * -(-S // L)
+    return float(n * (products + rest)), float(n * products)
+
+
+def ptxas_of(log_text: str) -> dict:
+    """{entry: (registers, spill store bytes, spill load bytes)} from an nvcc
+    -Xptxas -v log."""
+    out, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            out[entry] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, [None, 0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def wkv_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
@@ -1812,8 +1851,10 @@ def wkv_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
     r, k, v in bf16 with a zero h0 and no dhT (the LM's, counted
     ``launches``), float32 with h0 and dhT, float32 with neither, and a
     ragged S."""
+    from repro_torch.kernels import _build
     B, S, H, K = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd
     f = lambda *s: torch.randn(s, device=dev, generator=gen)
+    ptxas = ptxas_of(_build.build_log.get("wkv6_bwd", ""))
     rows = []
     for dtype, h0_kind, dh, seq in ((cfg.cdtype, "zero", False, S), (torch.float32, "random", True, S),
                                     (torch.float32, None, False, S),
@@ -1848,10 +1889,17 @@ def wkv_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
         nbytes = (3.0 * esz * n + 4.0 * 2 * n + 4.0 * H * K
                   + 4.0 * B * H * K * K * ((h0 is not None) + dh)       # h0, dhT read
                   + 4.0 * 4 * n + 4.0 * H * K + 4.0 * B * H * K * K)    # dr dk dv dlogw du dh0
-        scratch = 4.0 * B * H * -(-seq // 8) * 4096
-        row = timed_row(torch, WKV_BWD, kernel, plain, None, nbytes, wkv_bwd_ops(B, seq, H, K))
+        scratch = 4.0 * B * H * -(-seq // 64) * 4096     # a 64 x 64 state a chunk
+        chunked = wkv_bwd_chunked_ops(B, seq, H, K)
+        row = timed_row(torch, WKV_BWD, kernel, plain, None, nbytes, wkv_bwd_ops(B, seq, H, K),
+                        products=chunked)
+        regs, st, ld = next((v for e, v in ptxas.items()
+                             if "wkv6_bwd_kernel" in e and ("bfloat16" in e) == (esz == 2)),
+                            (None, None, None))
         row.update(B=B, S=seq, H=H, K=K, dtype=dname, h0=h0_kind, dhT=dh, max_abs_err=err,
                    max_abs_err_autograd=err_auto, scratch_bytes=scratch, path=path,
+                   chunked_flops=chunked[0], chunked_products=chunked[1], registers=regs,
+                   spill_bytes=None if st is None else st + ld,
                    count=launches if (dtype == cfg.cdtype and h0_kind == "zero" and not dh
                                       and seq == S) else 0)
         rows.append(row)
@@ -1859,8 +1907,13 @@ def wkv_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
             f"{err:.2e} (plain), {err_auto:.2e} (autograd of the chunked forward); 3 launches "
             f"bit for bit; ms={row['ms']:.4f} (eager {row['ms_eager']:.4f}) plain_ms="
             f"{row['plain_ms']:.3f} library_ms=none bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']}; {nbytes / 1e9:.3f} GB, {row['flops'] / 1e9:.2f} GFLOP at "
-            f"the fp32 rate; scratch {scratch / 1e9:.3f} GB not counted)")
+            f"({row['bound_by']}; {nbytes / 1e9:.3f} GB; the chunked form's "
+            f"{chunked[1] / 1e9:.2f} GFLOP of products at 3xTF32 and "
+            f"{(chunked[0] - chunked[1]) / 1e9:.2f} at the fp32 rate: bound_tc_ms="
+            f"{row['bound_tc_ms']:.4f}) bound_fp32_ms={row['bound_fp32_ms']:.4f} (the token "
+            f"form's {row['flops'] / 1e9:.2f} GFLOP); scratch {scratch / 1e9:.4f} GB not "
+            f"counted; " + ("ptxas: not built in this process" if regs is None else
+                            f"ptxas {regs} registers, {row['spill_bytes']} bytes spilled"))
         del r, k_, v, lw, u, h0, do, dhT
         torch.cuda.empty_cache()
     return rows
@@ -2477,5 +2530,47 @@ def _to_cpu(tree):
     return tree.detach().cpu()
 
 
+def time_wkv_bwd(tree: str) -> int:
+    """``python3 chip_smoke.py --time-wkv-bwd TREE``: the WKV backward kernel
+    of the port in checkout TREE at phase 13's training shape (rwkv6-7b's
+    heads, TRAIN_BATCH x TRAIN_SEQ, a zero h0 and no dhT), bf16 and float32
+    r, k, v: device ms a launch (graph_ms, three readings), its largest
+    error as a share of the WKV gate against the plain version, and its
+    scratch bytes, as one JSON line.  To compare two checkouts' kernels,
+    run it for each in turn in one chip call (A, B, B, A)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import ctypes
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.wkv6 import wkv6_chunked_bwd
+    _build.build_all()
+    cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT)
+    B, S, H, K = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f = lambda *s: torch.randn(s, device=dev, generator=gen)
+    floats = ctypes.c_longlong()
+    _build.check_launch(_build.library("wkv6_bwd").wkv6_chunked_bwd_scratch(
+        B, S, H, ctypes.byref(floats)), "wkv6_chunked_bwd_scratch")
+    out = dict(tree=tree, card=card_line(), B=B, S=S, H=H, K=K, scratch_bytes=4 * floats.value)
+    for dtype in (torch.bfloat16, torch.float32):
+        r, k, v = (f(B, S, H, K).to(dtype) for _ in range(3))
+        lw, u, do = -torch.exp(f(B, S, H, K) * 0.5), f(H, K) * 0.1, f(B, S, H, K)
+        kernel = lambda: wkv6_chunked_bwd(r, k, v, lw, u, None, do, None)
+        got = kernel()
+        over = max(float(((a - b).abs() / (WKV_TOL + WKV_TOL * b.abs())).max())
+                   for a, b in zip(got, ref.wkv6_chunked_bwd_ref(r, k, v, lw, u, None, do, None)))
+        out[str(dtype).replace("torch.", "")] = dict(
+            ms=[graph_ms(torch, kernel) for _ in range(3)], over_gate=over)
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-wkv-bwd"]:
+        sys.exit(time_wkv_bwd(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

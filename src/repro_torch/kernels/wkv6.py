@@ -11,9 +11,10 @@ products on the tensor cores, 3xTF32), which reads r, k and v as float32 or
 as bfloat16, the LM's projections as they come; for CPU tensors it runs the
 plain version in ``ref.py``.
 
-``wkv6_chunked_bwd`` is its gradient (``csrc/wkv6_bwd.cu`` on the card,
-``ref.wkv6_chunked_bwd_ref`` on the CPU), and ``WKV6`` the autograd
-function that pairs the two, through which the LM trains.
+``wkv6_chunked_bwd`` is its gradient (``csrc/wkv6_bwd.cu`` on the card, the
+same chunked form run backward on the tensor cores, with one stored state a
+chunk of 64 tokens; ``ref.wkv6_chunked_bwd_ref`` on the CPU), and ``WKV6``
+the autograd function that pairs the two, through which the LM trains.
 """
 from __future__ import annotations
 

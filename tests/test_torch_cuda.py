@@ -702,11 +702,13 @@ def test_moe_dense_at_phi35_width_matches_cpu(dtype, T, cuda_device):
 
 
 # -- training: the WKV backward kernel, folded_matmul, a train step ------------
-def _wkv_bwd_case(B, S, H, K, dtype, state, dh, device, seed=0):
+def _wkv_bwd_case(B, S, H, K, dtype, state, dh, device, seed=0, logw=None):
     g = torch.Generator().manual_seed(seed)
     f = lambda *s: torch.randn(s, generator=g)
     r, k, v = (f(B, S, H, K).to(dtype) for _ in range(3))
     lw, u = -torch.exp(f(B, S, H, K) * 0.5), f(H, K) * 0.1
+    if logw is not None:
+        lw = torch.full((B, S, H, K), logw)
     h0 = f(B, H, K, K) * 0.5 if state else None
     do, dhT = f(B, S, H, K), (f(B, H, K, K) if dh else None)
     to = lambda t: None if t is None else t.to(device)
@@ -730,6 +732,24 @@ def test_wkv6_bwd_kernel_matches_plain_and_repeats(B, S, H, K, dtype, state, dh,
     for o in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
     assert all(t.dtype == torch.float32 for t in outs[0])
+    for a, b in zip(outs[0], ref.wkv6_chunked_bwd_ref(*args)):
+        torch.testing.assert_close(a, b, **WKV)
+
+
+@pytest.mark.parametrize("B,S,H,K,dtype,logw", [
+    (1, 128, 2, 64, torch.float32, -20.0), (2, 200, 2, 64, torch.bfloat16, -20.0),
+    (2, 77, 3, 32, torch.bfloat16, None), (1, 150, 2, 16, torch.float32, None)])
+def test_wkv6_bwd_kernel_strong_decay_and_narrow_heads(B, S, H, K, dtype, logw, cuda_device):
+    """The chunked backward at log w = -20 (every factor e to a non-positive
+    power: finite, within the WKV gate), and at K < 64 with a ragged last
+    chunk; from h0 with dhT, three calls bit for bit."""
+    from repro_torch.kernels.wkv6 import wkv6_chunked_bwd
+    args = _wkv_bwd_case(B, S, H, K, dtype, True, True, cuda_device, seed=2, logw=logw)
+    outs = [wkv6_chunked_bwd(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+    assert all(bool(torch.isfinite(t).all()) for t in outs[0])
     for a, b in zip(outs[0], ref.wkv6_chunked_bwd_ref(*args)):
         torch.testing.assert_close(a, b, **WKV)
 

@@ -20,8 +20,11 @@ ascending order) is held to ``ref.fold_blocks_ref`` bit for bit.  Kernel
 sub-chunks and runs its four chunk products as 3xTF32 with a truncating
 split; the model is held within the WKV gate of ``ref.wkv6_chunked_ref``
 and of the JAX reference's ``ssm.rwkv_chunked``, where one TF32 pass
-misses it.  Inputs are drawn with numpy from a seed; nothing here needs a
-card."""
+misses it.  Its gradient (csrc/wkv6_bwd.cu) runs the chunked backward on
+the same arithmetic: the model holds dr, dk, dv, dlogw, du and dh0 within
+the WKV gate of ``ref.wkv6_chunked_bwd_ref`` and of ``jax.grad`` of
+``ssm.rwkv_chunked``, at log w = -20 too.  Inputs are drawn with numpy
+from a seed; nothing here needs a card."""
 import numpy as np
 import pytest
 import torch
@@ -561,3 +564,232 @@ def test_one_tf32_pass_misses_the_wkv_gate():
         args = _wkv_case(1, 256, 2, 64, bf16)
         o, _ = wkv6_mma_model(*args, passes=1)
         assert _over(o, ref.wkv6_chunked_ref(*args)[0], WKV)
+
+
+# -- kernel #4's gradient: the chunked WKV backward (csrc/wkv6_bwd.cu) -----------
+def _scan(x, dim, reverse=False):
+    """Sequential float32 sums along ``dim`` as the kernel's threads take
+    them, one token after the other: (inclusive sums, total)."""
+    idx = range(x.shape[dim] - 1, -1, -1) if reverse else range(x.shape[dim])
+    acc, out = torch.zeros_like(x.select(dim, 0)), torch.empty_like(x)
+    for t in idx:
+        acc = _f32(acc + x.select(dim, t))
+        out.select(dim, t).copy_(acc)
+    return out, acc
+
+
+def wkv6_bwd_mma_model(r, k, v, logw, u, h0, do, dhT=None, passes=3):
+    """The backward kernel's arithmetic.  Chunks of 64 tokens (rows past S
+    zero, logw 0); cs in float32 in time order and cp_t = cs_{t-1}.  (The
+    kernel sums the cumsum, dlogw's scan, C and du in parts of 8 tokens or
+    columns and takes some decays as products of two tabled factors; the
+    model sums in order and takes one exponential, within 1e-6 of it.)  Sweep
+    1 stores each chunk's start state S0, updated as kernel #4 updates it.
+    Sweep 2 walks the chunks backward carrying dS (the gradient of the
+    chunk's end state) and per 16-token block R0:
+      scores A  (r e^{min(cp - c, 0)}) @ (k e^{c - cs})^T against earlier
+                blocks, c = cs_{R0-1}; inside the block, tokens 8..15 against
+                0..7 through cs at token 7, the 8 x 8 diagonal blocks exactly;
+      dA        do @ v^T, strictly causal;
+      dv        A^T @ do + (k e^{csL - cs}) @ dS, + bonus do;
+      dr        e^{cp - c} (do @ (e^c S0)^T + dA_{<R0} @ (k e^{c - cs})),
+                + the block's own pairs (as the scores), + u k (do.v);
+      dk        e^{c' - cs} (dA^T_{>R0+15} @ (r e^{cp - c'}) + v @ (e^{csL - c'} dS)^T),
+                c' = cs_{R0+15}, + the block's own pairs, + r u (do.v);
+      dS0       e^{csL} dS + (r e^{cp})^T @ do;
+      dlogw_s   C + sum_{t>s} r_t dr_t - sum_{t>=s} k_t dk_t (the bonus
+                terms left out), C = rowsum(dS * S_L), S_L the chunk's end
+                state, as one float32 scan from the last token;
+      du       += sum_t r k (do.v).
+    Products as 3xTF32 k8 steps (``_mma``).  Returns (dr, dk, dv, dlogw,
+    du, dh0), float32."""
+    B, S, H, K = r.shape
+    T, n, KP = 64, max(1, -(-S // 64)), 8 * -(-K // 8)
+
+    def tiles(t):      # (B, H, n, T, KP)
+        t = F.pad(t.float().permute(0, 2, 1, 3), (0, KP - K, 0, n * T - S))
+        return t.reshape(B, H, n, T, KP)
+
+    rf, kf, vf, wf, df = tiles(r), tiles(k), tiles(v), tiles(logw), tiles(do)
+    uf = F.pad(u.float(), (0, KP - K))[None, :, None, :]
+    mm = lambda acc, a, b: _mma(acc, a, b, passes)
+    z = lambda *s: torch.zeros(B, H, *s, dtype=torch.float64)
+    St = z(KP, KP)
+    if h0 is not None:
+        St[..., :K, :K] = h0.double()
+    cums = []
+    starts = []
+    for c in range(n):
+        cs, _ = _scan(wf[:, :, c].double(), 2)
+        cs = cs.float()
+        cums.append(cs)
+        starts.append(St)
+        csL = cs[:, :, -1:]
+        St = mm(_f32(St * csL.transpose(-1, -2).exp().double()),
+                (kf[:, :, c] * (csL - cs).exp()).transpose(-1, -2), vf[:, :, c])
+    dS = z(KP, KP)
+    if dhT is not None:
+        dS[..., :K, :K] = dhT.double()
+    C = _scan(dS * St, 3)[1]                         # (B, H, KP): rowsum(dS_T * S_T)
+    du = z(KP)
+    outs = {name: [None] * n for name in ("dr", "dk", "dv", "dlw")}
+    tri = torch.ones(T, T, dtype=torch.bool).tril(-1)
+    for c in reversed(range(n)):
+        rc, kc, vc, dc, cs = rf[:, :, c], kf[:, :, c], vf[:, :, c], df[:, :, c], cums[c]
+        S0 = starts[c]
+        cp = F.pad(cs, (0, 0, 1, 0))[:, :, :T]       # cs_{t-1}, 0 at t = 0
+        csL = cs[:, :, -1:]
+        dov = _scan((dc * vc).double(), 3)[1][..., None]
+        bn = _scan((rc * uf * kc).double(), 3)[1][..., None]
+        A = z(T, T)
+        for R0 in range(0, T, 16):
+            rows = slice(R0, R0 + 16)
+            if R0:
+                cw = cs[:, :, R0 - 1:R0]
+                A[:, :, rows, :R0] = mm(A[:, :, rows, :R0],
+                                        rc[:, :, rows] * (cp[:, :, rows] - cw).clamp_max(0).exp(),
+                                        (kc[:, :, :R0] * (cw - cs[:, :, :R0]).exp()).transpose(-1, -2))
+            lo, hi = slice(R0, R0 + 8), slice(R0 + 8, R0 + 16)
+            cq = cs[:, :, R0 + 7:R0 + 8]
+            A[:, :, hi, lo] = mm(A[:, :, hi, lo],
+                                 rc[:, :, hi] * (cp[:, :, hi] - cq).clamp_max(0).exp(),
+                                 (kc[:, :, lo] * (cq - cs[:, :, lo]).exp()).transpose(-1, -2))
+            for d in (lo, hi):
+                e = (cp[:, :, d, None] - cs[:, :, None, d]).clamp_max(0).exp()
+                full = (rc[:, :, d, None] * e * kc[:, :, None, d]).double().sum(-1)
+                A[:, :, d, d] = _f32(full * tri[:8, :8])
+        dA = mm(z(T, T), dc, vc.transpose(-1, -2)) * tri
+        dAf = dA.float()
+        dr, dk, dv, P, Q = (z(T, KP) for _ in range(5))
+        kdec = kc * (csL - cs).exp()
+        for R0 in range(0, T, 16):
+            rows = slice(R0, R0 + 16)
+            # dv: A^T do over t >= R0, then (k e^{csL - cs}) dS, then the bonus
+            acc = mm(z(16, KP), A[:, :, R0:, rows].transpose(-1, -2).float(), dc[:, :, R0:])
+            acc = mm(acc, kdec[:, :, rows], dS.float())
+            dv[:, :, rows] = _f32(acc + (bn[:, :, rows] * dc[:, :, rows]).double())
+            # the block's own pairs: tokens 8..15 against 0..7 through cs at
+            # token 7, the two 8 x 8 diagonal blocks exactly,
+            # w[t, i, k] = dA_ti exp(min(cp_t - cs_i, 0))
+            lo, hi = slice(R0, R0 + 8), slice(R0 + 8, R0 + 16)
+            c7 = cs[:, :, R0 + 7:R0 + 8]
+            own_r, own_k = z(16, KP), z(16, KP)
+            own_r[:, :, 8:] = _f32(mm(z(8, KP), dAf[:, :, hi, lo],
+                                      kc[:, :, lo] * (c7 - cs[:, :, lo]).exp())
+                                   * (cp[:, :, hi] - c7).clamp_max(0).exp().double())
+            own_k[:, :, :8] = _f32(mm(z(8, KP), dAf[:, :, hi, lo].transpose(-1, -2),
+                                      rc[:, :, hi] * (cp[:, :, hi] - c7).clamp_max(0).exp())
+                                   * (c7 - cs[:, :, lo]).exp().double())
+            for q, d in ((slice(0, 8), lo), (slice(8, 16), hi)):
+                e = (cp[:, :, d, None] - cs[:, :, None, d]).clamp_max(0).exp()
+                w = dAf[:, :, d, d, None] * e
+                own_r[:, :, q] = _f32(own_r[:, :, q] + (w * kc[:, :, None, d]).double().sum(3))
+                own_k[:, :, q] = _f32(own_k[:, :, q] + (w * rc[:, :, d, None]).double().sum(2))
+            # dr: through c = cs_{R0-1}
+            cw = cp[:, :, R0:R0 + 1]
+            acc = mm(z(16, KP), dc[:, :, rows],
+                     (S0.float() * cw.transpose(-1, -2).exp()).transpose(-1, -2))
+            if R0:
+                acc = mm(acc, dAf[:, :, rows, :R0], kc[:, :, :R0] * (cw - cs[:, :, :R0]).exp())
+            nb = _f32(_f32(acc * (cp[:, :, rows] - cw).clamp_max(0).exp().double()) + own_r)
+            P[:, :, rows] = _f32(rc[:, :, rows].double() * nb)
+            dr[:, :, rows] = _f32(nb + (uf * kc[:, :, rows]).double() * dov[:, :, rows])
+            # dk: through c' = cs_{R0+15}
+            cq = cs[:, :, R0 + 15:R0 + 16]
+            acc = z(16, KP)
+            if R0 + 16 < T:
+                acc = mm(acc, dAf[:, :, R0 + 16:, rows].transpose(-1, -2),
+                         rc[:, :, R0 + 16:] * (cp[:, :, R0 + 16:] - cq).clamp_max(0).exp())
+            acc = mm(acc, vc[:, :, rows],
+                     (dS.float() * (csL - cq).transpose(-1, -2).exp()).transpose(-1, -2))
+            nb = _f32(_f32(acc * (cq - cs[:, :, rows]).exp().double()) + own_k)
+            Q[:, :, rows] = _f32(kc[:, :, rows].double() * nb)
+            dk[:, :, rows] = _f32(nb + (rc[:, :, rows] * uf).double() * dov[:, :, rows])
+        # dS0 = e^{csL} dS + (r e^{cp})^T do
+        dS0 = mm(_f32(dS * csL.transpose(-1, -2).exp().double()),
+                 (rc * cp.exp()).transpose(-1, -2), dc)
+        # dlogw_s = C - sum_{t>=s} Q_t + sum_{t>s} P_t, one scan from the last token
+        acc, dlw = C, z(T, KP)
+        for s in reversed(range(T)):
+            acc = _f32(acc - Q[:, :, s])
+            dlw[:, :, s] = acc
+            acc = _f32(acc + P[:, :, s])
+        for t in reversed(range(T)):
+            du = _f32(du + _f32((rc[:, :, t] * kc[:, :, t]).double()) * dov[:, :, t])
+        C = _scan(dS0 * S0, 3)[1]
+        dS = dS0
+        for name, t in (("dr", dr), ("dk", dk), ("dv", dv), ("dlw", dlw)):
+            outs[name][c] = t
+
+    def untile(ts):
+        t = torch.stack(ts, 2).reshape(B, H, n * T, KP)[:, :, :S, :K]
+        return t.permute(0, 2, 1, 3).float()
+
+    du = _scan(du[..., :K], 0)[1].float()            # du_reduce: batch order
+    return (untile(outs["dr"]), untile(outs["dk"]), untile(outs["dv"]), untile(outs["dlw"]),
+            du, dS[..., :K, :K].float())
+
+
+def _wkv_bwd_case(B, S, H, K, bf16=False, state=True, logw=None, seed=0):
+    """_wkv_case's inputs and the gradients of o and of the final state;
+    without ``state`` a zero h0 and no dhT (None)."""
+    r, k, v, lw, u, h0 = _wkv_case(B, S, H, K, bf16, logw=logw, seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    do = torch.from_numpy(rng.standard_normal((B, S, H, K)).astype(np.float32))
+    dhT = torch.from_numpy(rng.standard_normal((B, H, K, K)).astype(np.float32))
+    return (r, k, v, lw, u) + ((h0, do, dhT) if state else (None, do, None))
+
+
+def _jax_wkv_grads(r, k, v, lw, u, h0, do, dhT, chunk):
+    """jax.grad of sum(o * do) + sum(hT * dhT) through the reference's
+    ``ssm.rwkv_chunked`` (a zero h0 and dhT for None): (dr, dk, dv, dlogw,
+    du, dh0)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import ssm as jssm
+    B, S, H, K = r.shape
+    zero = torch.zeros(B, H, K, K)
+    s, dh = (zero if t is None else t for t in (h0, dhT))
+
+    def f(r, k, v, lw, u, s):
+        o, hT = jssm.rwkv_chunked(r, k, v, lw, u, s, chunk=chunk)
+        return jnp.sum(o * jnp.asarray(do.numpy())) + jnp.sum(hT * jnp.asarray(dh.numpy()))
+    grads = jax.grad(f, argnums=tuple(range(6)))(
+        *(jnp.asarray(t.numpy()) for t in (r, k, v, lw, u, s)))
+    return [torch.from_numpy(np.array(g)) for g in grads]
+
+
+@pytest.mark.parametrize("state", [True, False])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B,S,H,K,chunk", WKV_CASES)
+def test_wkv6_bwd_tensor_core_model_holds_the_gate(B, S, H, K, chunk, bf16, state):
+    """The backward kernel's chunked arithmetic (64-token chunks, factored
+    decays, three TF32 passes, dlogw by one scan), with h0 and dhT or
+    neither, within the WKV gate of the plain token-form gradient and of
+    jax.grad of the reference's ``ssm.rwkv_chunked``."""
+    args = _wkv_bwd_case(B, S, H, K, bf16, state)
+    got = wkv6_bwd_mma_model(*args)
+    for want in (ref.wkv6_chunked_bwd_ref(*args), _jax_wkv_grads(*args, chunk=chunk)):
+        for name, y, r in zip(("dr", "dk", "dv", "dlogw", "du", "dh0"), got, want):
+            assert y.shape == r.shape and _within(y, r), name
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wkv6_bwd_model_under_strong_decay_stays_finite_and_within_the_gate(bf16):
+    """log w = -20: every factor the model takes is exp of a non-positive
+    exponent, so nothing overflows; the factors that underflow drop terms
+    below 1e-38."""
+    args = _wkv_bwd_case(1, 128, 2, 64, bf16, logw=-20.0)
+    for y, r in zip(wkv6_bwd_mma_model(*args), ref.wkv6_chunked_bwd_ref(*args)):
+        assert _within(y, r)
+
+
+def test_one_tf32_pass_misses_the_wkv_gate_backward():
+    """As for kernel #4: one TF32 pass (hi hi alone) in the backward's
+    products falls outside 1e-3 at rwkv6-7b's head (7-38x the gate,
+    dlogw the furthest), float32 or bf16 r, k, v."""
+    for bf16 in (False, True):
+        args = _wkv_bwd_case(1, 256, 2, 64, bf16)
+        got = wkv6_bwd_mma_model(*args, passes=1)
+        want = ref.wkv6_chunked_bwd_ref(*args)
+        assert all(_over(y, r, WKV) for y, r in zip(got[:4], want[:4]))
