@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repo root, on a machine with a card
     python3 chip_smoke.py --time-wkv-bwd TREE   # the WKV backward of checkout TREE alone
 
-Nine main paths, each at the full width of its model:
+Ten main paths, each at the full width of its model:
 
 * EPIM-ResNet-50 at 3-bit epitome-aware quantization,
   ``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
@@ -41,7 +41,15 @@ Nine main paths, each at the full width of its model:
   and depth, ``train.loop.init_state`` -> ``make_train_step`` ->
   ``train_loop`` (what ``launch.train`` runs): each layer a launch of kernel
   #4 forward, again in the backward's recompute, and one of its backward
-  kernel (``wkv6_chunked_bwd``).
+  kernel (``wkv6_chunked_bwd``);
+* serving jamba-1.5-large at kernel-q3 in bf16 at published widths and
+  full depth (72 layers: 63 Mamba, 9 attention; d_model 8192, d_inner
+  16384, 16 states, vocab 65536), its MoE FFN positions set to none (their
+  experts wait on scale-out), through ``serve.generate`` and through
+  ``launch.engine.EpimEngine``: each Mamba layer one launch of the
+  selective-scan kernel (``mamba_scan``) a forward, prefill and decode
+  alike, and kernel #1 at its 4 projections, the attention's 4 and the
+  dense FFN's 3.
 
 Phases:
 
@@ -178,11 +186,36 @@ Phases:
              for bit; (d) 2 layers: an async checkpoint at step 2 restored
              into a fresh state, whose steps 2-3 equal the straight run's bit
              for bit.
+14. Mamba  — after phase 13 has freed the card: (a) the scan kernel at
+             jamba's width (d_inner 16384, 16 states): 4 x 256 tokens with
+             bf16 and float32 dt, x, B, C, a zero and a random h0, a ragged
+             S = 250, S = 1 at batch 4 and 1, each against its plain
+             version (mamba_scan_ref) at KERNEL_TOL on y and hT, timed
+             beside it and its bound (bytes, or its operations at the fp32
+             rate); bit for bit: 128 + 128 tokens through hT against one
+             launch, dt = 0 on the last 7 tokens leaving the state as it
+             stood, three launches, bf16 against float32 of the same
+             values; ptxas' registers and spills.  (b) jamba kernel-q3, 72
+             layers, MoE positions none, bf16 (the bytes it holds logged,
+             1.5 GiB of the card left free): phase 5's generate (4 x 256 +
+             32; exactly 396 launches of kernel #1 and 63 of the scan a
+             forward), three prefills bit for bit, timed and profiled, the
+             scan's share of busy; kernel #1 at its specs and rows (bf16).
+             (c) phase 10's requests through the engine on the same
+             weights (pages of 16, chunk 64 rounded to 128: 9 chunks, 77
+             micro-steps at K = 4, counted on the CPU), launches exact, K =
+             1 and reverse order bit for bit, requests 1 and 4 against
+             one-shot; the scan and kernel #1 at the engine's rows.  (d)
+             float32 card against CPU: jamba's widths at 2 Mamba layers
+             with the dense FFN, 2 x 64 tokens, and the jamba smoke config
+             (16 layers: Mamba, attention, MoE) with the router's experts
+             equal; backward() through the scan refuses on the card.
 11. times  — each kernel's times and bounds summed over the launches of
              the main paths (the ResNet forwards, one LM generate at each
              variant and of each attention LM and of the MoE LM, the
              quant_matmul calls, the engine's K = 4 runs, the 5 timed
-             training steps); kernel #2 beside kernel #1 plus the fold on
+             training steps, jamba's generate and engine run); kernel #2
+             beside kernel #1 plus the fold on
              each ResNet path.  Run last.
 
 Any failure exits nonzero.  The line before the last is a JSON object
@@ -291,6 +324,22 @@ TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 64
 TRAIN_CPU_LR = 1e-2         # the card-vs-CPU AdamW step: no warm-up, so it moves ~lr
 GRAD_TOL = 1e-3
 WKV_BWD = "wkv6_chunked_bwd"
+# phase 14, Mamba: jamba-1.5-large at kernel-q3 in bf16 at published widths
+# and full depth (72 layers: 63 Mamba, 9 attention), its 36 MoE FFN
+# positions set to none (a period of 8 layers holds four MoE FFNs of 19.3
+# GB each, which wait on scale-out), so the 36 dense FFNs stay; kernel #1
+# at the 4 Mamba projections, the 4 attention ones and the 3 dense FFN ones
+# of each layer (MAMBA_SITES a forward), the scan once a Mamba layer a
+# forward.  The kernel is held at KERNEL_TOL on jamba's width (d_inner
+# 16384, 16 states).  The engine takes phase 10's requests on pages of 16
+# at chunk ENGINE_CHUNK, which rounds up to the scan's 128-token window; its
+# K = 4 run makes MAMBA_MICRO decode micro-steps and MAMBA_CHUNKS prefill
+# chunks (the schedule, counted on the CPU at smoke size)
+MAMBA = "mamba_scan"
+MAMBA_ARCH, MAMBA_FFN = "jamba-1.5-large-398b", ("dense", "none") * 4
+MAMBA_SITES, MAMBA_LAYERS = 63 * 4 + 9 * 4 + 36 * 3, 63
+MAMBA_MICRO, MAMBA_CHUNKS, MAMBA_ONESHOT = 77, 9, (1, 4)
+MAMBA_WORKSPACE = 3 << 29   # 1.5 GiB the phase needs free beside the parameters
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/quant_epitome_matmul.cu",
@@ -312,6 +361,11 @@ KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "wkv6_chunked_bwd": (
         "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
         "src/repro/kernels/wkv6.py:58"),
+    # Mamba's scan: no TPU kernel; the reference runs an associative scan in
+    # plain jnp inside a checkpointed window body
+    "mamba_scan": (
+        "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "none (no TPU kernel): the jnp scan src/repro/models/ssm.py:320, :395-411"),
 }
 QUANT = "quant_epitome_matmul_blocks"
 
@@ -598,6 +652,15 @@ def main() -> int:
     launches[WKV] += train_report["run"]["launches"][WKV]
     launches[WKV_BWD] = train_report["run"]["launches"][WKV_BWD]
 
+    # -- 14. Mamba: jamba-1.5-large kernel-q3 at full depth, the scan kernel --------
+    mamba_rows, mamba_report = mamba_phase(torch, dev, gen, ops, ref, WRAPPERS, lm, serve,
+                                           get_config, launch_counts, reset_launch_counts)
+    rows += mamba_rows
+    launches[QUANT] += (mamba_report["lm"]["launches"][QUANT]
+                        + mamba_report["engine"]["launches"][QUANT])
+    launches[MAMBA] = (mamba_report["lm"]["launches"][MAMBA]
+                       + mamba_report["engine"]["launches"][MAMBA])
+
     # -- 11. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
@@ -661,6 +724,7 @@ def main() -> int:
                   attention_card_vs_cpu=attn_cpu, engine=engine_runs,
                   engine_card_vs_cpu=engine_cpu, fold_probe=fold, plan=plan_run["plan"],
                   quant_matmul_vs_f64=qm_f64, moe=moe_report, train=train_report,
+                  mamba=mamba_report,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -671,7 +735,8 @@ def main() -> int:
         f"plan {report['plan_s']:.1f}, "
         + ", ".join(f"{a} {t:.1f}" for a, t in report["attention_s"].items()) + ", engine "
         + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items())
-        + f", MoE {moe_report['seconds']:.1f}, training {train_report['seconds']:.1f})")
+        + f", MoE {moe_report['seconds']:.1f}, training {train_report['seconds']:.1f}, "
+        f"Mamba {mamba_report['seconds']:.1f})")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
     # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
@@ -790,7 +855,7 @@ def site_specs(lm, cfg) -> dict:
 
 
 def quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path, runs,
-                  rows_dec) -> list:
+                  rows_dec, dtypes=None) -> list:
     """Kernel #1 at an LM's epitomized projection specs, bf16 (counted when
     it is the path's dtype) and float32 (checked), at each (rows, forwards)
     of ``runs`` (a generate: its prefill's rows once, its decode rows
@@ -798,7 +863,8 @@ def quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path, runs,
     it, the cuBLAS float32 and bf16 yardsticks on the dequantized weight and
     the bound; the decode rows (``rows_dec``) three times bit for bit, and
     L2-cold (over copies of the codes and of the yardstick's weight past
-    64 MB, as a decode step reads every layer's weights once)."""
+    64 MB, as a decode step reads every layer's weights once).  ``dtypes``
+    narrows the (dtype, tolerance) pairs (default bf16 and float32)."""
     from repro_torch.core.quant import dequantize_packed
     sites = lm.lm_layer_configs(cfg)
     rows = []
@@ -819,7 +885,7 @@ def quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path, runs,
         for T, forwards in runs:
             count = k * cfg.n_groups * forwards
             x = torch.randn(T, spec.M, device=dev, generator=gen)
-            for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, KERNEL_TOL)):
+            for dtype, tol in dtypes or ((torch.bfloat16, BF16_TOL), (torch.float32, KERNEL_TOL)):
                 folded = ops.fold_rows(x.to(dtype), spec)
                 f32 = folded.float()
                 kernel = lambda q=p.q: wrappers[QUANT](folded, q, p.scales, p.zeros, cb,
@@ -1024,7 +1090,8 @@ def tc_seconds(name, flops, dtype, products=None):
     ``products`` at 3 x FLOPs over the TF32 rate or the rest of its FLOPs at
     the fp32 rate, whichever is longer.  For the WKV's gradient ``products``
     is its chunked form's (all, products), taken the same way; ``flops``,
-    the token form's count, sets its fp32-rate bound."""
+    the token form's count, sets its fp32-rate bound.  The Mamba scan has
+    no products: all its operations at the fp32 rate."""
     if name in TC_KERNELS or (name == FP_KERNEL and dtype == "bfloat16"):
         return flops / BF16_TC_FLOPS
     if name == FP_KERNEL:
@@ -1034,6 +1101,8 @@ def tc_seconds(name, flops, dtype, products=None):
     if name == WKV_BWD:      # its chunked form's (all, products): wkv_bwd_chunked_ops
         chunked, products = products
         return max(3 * products / TF32_TC_FLOPS, (chunked - products) / FP32_FLOPS)
+    if name == MAMBA:        # elementwise float32 work, exponentials counted one each
+        return flops / FP32_FLOPS
     raise ValueError(f"no tensor-core bound for {name}")
 
 
@@ -1131,7 +1200,7 @@ def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_la
                                  f"{repeat_diff:.3e} in their logits")
         top2 = torch.topk(outs[0][0], 2).values
         mixer = params["groups"][0]["L0"]["mixer"]
-        w = mixer["wr" if "wr" in mixer else "wq"]
+        w = mixer[next(k for k in ("wr", "wq", "in_proj") if k in mixer)]
         fingerprint = [float(params["embed"].double().sum()), float(prompts.sum()),
                        int(w["Eq"].long().sum()) if "Eq" in w else float(w["E"].double().sum())]
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
@@ -1194,20 +1263,22 @@ def finite(torch, t, what):
 
 
 def lm_card_vs_cpu(torch, dev, lm, get_config, arch, variant, kv_bits=(16,),
-                   prompt_len=CPU_PROMPT, **overrides) -> list:
+                   prompt_len=CPU_PROMPT, cfg=None, batch=1, **overrides) -> list:
     """``arch`` at ``variant`` in float32 at full width, cut to CPU_LAYERS
-    layers (``overrides`` replace more fields): one prompt of
-    ``prompt_len`` through prefill and greedy decode on the CPU (plain
-    versions), then the same tokens on the card, at each KV cache width of
-    ``kv_bits``; logits held at LOGIT_TOL of their scale and the greedy
-    tokens equal, a step whose CPU top two logits lie within the tolerance
-    being held by its logits alone.  One entry per cache width."""
+    layers (``overrides`` replace more fields; ``cfg`` gives the float32
+    config whole): ``batch`` prompts of ``prompt_len`` through prefill and
+    greedy decode on the CPU (plain versions), then the same tokens on the
+    card, at each KV cache width of ``kv_bits``; logits held at LOGIT_TOL
+    of their scale and the greedy tokens equal, a row's step whose CPU top
+    two logits lie within the tolerance being held by its logits alone.
+    One entry per cache width."""
     import dataclasses
-    cfg0 = get_config(arch, variant, compute_dtype="float32", n_layers=CPU_LAYERS, **overrides)
+    cfg0 = cfg or get_config(arch, variant, compute_dtype="float32", n_layers=CPU_LAYERS,
+                             **overrides)
     card = lm.prepack_params(
         lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg0, dev), cfg0)
     host = _to_cpu(card)
-    prompt = torch.randint(0, cfg0.vocab, (1, prompt_len),
+    prompt = torch.randint(0, cfg0.vocab, (batch, prompt_len),
                            generator=torch.Generator().manual_seed(SEED + 2))
     out = []
     for bits in kv_bits:
@@ -1215,7 +1286,7 @@ def lm_card_vs_cpu(torch, dev, lm, get_config, arch, variant, kv_bits=(16,),
 
         def run(params, device, tokens=None):
             with torch.no_grad():
-                state = lm.init_decode_state(cfg, 1, prompt_len + CPU_NEW, device)
+                state = lm.init_decode_state(cfg, batch, prompt_len + CPU_NEW, device)
                 logits, state = lm.prefill(params, prompt.to(device), state, cfg)
                 got, toks = [logits[:, -1].float().cpu()], []
                 for i in range(CPU_NEW):
@@ -1229,7 +1300,7 @@ def lm_card_vs_cpu(torch, dev, lm, get_config, arch, variant, kv_bits=(16,),
                     got.append(logits[:, -1].float().cpu())
             return got, toks
 
-        what = f"{arch} {variant} float32 {CPU_LAYERS} layers kv {bits} bits"
+        what = f"{arch} {variant} float32 {cfg.n_layers} layers kv {bits} bits"
         t0 = time.perf_counter()
         ref_logits, ref_toks = run(host, torch.device("cpu"))
         cpu_s = time.perf_counter() - t0
@@ -1241,26 +1312,31 @@ def lm_card_vs_cpu(torch, dev, lm, get_config, arch, variant, kv_bits=(16,),
             if not err <= LOGIT_TOL * scale:
                 raise AssertionError(f"{what}: step {i} logits on the card differ from the "
                                      f"CPU by {err:.3e} (> {LOGIT_TOL} * {scale:.3f})")
-            top2 = torch.topk(b[0], 2).values
-            gap = float(top2[0] - top2[1])
-            same = int(torch.argmax(a[0])) == int(ref_toks[i])
-            if not same and gap > LOGIT_TOL * scale:
-                raise AssertionError(f"{what}: step {i} greedy token "
-                                     f"{int(torch.argmax(a[0]))} on the card, "
-                                     f"{int(ref_toks[i])} on the CPU")
-            if not same:
-                log(f"[lm-cpu] step {i}: top two CPU logits within {gap:.2e} of each other; "
-                    f"held by its logits alone")
-            steps.append(dict(max_abs_err=err, scale=scale, top2_gap=gap, same_token=same))
+            gaps, sames = [], []
+            for r in range(batch):
+                top2 = torch.topk(b[r], 2).values
+                gap = float(top2[0] - top2[1])
+                same = int(torch.argmax(a[r])) == int(ref_toks[i][r])
+                if not same and gap > LOGIT_TOL * scale:
+                    raise AssertionError(f"{what}: step {i} row {r} greedy token "
+                                         f"{int(torch.argmax(a[r]))} on the card, "
+                                         f"{int(ref_toks[i][r])} on the CPU")
+                if not same:
+                    log(f"[lm-cpu] step {i} row {r}: top two CPU logits within {gap:.2e} of "
+                        f"each other; held by its logits alone")
+                gaps.append(gap)
+                sames.append(same)
+            steps.append(dict(max_abs_err=err, scale=scale, top2_gap=min(gaps),
+                              same_token=all(sames)))
         errs = ", ".join(f"{st['max_abs_err']:.2e}" for st in steps)
         log(f"[lm-cpu] {what}"
             + "".join(f", {k} {v}" for k, v in overrides.items())
-            + f", 1x{prompt_len}+{CPU_NEW}: card vs cpu logits max|d| per step {errs} "
+            + f", {batch}x{prompt_len}+{CPU_NEW}: card vs cpu logits max|d| per step {errs} "
             f"(max|logit| {max(st['scale'] for st in steps):.3f}); tokens "
-            f"{[int(t) for t in ref_toks]} equal; cpu run {cpu_s:.1f} s")
+            f"{[t[:, 0].tolist() for t in ref_toks]} equal; cpu run {cpu_s:.1f} s")
         out.append(dict(arch=arch, variant=variant, kv_cache_bits=bits, overrides=overrides,
-                        prompt=prompt_len, steps=steps, tokens=[int(t) for t in ref_toks],
-                        cpu_s=cpu_s))
+                        n_layers=cfg.n_layers, batch=batch, prompt=prompt_len, steps=steps,
+                        tokens=[t[:, 0].tolist() for t in ref_toks], cpu_s=cpu_s))
     del card, host
     torch.cuda.empty_cache()
     return out
@@ -1317,7 +1393,8 @@ def engine_drive(torch, eng, reqs, order, launch_counts, reset_launch_counts,
     within the pool, none held after the drain, every table row at the
     trash page); launches exact: kernel #1 ``per_fwd`` a forward (each
     bucketed prefill, prefill chunk and decode micro-step), kernel #4 once
-    per RWKV layer a prefill or chunk.  Records each step's wall time where
+    per RWKV layer a prefill or chunk, the Mamba scan once per Mamba layer
+    a forward.  Records each step's wall time where
     it ran no prefill and admitted nothing (a macro-step's time) and the
     steps at which a free slot waited on pages."""
     n, cfg = len(reqs), eng.cfg
@@ -1362,7 +1439,9 @@ def engine_drive(torch, eng, reqs, order, launch_counts, reset_launch_counts,
     whole = sum(not eng.chunk or len(r.prompt) <= eng.chunk for r in reqs)
     prefills = whole + st["prefill_chunks"]
     rwkv = sum(kind == "rwkv" for kind, _ in cfg.full_pattern) * cfg.n_groups
-    expect = {QUANT: per_fwd * (prefills + st["decode_micro_steps"]), WKV: rwkv * prefills}
+    mamba = sum(kind == "mamba" for kind, _ in cfg.full_pattern) * cfg.n_groups
+    forwards = prefills + st["decode_micro_steps"]
+    expect = {QUANT: per_fwd * forwards, WKV: rwkv * prefills, MAMBA: mamba * forwards}
     if counts != {k: expect.get(k, 0) for k in counts}:
         raise AssertionError(f"{what}: launches {counts}, expected {expect}")
     ttft = sorted(c.ttft_s for c in comps)
@@ -1532,7 +1611,7 @@ def engine_card_vs_cpu(torch, dev, lm, engine_mod, get_config, arch, page_size,
 
 def engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size, kv_pages,
                 per_fwd, oneshot, launch_counts, reset_launch_counts, built=None,
-                micro=None) -> dict:
+                micro=None, f32=None) -> dict:
     """Phase 10 for one LM: ``EngineConfig(...).build()`` at kernel-q3, bf16,
     full width and depth (or ``EpimEngine`` over ``built``, (cfg, params)
     the caller drew and keeps), serving phase 10's requests at K = 4
@@ -1541,7 +1620,8 @@ def engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size, 
     for bit), then the greedy requests of ``oneshot`` against one-shot
     generate (gate 6).  A MoE model's engine prefills every prompt whole
     at its exact length (gated), and its K = 4 run makes ``micro`` decode
-    micro-steps, the count of its schedule on the CPU."""
+    micro-steps, the count of its schedule on the CPU.  ``f32`` (default:
+    the engine built here) takes gate 6's float32 reading."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     geometry = dict(capacity=ENGINE_CAPACITY, max_len=ENGINE_MAX_LEN, page_size=page_size,
@@ -1585,7 +1665,7 @@ def engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size, 
                                  f"{diff} (bit for bit against decode_block {ENGINE_BLOCK})")
     t1 = time.perf_counter()
     vs = engine_vs_one_shot(torch, dev, lm, serve, engine_mod, eng, reqs, main["tokens"],
-                            oneshot, f32=built is None)
+                            oneshot, f32=built is None if f32 is None else f32)
     oneshot_s = time.perf_counter() - t1
     st = main["stats"]
     # the forwards by row count: whole prefills at their bucket (a MoE
@@ -2247,6 +2327,249 @@ def train_phase(torch, dev, gen, ref, wrappers, lm, get_config, launch_counts,
     log(f"[train] phase 13 {seconds:.1f} s")
     return rows, dict(run=run, card_vs_cpu=card_cpu, refused=refused, restart=restart,
                       seconds=seconds)
+
+
+# -- phase 14: Mamba ---------------------------------------------------------------
+def scan_ops(B, S, di, ds) -> float:
+    """Operations of the selective scan, per (batch, token, channel): per
+    state dt A, its exponential, (dt x) B, the state's multiply-add and the
+    C contraction's (7 ds), and dt x, D x and its add (3)."""
+    return float(B * S * di * (7 * ds + 3))
+
+
+def scan_bytes(B, S, di, ds, esz, h0=True) -> float:
+    """dt and x read in their dtype (esz bytes), B and C too, A and D, h0
+    read (if given) and hT written, y written in float32."""
+    return (2.0 * esz * B * S * di + 2.0 * esz * B * S * ds + 4.0 * (di * ds + di)
+            + 4.0 * B * di * ds * (2 if h0 else 1) + 4.0 * B * S * di)
+
+
+def scan_inputs(torch, dev, gen, B, S, di, ds, h0="random"):
+    f = lambda *s: torch.randn(s, device=dev, generator=gen)
+    dt = torch.nn.functional.softplus(f(B, S, di) - 1.0)
+    A = -torch.exp(f(di, ds) * 0.5)
+    h = {"random": lambda: f(B, di, ds), "zero": lambda: torch.zeros(B, di, ds, device=dev),
+         None: lambda: None}[h0]()
+    return dt, f(B, S, di), f(B, S, ds), f(B, S, ds), A, f(di), h
+
+
+def scan_rows(torch, dev, gen, ref, wrappers, cfg, path, cases) -> list:
+    """Phase 14 (a): the scan kernel at jamba's width for each case (B, S,
+    dtype of dt, x, B and C, h0 kind, launches counted): against its plain
+    version on the same values at KERNEL_TOL (y and hT), timed beside it
+    and the bound.  Returns the rows."""
+    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+    rows = []
+    for B, S, dtype, h0_kind, count in cases:
+        dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, B, S, di, ds, h0_kind)
+        dt, x, Bm, Cm = (t.to(dtype) for t in (dt, x, Bm, Cm))
+        dname = str(dtype).replace("torch.", "")
+        kernel = lambda: wrappers[MAMBA](dt, x, Bm, Cm, A, D, h0)
+        plain = lambda: ref.mamba_scan_ref(dt, x, Bm, Cm, A, D, h0)
+        (y, hT), (y_ref, h_ref) = kernel(), plain()
+        what = f"{path} {MAMBA} {dname} B={B} S={S} h0 {h0_kind}"
+        err = max(max_err(torch, y, y_ref, KERNEL_TOL, f"{what} y"),
+                  max_err(torch, hT, h_ref, KERNEL_TOL, f"{what} hT"))
+        nbytes = scan_bytes(B, S, di, ds, dt.element_size(), h0 is not None)
+        row = timed_row(torch, MAMBA, kernel, plain, None, nbytes, scan_ops(B, S, di, ds), dname)
+        row.update(B=B, S=S, di=di, ds=ds, dtype=dname, h0=h0_kind, max_abs_err=err, path=path,
+                   count=count)
+        rows.append(row)
+        log(f"[mamba-kernels] {what} x{count}: max_err={err:.2e} (y and hT) ms={row['ms']:.4f} "
+            f"(eager {row['ms_eager']:.4f}) plain_ms={row['plain_ms']:.4f} library_ms=none "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        del dt, x, Bm, Cm, y, hT, y_ref, h_ref
+    return rows
+
+
+def scan_bits(torch, dev, gen, wrappers, cfg) -> dict:
+    """Phase 14 (a), bit for bit at jamba's width, 4 x 256 tokens: 128 + 128
+    tokens carried through hT against one launch of 256; dt = 0 on the last
+    7 tokens leaves hT at the state before them; three launches in a row;
+    bf16 inputs against float32 inputs of the same values."""
+    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+    dt, x, Bm, Cm, A, D, h0 = ins = scan_inputs(torch, dev, gen, 4, 256, di, ds)
+    k = wrappers[MAMBA]
+    cut = lambda lo, hi, *ts: [t[:, lo:hi].contiguous() for t in ts]
+    y, hT = k(*ins)
+    ya, ha = k(*cut(0, 128, dt, x, Bm, Cm), A, D, h0)
+    yb, hb = k(*cut(128, 256, dt, x, Bm, Cm), A, D, ha)
+    split = torch.equal(torch.cat([ya, yb], 1), y) and torch.equal(hb, hT)
+    tail = dt.clone()
+    tail[:, -7:] = 0.0
+    _, h_tail = k(tail, x, Bm, Cm, A, D, h0)
+    _, h_before = k(*cut(0, 249, tail, x, Bm, Cm), A, D, h0)
+    identity = torch.equal(h_tail, h_before)
+    again = [k(*ins) for _ in range(3)]
+    repeat = all(torch.equal(a, y) and torch.equal(h, hT) for a, h in again)
+    bf = [t.bfloat16() for t in (dt, x, Bm, Cm)]
+    yb16, hb16 = k(*bf, A, D, h0)
+    y32, h32 = k(*(t.float() for t in bf), A, D, h0)
+    widened = torch.equal(yb16, y32) and torch.equal(hb16, h32)
+    out = dict(split_128_128=split, dt0_tail_identity=identity, three_launches=repeat,
+               bf16_equals_widened_f32=widened)
+    log(f"[mamba-kernels] {MAMBA} 4x256 bit for bit: " + ", ".join(f"{a} {v}"
+                                                                   for a, v in out.items()))
+    if not all(out.values()):
+        raise AssertionError(f"{MAMBA}: not bit for bit: {out}")
+    return out
+
+
+def mamba_build(torch, dev, lm, get_config):
+    """jamba kernel-q3 (MAMBA_FFN) in bf16 from SEED on the card.  Returns
+    (cfg, params, {bytes held, card free, setup s})."""
+    cfg = get_config(MAMBA_ARCH, "kernel-q3", ffn_pattern=MAMBA_FFN)
+    t0 = time.perf_counter()
+    params = lm.prepack_params(
+        lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_allocated()
+    log(f"[mamba] {MAMBA_ARCH} kernel-q3 bf16 at {cfg.n_layers} layers, ffn {MAMBA_FFN[:2]} x 4: "
+        f"parameters and all else allocated {held / 2**30:.2f} GiB ({held} bytes), card free "
+        f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB; init+prepack {setup_s:.1f} s")
+    if free < MAMBA_WORKSPACE:
+        raise AssertionError(f"{MAMBA_ARCH}: {free} bytes free beside the parameters, the phase "
+                             f"needs {MAMBA_WORKSPACE}")
+    return cfg, params, dict(n_layers=cfg.n_layers, bytes=held, free=free, total=total,
+                             setup_s=setup_s)
+
+
+def mamba_refusal(torch, dev, ops) -> str:
+    """backward() through the scan on the card raises NotImplementedError
+    naming the ROADMAP item of the scan's gradient."""
+    from repro_torch.kernels.mamba_scan import GRAD_ITEM
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, 1, 8, 64, 16)
+    x.requires_grad_(True)
+    y, _ = ops.mamba_scan(dt, x, Bm, Cm, A, D, h0)
+    try:
+        y.sum().backward()
+    except NotImplementedError as e:
+        if GRAD_ITEM not in str(e):
+            raise AssertionError(f"{MAMBA}: the refusal does not name {GRAD_ITEM}: {e}")
+        log(f"[mamba-cpu] backward() through the scan on the card refuses: {e}")
+        return str(e)
+    raise AssertionError(f"{MAMBA}: backward() on the card did not raise")
+
+
+def mamba_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, launch_counts,
+                reset_launch_counts):
+    """Phase 14: (a) the scan kernel at jamba's width (scan_rows,
+    scan_bits); (b) jamba kernel-q3 at full depth (mamba_build): generate 4
+    x 256 + 32 with exact launches, three prefills bit for bit, timed and
+    profiled, the scan's share of busy; kernel #1 at its specs and rows;
+    (c) the engine on the same weights (engine_path: chunks across the
+    scan's windows, K = 1 and reverse order bit for bit, one-shot), with
+    the scan and kernel #1 at the engine's rows; (d) card against CPU in
+    float32: jamba's widths at 2 Mamba layers with the dense FFN, 2 x 64
+    tokens, and the jamba smoke config (16 layers, MoE and attention) with
+    the router's experts equal; backward() refuses on the card.  Returns
+    (kernel rows, report)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import engine as engine_mod
+    from repro_torch.models import moe
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _RETAG.update({"[lm]": "[mamba]", "[lm-kernels]": "[mamba-kernels]", "[lm-cpu]": "[mamba-cpu]",
+                   "[profile] lm": "[profile] mamba", "[engine]": "[mamba-engine]",
+                   "[engine-cpu]": "[mamba-cpu]"})
+    cfg = get_config(MAMBA_ARCH, "kernel-q3", ffn_pattern=MAMBA_FFN)
+    new = LM_NEW
+    # (a) the kernel alone at jamba's width: the generate's prefill and
+    # decode shapes counted, the rest checked and timed
+    rows = scan_rows(torch, dev, gen, ref, wrappers, cfg, MAMBA_ARCH, [
+        (LM_REQUESTS, LM_PROMPT, torch.bfloat16, "zero", MAMBA_LAYERS),
+        (LM_REQUESTS, LM_PROMPT, torch.bfloat16, "random", 0),
+        (LM_REQUESTS, LM_PROMPT, torch.float32, "zero", 0),
+        (LM_REQUESTS, LM_PROMPT, torch.float32, "random", 0),
+        (LM_REQUESTS, 250, torch.bfloat16, "random", 0),
+        (LM_REQUESTS, 1, torch.bfloat16, "random", MAMBA_LAYERS * (new - 1)),
+        (1, 1, torch.bfloat16, "random", 0)])
+    bits = scan_bits(torch, dev, gen, wrappers, cfg)
+    from repro_torch.kernels import _build
+    ptxas = {k: v for k, v in ptxas_of(_build.build_log.get("mamba_scan", "")).items()
+             if "Li16E" in k}
+    for entry, (regs, st, ld) in ptxas.items():
+        log(f"[mamba-kernels] ptxas {entry}: {regs} registers, {st} / {ld} bytes spilled")
+    torch.cuda.empty_cache()
+    # (b) the model at full depth
+    cfg, params, built = mamba_build(torch, dev, lm, get_config)
+    sites = sum(site_specs(lm, cfg).values()) * cfg.n_groups
+    mamba_layers = sum(k == "mamba" for k, _ in cfg.full_pattern) * cfg.n_groups
+    if (sites, mamba_layers) != (MAMBA_SITES, MAMBA_LAYERS):
+        raise AssertionError(f"{MAMBA_ARCH}: {sites} epitomized projections and {mamba_layers} "
+                             f"Mamba layers, expected {MAMBA_SITES} and {MAMBA_LAYERS}")
+    run = lm_path(torch, dev, lm, serve, cfg, "kernel-q3",
+                  {QUANT: MAMBA_SITES * new, MAMBA: MAMBA_LAYERS * new},
+                  launch_counts, reset_launch_counts, built=(params, built["setup_s"]))
+    share = {}
+    for label in ("prefill", "decode"):
+        busy = run[f"{label}_busy_ms"]
+        prof = run[f"{label}_device_breakdown"]
+        scan = sum(ms for name, ms, _ in prof if "mamba_scan" in name)
+        k1 = sum(ms for name, ms, _ in prof if "epim_mma::" in name)
+        share[label] = dict(busy_ms=busy, scan_ms=scan, kernel1_ms=k1)
+        log(f"[mamba] {label}: device busy {busy:.3f} ms; the scan {scan:.3f} ms "
+            f"({100 * scan / max(busy, 1e-9):.1f} % of busy), kernel #1 {k1:.3f} ms "
+            f"({100 * k1 / max(busy, 1e-9):.1f} %)")
+    run.update(depth=built, scan_share=share)
+    torch.cuda.empty_cache()
+    # (c) the engine on the same weights
+    eng_run = engine_path(torch, dev, lm, serve, engine_mod, get_config, MAMBA_ARCH, 16, 0,
+                          MAMBA_SITES, MAMBA_ONESHOT, launch_counts, reset_launch_counts,
+                          built=(cfg, params), micro=MAMBA_MICRO, f32=True)
+    if eng_run["stats"]["prefill_chunks"] != MAMBA_CHUNKS or eng_run["geometry"]["chunk"] != 128:
+        raise AssertionError(f"{MAMBA_ARCH} engine: {eng_run['stats']['prefill_chunks']} chunks "
+                             f"of {eng_run['geometry']['chunk']}, the schedule makes "
+                             f"{MAMBA_CHUNKS} of 128")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # kernel #1 at the generate's and the engine's rows (bf16, the path's)
+    bf16_only = ((torch.bfloat16, BF16_TOL),)
+    rows += quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, MAMBA_ARCH,
+                          ((LM_REQUESTS * LM_PROMPT, 1), (LM_REQUESTS, new - 1)), LM_REQUESTS,
+                          dtypes=bf16_only)
+    rows += quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg,
+                          f"{MAMBA_ARCH} engine", sorted(eng_run["forwards_by_rows"].items()),
+                          ENGINE_CAPACITY, dtypes=bf16_only)
+    # the engine's scans: batch-1 prefills (bucket, chunk; h0 the carried
+    # state, zero for a whole prompt), capacity-row decode
+    cases = [(1, T, torch.bfloat16, "random", MAMBA_LAYERS * n)
+             for T, n in sorted(eng_run["forwards_by_rows"].items()) if T != ENGINE_CAPACITY]
+    cases.append((ENGINE_CAPACITY, 1, torch.bfloat16, "random",
+                  MAMBA_LAYERS * eng_run["forwards_by_rows"][ENGINE_CAPACITY]))
+    rows += scan_rows(torch, dev, gen, ref, wrappers, cfg, f"{MAMBA_ARCH} engine", cases)
+    torch.cuda.empty_cache()
+    # (d) card against CPU in float32
+    wide = lm_card_vs_cpu(torch, dev, lm, get_config, MAMBA_ARCH, "kernel-q3", prompt_len=64,
+                          batch=2, pattern=("mamba",), ffn_pattern=("dense",))
+    smoke = dataclasses.replace(get_smoke_config(MAMBA_ARCH, "kernel-q3"),
+                                compute_dtype="float32")
+    with route_recorder(torch, moe) as rr:
+        small = lm_card_vs_cpu(torch, dev, lm, get_config, MAMBA_ARCH, "kernel-q3",
+                               prompt_len=64, batch=2, cfg=smoke)
+    n = len(rr.seen) // 2
+    if 2 * n != len(rr.seen) or not n or not all(
+            torch.equal(a, b) for (_, a, _), (_, b, _) in zip(rr.seen[:n], rr.seen[n:])):
+        raise AssertionError(f"{MAMBA_ARCH} smoke: the router picks other experts on the card "
+                             f"than on the CPU")
+    gap = min(g for _, _, g in rr.seen[:n])
+    log(f"[mamba-cpu] {MAMBA_ARCH} smoke float32 {smoke.n_layers} layers: the router's experts "
+        f"equal on the card and the CPU over {n} routings; smallest top-k gap {gap:.3e}")
+    refusal = mamba_refusal(torch, dev, ops)
+    seconds = time.perf_counter() - t_phase
+    _RETAG.clear()
+    log(f"[mamba] phase 14 {seconds:.1f} s")
+    return rows, dict(lm=run, engine=eng_run, bits=bits, ptxas=ptxas,
+                      card_vs_cpu=dict(wide=wide, smoke=small, router_min_gap=gap),
+                      refusal=refusal, seconds=seconds)
 
 
 QM_SHAPES = ((4096, 4096), (4096, 14336), (14336, 4096))   # rwkv6-7b's projections

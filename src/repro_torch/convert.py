@@ -16,7 +16,10 @@ reference stacks every group leaf over a leading group axis, the port keeps
 a list of per-group dicts, so ``groups`` is unstacked.  The MoE FFN's
 ``router`` and its expert tensors cross the same way: ``w_gate``, ``w_up``
 and ``w_down`` are arrays under ``moe`` ((G, E, d, ff) stacked) and dicts
-(``E``, ``Eq``, ...) under the dense FFN.
+(``E``, ``Eq``, ...) under the dense FFN.  The Mamba mixer's leaves are
+its projections' dicts (``in_proj``, ``x_proj``, ``dt_proj`` with its bias
+``b``, ``out_proj``), the conv's ``conv_w`` and ``conv_b``, and ``A_log``
+and ``D``, which stay float32.
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ def params_from_jax(tree: Mapping, device="cuda") -> dict:
 LM_LEAVES = ("embed", "head", "final_norm", "norm1", "norm2",
              "mu", "lora_A", "lora_B", "w0", "wd_A", "wd_B", "u", "ln_x",
              "mu_k", "mu_r", "E", "W", "b", "Eq", "Es", "Ez",
-             "router", "w_gate", "w_up", "w_down")
+             "router", "w_gate", "w_up", "w_down",
+             "conv_w", "conv_b", "A_log", "D")
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:

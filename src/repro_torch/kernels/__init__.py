@@ -16,6 +16,10 @@ wkv6                  — the chunked RWKV6 WKV with a carried state, its
                         in bfloat16 or float32 (``csrc/wkv6.cu``), and its
                         gradient, the token recurrence backward from
                         states stored every 8 tokens (``csrc/wkv6_bwd.cu``)
+mamba_scan            — Mamba's selective scan with a carried state, one
+                        thread per (batch, channel) with its states in
+                        registers, dt, x, B, C in bfloat16 or float32
+                        (``csrc/mamba_scan.cu``)
 quant_matmul          — a dense int8 dequant matmul with one (scale, zero)
                         per 256 x 256 crossbar tile, float32 or bfloat16
                         activations (``csrc/quant_matmul.cu`` on
@@ -29,6 +33,7 @@ them to 0.  The sources are compiled with nvcc at first use
 (``_build.py``), never at import.
 """
 from .epitome_matmul import epitome_matmul_blocks
+from .mamba_scan import mamba_scan
 from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
                                    quant_epitome_matmul_fused_fold)
 from .quant_matmul import quant_matmul
@@ -41,6 +46,7 @@ KERNELS = {
     "wkv6_chunked": wkv6_chunked,
     "quant_matmul": quant_matmul,
     "wkv6_chunked_bwd": wkv6_chunked_bwd,
+    "mamba_scan": mamba_scan,
 }
 
 

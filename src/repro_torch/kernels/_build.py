@@ -52,6 +52,9 @@ LIBRARIES = {
         "wkv6_chunked_bwd_launch": [_P] * 16 + [_I] * 5 + [_P],
         "wkv6_chunked_bwd_scratch": [_I] * 3 + [_P],
     }),
+    "mamba_scan": ("mamba_scan.cu", {
+        "mamba_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
+    }),
 }
 
 _lock = threading.Lock()

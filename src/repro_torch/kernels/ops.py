@@ -4,7 +4,8 @@
 activations into epitome-row space (the IFRT analogue), runs the kernel with
 the static OFAT column-block table, and trims the result to the virtual
 width.  ``quant_epitome_matmul`` does the same through the int8 kernels and
-returns x's dtype; ``wkv6`` is the RWKV6 recurrence of the LM's prefill.
+returns x's dtype; ``wkv6`` is the RWKV6 recurrence of the LM's prefill,
+``mamba_scan`` the Mamba layers' selective scan.
 Block picks follow ``repro.kernels.ops`` integer for integer, since they
 feed plan provenance; the CUDA kernels mask ragged rows and contraction
 edges themselves, so no wrapper pads rows or codes before a launch.
@@ -27,6 +28,7 @@ from .epitome_matmul import epitome_matmul_blocks
 from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
                                    quant_epitome_matmul_fused_fold)
 from .quant_matmul import quant_matmul as _quant_matmul
+from .mamba_scan import MambaScan
 from .wkv6 import WKV6
 
 
@@ -175,6 +177,21 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     f32 = lambda t: t.to(torch.float32).contiguous()
     return WKV6.apply(r.contiguous(), k.contiguous(), v.contiguous(), f32(logw),
                       f32(u), None if state is None else f32(state), chunk)
+
+
+def mamba_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+               A: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None,
+               chunk: int = 128) -> tuple:
+    """Mamba's selective scan.  dt, x: (B, S, di); Bm, Cm: (B, S, ds); A:
+    (di, ds); D: (di,); h0: (B, di, ds) or None (zero).  Returns (y (B, S,
+    di), final state), both float32, y including D x; the caller casts y
+    back.  dt, x, Bm and Cm pass in one dtype (float32, or the LM's
+    bfloat16, which the kernel reads directly); A, D and the state are
+    float32.  The call goes through ``MambaScan``: one launch of the scan
+    kernel for a prefill or a decode step alike."""
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    return MambaScan.apply(dt.contiguous(), x.contiguous(), Bm.contiguous(), Cm.contiguous(),
+                           f32(A), f32(D), None if h0 is None else f32(h0), chunk)
 
 
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the kernels, shape for shape the oracles of
 ``repro.kernels.ref`` (and, for the WKV, the chunked arithmetic of
-``repro.models.ssm.rwkv_chunked``).  The kernel wrappers run these for
+``repro.models.ssm.rwkv_chunked``; for the Mamba scan, the recurrence of
+``repro.models.ssm.mamba_mix``).  The kernel wrappers run these for
 tensors on the CPU; on the card they are what each kernel is held
 against."""
 from __future__ import annotations
@@ -9,6 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.quant import dequantize_packed
 
@@ -173,3 +175,47 @@ def wkv6_chunked_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dlw[:, t] = wt * (dS * states[t]).sum(-1)
         dS = dS * wt[..., None] + rt[..., :, None] * dot[..., None, :]
     return dr, dk, dv, dlw, du, dS
+
+
+def _mamba_scan_tokens(h, dt, x, Bm, Cm, A, D):
+    """The selective scan over the tokens of one window, one by one, all
+    float32: (y (B, L, di), h after the last token)."""
+    ys = []
+    for t in range(dt.shape[1]):
+        dA = torch.exp(dt[:, t, :, None] * A)                      # (B, di, ds)
+        dBx = (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        h = dA * h + dBx
+        ys.append((h * Cm[:, t, None, :]).sum(-1) + D * x[:, t])
+    return torch.stack(ys, 1), h
+
+
+def mamba_scan_ref(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                   A: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+                   chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba's selective scan, token by token in float32, per (batch,
+    channel d, state n):
+        dA = exp(dt_t A),  dBx = (dt_t x_t) B_t,  h = dA h + dBx,
+        y_t = sum_n h[n] C_t[n] + D x_t.
+    dt, x: (B, S, di); Bm, Cm: (B, S, ds); A (di, ds) and D (di) float32;
+    h0 (B, di, ds) or None (zero).  Returns (y (B, S, di), hT (B, di, ds)),
+    float32.  No (B, S, di, ds) tensor is built; where autograd records,
+    each window of ``chunk`` tokens runs under one checkpoint, so its
+    backward keeps one state a window (the reference's memory rule)."""
+    Bsz, S, di = dt.shape
+    ds = Bm.shape[-1]
+    ins = (dt, x, Bm, Cm, A, D, h0)
+    record = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ins)
+    dt, x, Bm, Cm, A, D = (t.float() for t in ins[:6])
+    h = (torch.zeros((Bsz, di, ds), device=dt.device) if h0 is None else h0.float())
+    L = max(1, min(chunk, S))
+    ys = []
+    for lo in range(0, S, L):
+        window = (h, dt[:, lo:lo + L], x[:, lo:lo + L], Bm[:, lo:lo + L], Cm[:, lo:lo + L],
+                  A, D)
+        if record:
+            y, h = checkpoint(_mamba_scan_tokens, *window, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            y, h = _mamba_scan_tokens(*window)
+        ys.append(y)
+    return (torch.cat(ys, 1) if ys else dt.new_zeros((Bsz, 0, di))), h

@@ -13,12 +13,21 @@ recurrent state.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi3.5-moe-42b-a6.6b --epitome kernel-q3 --smoke --device cpu \\
         --engine --decode-block 4                       # a MoE FFN
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-1.5-large-398b --epitome kernel-q3 --smoke --device cpu \\
+        --engine --decode-block 4                       # Mamba, attention, MoE
 
 (counterpart of ``repro.launch.serve``).  It serves rwkv6-7b, the six
 attention architectures with the dense FFN (qwen2-72b, qwen1.5-110b,
 gemma2-2b, deepseek-67b, musicgen-large, internvl2-76b; the last two take
-token ids here, their embedding inputs through ``models.lm`` directly) and
-the two with the MoE FFN (phi3.5-moe-42b-a6.6b, grok-1-314b).  Parameters are drawn from
+token ids here, their embedding inputs through ``models.lm`` directly),
+the two with the MoE FFN (phi3.5-moe-42b-a6.6b, grok-1-314b), and
+jamba-1.5-large-398b (Mamba layers with one attention layer in eight, the
+dense and the MoE FFN in turn).  At full size grok-1 and jamba need more
+than one card for their MoE FFNs (the scale-out slice); on one card they
+serve as ``--smoke``, and jamba also without its MoE FFNs
+(``get_config(..., ffn_pattern=("dense", "none") * 4)``, as ``chip_smoke.py``
+phase 14 serves it at full width and depth).  Parameters are drawn from
 ``--seed`` on the serving device and, for a kernel x quant variant such as
 ``kernel-q3``, prepacked once into int8 codes, so every forward feeds the
 fused kernel stored codes.  Greedy decoding follows the reference token for
@@ -102,8 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="rwkv6-7b",
                     help="rwkv6-7b, qwen2-72b, qwen1.5-110b, gemma2-2b, deepseek-67b, "
-                         "musicgen-large, internvl2-76b, phi3.5-moe-42b-a6.6b or "
-                         "grok-1-314b")
+                         "musicgen-large, internvl2-76b, phi3.5-moe-42b-a6.6b, "
+                         "grok-1-314b or jamba-1.5-large-398b")
     ap.add_argument("--epitome", default="off")
     ap.add_argument("--plan", default="",
                     help="EpitomePlan JSON driving per-layer epitome "

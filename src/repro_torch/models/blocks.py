@@ -2,10 +2,11 @@
 model (counterpart of ``repro.models.blocks``).  lm.py keeps one parameter
 dict per group and loops over them.
 
-The port runs the attention kinds (``attn``, sliding-window ``attn_local``)
-with the dense SwiGLU/gelu FFN or the MoE FFN (``models.moe``), and the
-RWKV6 kinds (the ``rwkv`` mixer and the ``rwkv_ffn`` channel mix).  Mamba
-comes with a later slice and raises here until then.
+The port runs every layer kind of the reference: the attention kinds
+(``attn``, sliding-window ``attn_local``), Mamba (``mamba``, jamba's SSM
+layer) and the RWKV6 kinds (the ``rwkv`` mixer and the ``rwkv_ffn``
+channel mix), with the dense SwiGLU/gelu FFN or the MoE FFN
+(``models.moe``).
 
 Prefill and decode update the attention caches of the state they are given
 in place (and return them in the new state); the recurrent kinds return new
@@ -23,24 +24,17 @@ from .attention import (CacheSpec, attention, chunked_prefill_attention,
 from .common import act_fn, init_rms_norm, rms_norm
 from .config import LayerKind, ModelConfig, layer_name as _nm
 from .moe import init_moe, moe_ffn
-from .ssm import (init_rwkv, init_rwkv_ffn, init_rwkv_state, rwkv_channel_mix,
-                  rwkv_time_mix)
+from .ssm import (init_mamba, init_mamba_state, init_rwkv, init_rwkv_ffn, init_rwkv_state,
+                  mamba_mix, rwkv_channel_mix, rwkv_time_mix)
 
 _ATTN = (LayerKind.ATTN.value, LayerKind.ATTN_LOCAL.value)
-_MIXERS = _ATTN + (LayerKind.RWKV.value,)
+_MAMBA = LayerKind.MAMBA.value
+_MIXERS = _ATTN + (_MAMBA, LayerKind.RWKV.value)
 _FFNS = ("dense", "moe", "rwkv_ffn", "none")
-_LATER = {
-    LayerKind.MAMBA.value: "the Mamba slice of the port (ROADMAP.md item 11)",
-}
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
     for kind, ffn_kind in cfg.full_pattern:
-        for k in (kind, ffn_kind):
-            if k in _LATER:
-                raise NotImplementedError(
-                    f"{cfg.name}: layer kind {k!r} is not ported yet; it comes "
-                    f"with {_LATER[k]}")
         if kind not in _MIXERS or ffn_kind not in _FFNS:
             raise ValueError(f"{cfg.name}: unknown layer kinds {(kind, ffn_kind)}")
 
@@ -95,6 +89,8 @@ def init_group(generator: torch.Generator, cfg: ModelConfig,
         layer: Dict[str, Any] = {"norm1": init_rms_norm(cfg.d_model, cfg.pdtype, device)}
         if kind in _ATTN:
             layer["mixer"] = init_attn(generator, cfg, prefix=mixer_p, device=device)
+        elif kind == _MAMBA:
+            layer["mixer"] = init_mamba(generator, cfg, prefix=mixer_p, device=device)
         else:
             layer["mixer"] = init_rwkv(generator, cfg, prefix=mixer_p, device=device)
         if ffn_kind != "none":
@@ -121,6 +117,8 @@ def apply_group(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         if kind in _ATTN:
             mix = attention(layer["mixer"], h, cfg, local=kind == LayerKind.ATTN_LOCAL.value,
                             positions=positions, prefix=mixer_p)
+        elif kind == _MAMBA:
+            mix, _ = mamba_mix(layer["mixer"], h, cfg, prefix=mixer_p)
         else:
             mix, _ = rwkv_time_mix(layer["mixer"], h, cfg, prefix=mixer_p)
         x = x + mix
@@ -139,7 +137,7 @@ def prefill_group(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor
 
     ``valid_len`` (an int or a 0-d device tensor) marks a right-padded
     prefill (the serving engine's buckets): only the first ``valid_len``
-    rows are real.  The RWKV kinds mask the pads out of their state;
+    rows are real.  The recurrent kinds mask the pads out of their state;
     attention needs no mask, since pad K/V lie past every real query and
     decode overwrites them before a mask lets them through.
 
@@ -172,6 +170,11 @@ def prefill_group(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor
                 written = (("k", k), ("v", v))
             for name, t in written:
                 st[name][:, :S].copy_(t)
+        elif kind == _MAMBA:
+            mix, (conv, hst) = mamba_mix(layer["mixer"], h, cfg,
+                                         state=(st["conv"].to(h.dtype), st["h"]),
+                                         prefix=mixer_p, valid_len=valid_len)
+            ns["conv"], ns["h"] = conv.to(st["conv"].dtype), hst
         else:
             mix, (xp, s) = rwkv_time_mix(layer["mixer"], h, cfg,
                                          state=(st["x_prev"].to(h.dtype), st["s"]),
@@ -190,7 +193,7 @@ def prefill_group(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor
 def init_group_state(cfg: ModelConfig, batch: int, max_len: int,
                      device="cuda") -> Dict[str, Any]:
     """Decode state for one group: for the attention kinds a KV cache of
-    ``max_len`` rows, for the RWKV kinds the recurrent state."""
+    ``max_len`` rows, for Mamba and the RWKV kinds the recurrent state."""
     _check_kinds(cfg)
     state: Dict[str, Any] = {}
     for i, (kind, ffn_kind) in enumerate(cfg.full_pattern):
@@ -198,6 +201,9 @@ def init_group_state(cfg: ModelConfig, batch: int, max_len: int,
             c = init_kv_cache(cfg, CacheSpec(max_len=max_len, batch=batch), n=1,
                               device=device)
             state[f"L{i}"] = {k: v[0] for k, v in c.items()}
+        elif kind == _MAMBA:
+            conv, h = init_mamba_state(cfg, batch, device)
+            state[f"L{i}"] = {"conv": conv, "h": h}
         else:
             xp, s = init_rwkv_state(cfg, batch, device)
             state[f"L{i}"] = {"x_prev": xp, "s": s}
@@ -226,6 +232,10 @@ def decode_group(params: Dict[str, Any], state: Dict[str, Any], x: torch.Tensor,
             mix, _ = decode_attention(layer["mixer"], h, st, pos, cfg,
                                       local=kind == LayerKind.ATTN_LOCAL.value,
                                       page_table=page_table, prefix=mixer_p)
+        elif kind == _MAMBA:
+            mix, (conv, hst) = mamba_mix(layer["mixer"], h, cfg, state=(st["conv"], st["h"]),
+                                         prefix=mixer_p)
+            ns["conv"], ns["h"] = conv, hst
         else:
             mix, (xp, s) = rwkv_time_mix(layer["mixer"], h, cfg,
                                          state=(st["x_prev"].to(h.dtype), st["s"]),

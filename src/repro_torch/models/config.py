@@ -5,9 +5,8 @@ smallest repeating "super-block", e.g. jamba's 1-attention-per-8 or gemma2's
 local/global alternation).  Each pattern position names a sequence mixer and
 an FFN kind.  The fields, their defaults and the per-site epitome
 resolution (``ModelConfig.ep``) are the reference's; ``pdtype``/``cdtype``
-are torch dtypes.  Fields of the layer kinds not ported yet (MoE, Mamba)
-are kept so the ten architectures stay data; the reference's sharding
-knobs have no counterpart on one card, while ``remat_policy`` (what the
+are torch dtypes.  The reference's sharding knobs have no counterpart on
+one card, while ``remat_policy`` (what the
 training forward keeps of each group) and ``kv_cache_bits`` (the int8 KV
 cache of the attention kinds) are kept.
 """
@@ -181,6 +180,10 @@ class ModelConfig:
         fp = self.ffn_pattern * (len(self.pattern) // len(self.ffn_pattern)) \
             if len(self.ffn_pattern) == 1 else self.ffn_pattern
         return tuple(zip(self.pattern, fp))
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
 
     @property
     def pdtype(self) -> torch.dtype:

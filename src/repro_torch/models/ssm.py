@@ -1,5 +1,5 @@
-"""RWKV6 (Finch) time and channel mixing (counterpart of the RWKV6 half of
-``repro.models.ssm``; Mamba comes with its own slice).
+"""Sequence-state models: RWKV6 (Finch) time and channel mixing, and
+Mamba's selective SSM, jamba's (counterpart of ``repro.models.ssm``).
 
 Data-dependent per-channel decay (arXiv:2404.05892), per head:
     S_t = diag(w_t) S_{t-1} + k_t^T v_t          (K x K state)
@@ -9,9 +9,15 @@ kernel on the card, its plain version on the CPU); a decode step (one
 token) is the plain recurrence, as in the reference, which runs no kernel
 there.
 
+Mamba (arXiv:2312.00752, as used in jamba): input-dependent (dt, B, C)
+through a causal depthwise conv and two projections, then the selective
+scan through ``kernels.ops.mamba_scan`` (the CUDA kernel on the card, its
+plain version on the CPU) for a prefill and a decode step alike.
+
 A right-padded prefill (``valid_len``, the serving engine's bucketed and
 chunked prefills) masks its pad rows so they leave the carried state as
-the last real token left it, and carries the last real token's x.
+the last real token left it, and carries the last real token's x (RWKV)
+or conv window (Mamba).
 """
 from __future__ import annotations
 
@@ -217,3 +223,92 @@ def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     kv = apply_linear(p["wv"], k, cfg.ep(cfg.d_ff, d, _nm(prefix, "wv")))
     r = torch.sigmoid(apply_linear(p["wr"], xr, cfg.ep(d, d, _nm(prefix, "wr"))))
     return r * kv, last_real(x, valid_len)
+
+
+# ===========================================================================
+# Mamba (jamba's SSM layer)
+# ===========================================================================
+def init_mamba(generator: torch.Generator, cfg: ModelConfig, prefix: str = "",
+               device="cuda") -> dict:
+    d = cfg.d_model
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    dt_rank = max(1, d // 16)
+    dtp = cfg.pdtype
+    lin = lambda w, M, N, bias=False: init_linear(
+        generator, M, N, cfg.ep(M, N, _nm(prefix, w)), bias=bias, dtype=dtp, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": lin("in_proj", d, 2 * di),
+        "conv_w": (_randn(generator, dc, di) / math.sqrt(dc)).to(device=device, dtype=dtp),
+        "conv_b": torch.zeros((di,), dtype=dtp, device=device),
+        "x_proj": lin("x_proj", di, dt_rank + 2 * ds),
+        "dt_proj": lin("dt_proj", dt_rank, di, bias=True),
+        "A_log": torch.log(torch.arange(1, ds + 1, **f32)).repeat(di, 1),
+        "D": torch.ones((di,), **f32),
+        "out_proj": lin("out_proj", di, d),
+    }
+
+
+def _conv_window(xpad: torch.Tensor, valid_len, n: int) -> torch.Tensor:
+    """The n rows of ``xpad`` that end at the last real token,
+    xpad[:, valid_len : valid_len + n] (the trailing n rows without
+    ``valid_len``): an int, or a 0-d device tensor read by a device index,
+    never by the host."""
+    if valid_len is None:
+        return xpad[:, -n:]
+    if isinstance(valid_len, torch.Tensor):
+        idx = valid_len.reshape(1).to(device=xpad.device, dtype=torch.long) \
+            + torch.arange(n, device=xpad.device)
+        return xpad.index_select(1, idx)
+    return xpad[:, valid_len:valid_len + n]
+
+
+def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              chunk: int = 0, prefix: str = "", valid_len=None):
+    """Mamba block.  state = (conv window (B, dc-1, di) in x's dtype, h (B,
+    di, ds) float32), or None for zeros.  Returns (out, (conv window, h')).
+
+    ``valid_len`` (an int or a 0-d device tensor) marks a right-padded
+    prefill whose first ``valid_len`` rows are real: dt is 0 on the pad
+    rows, so their scan steps are the exact identity (exp(0) = 1, dBx = 0),
+    and the carried conv window ends at the last real token.  ``chunk`` is
+    the plain scan's checkpoint window (cfg.mamba_chunk by default)."""
+    chunk = chunk or cfg.mamba_chunk
+    B, S, d = x.shape
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    dt_rank = max(1, d // 16)
+    ep = lambda w, M, N: cfg.ep(M, N, _nm(prefix, w))
+    xi, z = apply_linear(p["in_proj"], x, ep("in_proj", d, 2 * di)).chunk(2, dim=-1)
+    if state is None:
+        conv_buf, h0 = xi.new_zeros((B, dc - 1, di)), None
+    else:
+        conv_buf, h0 = state
+    # the causal depthwise conv along S, its terms added in the reference's order
+    xpad = torch.cat([conv_buf.to(xi.dtype), xi], dim=1)
+    cw = p["conv_w"].to(xi.dtype)
+    xc = xpad[:, :S] * cw[0]
+    for i in range(1, dc):
+        xc = xc + xpad[:, i:i + S] * cw[i]
+    xc = F.silu(xc + p["conv_b"].to(xi.dtype))
+    new_conv = _conv_window(xpad, valid_len, dc - 1) if dc > 1 else conv_buf
+    # the input-dependent SSM parameters
+    proj = apply_linear(p["x_proj"], xc, ep("x_proj", di, dt_rank + 2 * ds))
+    dt, Bp, Cp = proj.split([dt_rank, ds, ds], dim=-1)
+    dt = F.softplus(apply_linear(p["dt_proj"], dt, ep("dt_proj", dt_rank, di)))
+    if valid_len is not None:
+        real = (torch.arange(S, device=x.device) < valid_len)[None, :, None]
+        dt = torch.where(real, dt, torch.zeros((), dtype=dt.dtype, device=x.device))
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    y, h_last = ops.mamba_scan(dt, xc, Bp, Cp, A, p["D"], h0, chunk=chunk)
+    y = y.to(x.dtype) * F.silu(z)
+    out = apply_linear(p["out_proj"], y, ep("out_proj", di, d))
+    return out, (new_conv, h_last)
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, device="cuda"):
+    """(conv window (batch, dc-1, di) in the compute dtype, h (batch, di,
+    ds) float32)."""
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    return (torch.zeros((batch, dc - 1, di), dtype=cfg.cdtype, device=device),
+            torch.zeros((batch, di, ds), dtype=torch.float32, device=device))

@@ -848,3 +848,136 @@ def test_smoke_rwkv6_folded_q3_train_step_on_card_matches_cpu(cuda_device):
                                    rtol=0, atol=1e-3 * opt.lr)
         moved = max(moved, float((b.detach() - p0).abs().max()))
     assert moved > 0.5 * opt.lr
+
+
+# -- Mamba: the selective-scan kernel, jamba smoke -------------------------------
+SCAN = dict(rtol=2e-4, atol=2e-4)       # fp32, tests/test_kernels.py:17-18
+
+
+def _scan_case(B, S, di, ds, device, seed=0, state=True):
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=g)
+    dt = torch.nn.functional.softplus(f(B, S, di) - 1.0)
+    A = -torch.exp(f(di, ds) * 0.5)
+    ins = (dt, f(B, S, di), f(B, S, ds), f(B, S, ds), A, f(di), f(B, di, ds) if state else None)
+    return tuple(None if t is None else t.to(device) for t in ins)
+
+
+@pytest.mark.parametrize("B,S,di,ds,state", [
+    (4, 256, 16384, 16, True), (2, 250, 1000, 16, False), (4, 1, 16384, 16, True),
+    (1, 1, 512, 16, True), (3, 77, 300, 4, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_matches_plain(B, S, di, ds, state, dtype, cuda_device):
+    """The scan kernel against mamba_scan_ref on the same values (bf16
+    inputs widened exactly), jamba's width and decode rows among them."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    dt, x, Bm, Cm, A, D, h0 = _scan_case(B, S, di, ds, cuda_device, state=state)
+    dt, x, Bm, Cm = (t.to(dtype) for t in (dt, x, Bm, Cm))
+    before = mamba_scan.launches
+    y, hT = mamba_scan(dt, x, Bm, Cm, A, D, h0)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == before + 1
+    y_ref, h_ref = ref.mamba_scan_ref(dt, x, Bm, Cm, A, D, h0)
+    torch.testing.assert_close(y, y_ref, **SCAN)
+    torch.testing.assert_close(hT, h_ref, **SCAN)
+
+
+def test_mamba_scan_kernel_splits_repeats_and_identity(cuda_device):
+    """Bit for bit: 128 + 128 tokens carried through hT against one launch
+    of 256; three launches; dt = 0 on the last 7 tokens leaves the state as
+    it stood; bf16 inputs against float32 inputs of the same values."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    dt, x, Bm, Cm, A, D, h0 = _scan_case(2, 256, 4096, 16, cuda_device)
+    y, hT = mamba_scan(dt, x, Bm, Cm, A, D, h0)
+    ya, ha = mamba_scan(*(t[:, :128].contiguous() for t in (dt, x, Bm, Cm)), A, D, h0)
+    yb, hb = mamba_scan(*(t[:, 128:].contiguous() for t in (dt, x, Bm, Cm)), A, D, ha)
+    assert torch.equal(torch.cat([ya, yb], 1), y) and torch.equal(hb, hT)
+    again = [mamba_scan(dt, x, Bm, Cm, A, D, h0) for _ in range(3)]
+    assert all(torch.equal(a, y) and torch.equal(h, hT) for a, h in again)
+    tail = dt.clone()
+    tail[:, -7:] = 0.0
+    _, h_tail = mamba_scan(tail, x, Bm, Cm, A, D, h0)
+    _, h_before = mamba_scan(*(t[:, :-7].contiguous() for t in (tail, x, Bm, Cm)), A, D, h0)
+    assert torch.equal(h_tail, h_before)
+    bf = [t.bfloat16() for t in (dt, x, Bm, Cm)]
+    yb16, hb16 = mamba_scan(*bf, A, D, h0)
+    y32, h32 = mamba_scan(*(t.float() for t in bf), A, D, h0)
+    assert torch.equal(yb16, y32) and torch.equal(hb16, h32)
+
+
+def test_mamba_scan_backward_raises_on_card(cuda_device):
+    from repro_torch.kernels.mamba_scan import GRAD_ITEM
+    dt, x, Bm, Cm, A, D, h0 = _scan_case(1, 8, 64, 4, cuda_device)
+    x.requires_grad_(True)
+    y, _ = ops.mamba_scan(dt, x, Bm, Cm, A, D, h0)
+    with pytest.raises(NotImplementedError, match=GRAD_ITEM.replace(".", r"\.")):
+        y.sum().backward()
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.mamba_scan(dt, x.detach().bfloat16(), Bm, Cm, A, D, h0)
+
+
+def test_smoke_jamba_on_card_matches_cpu(cuda_device):
+    """The jamba smoke config (Mamba, attention, MoE and dense FFNs) at
+    kernel-q3 in float32: the card's prefill and decode logits and greedy
+    tokens against the plain versions on the CPU, with the scan launched
+    once per Mamba layer a forward."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b", "kernel-q3"),
+                              compute_dtype="float32")
+    gpu = lm.prepack_params(lm.init_params(torch.Generator().manual_seed(0), cfg, cuda_device), cfg)
+    cpu = lm.prepack_params(lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
+    mamba = sum(kind == "mamba" for kind, _ in cfg.full_pattern) * cfg.n_groups
+    reset_launch_counts()
+    toks, _ = serve.generate(gpu, cfg, prompts.to(cuda_device), 50, 4)
+    assert launch_counts()["mamba_scan"] == mamba * 4
+    ref_toks, _ = serve.generate(cpu, cfg, prompts, 50, 4)
+    assert torch.equal(toks.cpu(), ref_toks)
+    with torch.no_grad():
+        lg, _ = lm.prefill(gpu, prompts.to(cuda_device), lm.init_decode_state(cfg, 2, 50,
+                                                                               cuda_device), cfg)
+        lc, _ = lm.prefill(cpu, prompts, lm.init_decode_state(cfg, 2, 50, "cpu"), cfg)
+    scale = max(1.0, float(lc.abs().max()))
+    assert float((lg.cpu() - lc).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("ffn", ["moe", "dense"])
+def test_smoke_jamba_engine_on_card(ffn, cuda_device):
+    """jamba smoke's engine on the card (bf16, kernel-q3), with its MoE FFNs
+    (whole prefills) and without them (chunks across the scan's windows):
+    K = 4 gives K = 1's tokens bit for bit, so does the reverse arrival
+    order; the scan launches once per Mamba layer a prefill, chunk or
+    decode micro-step."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.engine import EpimEngine, Request
+    from repro_torch.models import lm
+    over = {} if ffn == "moe" else dict(ffn_pattern=("dense", "none") * 4, mamba_chunk=8)
+    cfg = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b", "kernel-q3"), **over)
+    params = lm.prepack_params(lm.init_params(torch.Generator().manual_seed(0), cfg,
+                                              cuda_device), cfg)
+    rng = np.random.default_rng(0)
+    lens = (6, 35, 11, 21, 9)
+    reqs = [Request(prompt=tuple(rng.integers(0, 192, P).tolist()), max_new_tokens=4 + i,
+                    temperature=0.8 if i % 2 else 0.0, seed=i) for i, P in enumerate(lens)]
+    mamba = sum(kind == "mamba" for kind, _ in cfg.full_pattern) * cfg.n_groups
+    runs = []
+    for k, order in ((1, range(5)), (4, range(5)), (4, range(4, -1, -1))):
+        eng = EpimEngine(cfg, params, capacity=2, max_len=96, page_size=16, prefill_chunk=8,
+                         decode_block=k, device=cuda_device)
+        reset_launch_counts()
+        handles = {i: eng.submit(reqs[i]) for i in order}
+        eng.drain()
+        torch.cuda.synchronize()
+        counts, st = launch_counts(), eng.stats
+        whole = [P for P in lens if not eng.chunk or P <= eng.chunk]
+        assert (st["prefill_chunks"] > 0) == (ffn == "dense")
+        prefills = len(whole) + st["prefill_chunks"]
+        assert counts["mamba_scan"] == mamba * (prefills + st["decode_micro_steps"])
+        assert counts["quant_epitome_matmul_blocks"] == \
+            _engine_sites(cfg) * (prefills + st["decode_micro_steps"])
+        runs.append({i: h.result().tokens for i, h in handles.items()})
+    assert runs[0] == runs[1] == runs[2]

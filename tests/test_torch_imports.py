@@ -22,7 +22,8 @@ def _imported_modules(tree):
 def test_port_files_found():
     names = {p.name for p in FILES}
     assert {"__init__.py", "ops.py", "resnet.py", "chip_smoke.py", "optimizer.py", "data.py",
-            "checkpoint.py", "loop.py", "train.py", "tree.py"} <= names
+            "checkpoint.py", "loop.py", "train.py", "tree.py", "mamba_scan.py",
+            "ssm.py", "blocks.py"} <= names
     assert len(FILES) >= 15
 
 

@@ -21,8 +21,11 @@ from repro_torch.models import lm
 from repro_torch.models.kv_pool import (PageSpec, SlotStatePool, gather_slot,
                                         paged_leaf_paths)
 
-# phi3.5-moe: attention with the MoE FFN, whose layers carry no state but K/V
-ARCHS = ("rwkv6-7b", "qwen2-72b", "gemma2-2b", "phi3.5-moe-42b-a6.6b")
+# phi3.5-moe: attention with the MoE FFN, whose layers carry no state but K/V;
+# jamba: Mamba layers (dense conv and h rows) beside one attention layer a
+# group (paged K/V)
+ARCHS = ("rwkv6-7b", "qwen2-72b", "gemma2-2b", "phi3.5-moe-42b-a6.6b",
+         "jamba-1.5-large-398b")
 
 
 def _pools(arch, capacity, max_len, bits=16, **kw):

@@ -185,13 +185,20 @@ def test_plans_and_other_layer_kinds_wait_for_their_slices():
     cfg = get_config("rwkv6-7b", "off", plan=plan)
     assert dict(cfg.layer_config) == dict(plan.layer_configs())
     assert lm.lm_layer_configs(cfg)["L0/ffn/wv"] == dict(plan.layer_configs())["L0/ffn/wv"]
-    # the MoE FFN no longer waits (its slice is ported); Mamba still does
+    # the MoE FFN no longer waits (its slice is ported), nor does Mamba
     g = torch.Generator().manual_seed(0)
     moe_cfg = get_smoke_config("phi3.5-moe-42b-a6.6b")
     params = lm.init_params(g, moe_cfg, "cpu")
     assert set(params["groups"][0]["L0"]["ffn"]) == {"router", "w_gate", "w_up", "w_down"}
-    with pytest.raises(NotImplementedError, match="Mamba slice .*item 11"):
-        lm.init_decode_state(get_smoke_config("jamba-1.5-large-398b"), 1, 8, "cpu")
+    jamba = get_smoke_config("jamba-1.5-large-398b")
+    params = lm.init_params(g, jamba, "cpu")
+    assert set(params["groups"][0]["L0"]["mixer"]) == {
+        "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "A_log", "D", "out_proj"}
+    state = lm.init_decode_state(jamba, 1, 8, "cpu")
+    di, dc, ds = jamba.mamba_d_inner, jamba.mamba_d_conv, jamba.mamba_d_state
+    assert tuple(state[0]["L0"]["conv"].shape) == (1, dc - 1, di)
+    assert tuple(state[0]["L0"]["h"].shape) == (1, di, ds)
+    assert set(state[0]["L4"]) == {"k", "v"}
 
 
 # -- parameters and prepack ----------------------------------------------------
