@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
     python3 chip_smoke.py --time-wkv-bwd TREE   # the WKV backward of checkout TREE alone
+    python3 chip_smoke.py --time-mamba-scan TREE   # the selective scan of checkout TREE alone
+    python3 chip_smoke.py --time-jamba-engine TREE   # jamba's engine on checkout TREE's port
 
 Ten main paths, each at the full width of its model:
 
@@ -191,11 +193,14 @@ Phases:
              bf16 and float32 dt, x, B, C, a zero and a random h0, a ragged
              S = 250, S = 1 at batch 4 and 1, each against its plain
              version (mamba_scan_ref) at KERNEL_TOL on y and hT, timed
-             beside it and its bound (bytes, or its operations at the fp32
-             rate); bit for bit: 128 + 128 tokens through hT against one
-             launch, dt = 0 on the last 7 tokens leaving the state as it
-             stood, three launches, bf16 against float32 of the same
-             values; ptxas' registers and spills.  (b) jamba kernel-q3, 72
+             beside it, its bound (bytes, or its operations at the fp32
+             rate) and the SFU's time for its exponentials; bit for bit:
+             128 + 128 tokens through hT against one launch, dt = 0 on the
+             last 7 tokens leaving the state as it stood, three launches,
+             bf16 against float32 of the same values, each row of a 4-row
+             launch (S = 1, 128) against its 1-row launch, 8 one-token
+             launches against one of 8; ptxas' registers and spills (a
+             vector instance that spills fails).  (b) jamba kernel-q3, 72
              layers, MoE positions none, bf16 (the bytes it holds logged,
              1.5 GiB of the card left free): phase 5's generate (4 x 256 +
              32; exactly 396 launches of kernel #1 and 63 of the scan a
@@ -244,6 +249,7 @@ BATCH, IMAGE, SEED = 32, 224, 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 BF16_TC_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
 TF32_TC_FLOPS = 495e12      # H100 SXM TF32 tensor cores, dense
+SFU_EXP_S = 132 * 16 * 1.98e9   # H100 SXM exponentials a second: 16 a clock an SM at boost
 # kernels whose operands are int8 codes, exact in bf16: their bound is at the
 # bf16 tensor-core rate (beside the fp32 one, kept for earlier rows); kernel
 # #3 runs fp32 E as 3xTF32 (three TF32 products for each) and bf16 E as one
@@ -1465,14 +1471,22 @@ def one_shot_logits(torch, lm, params, cfg, prompt, toks, seq_len, step):
 
 def replay_at_rows(torch, lm, engine_mod, eng, req, toks, step, dev):
     """The engine's own computation of one request up to ``step``, outside
-    the engine: its prefill (bucket or chunks, batch 1), the state copied
-    to ``capacity`` rows, and decode steps at that many rows over the
-    tokens ``toks`` (decode rows are independent: the engine's other rows
-    change nothing).  Returns row 0's logits at ``step``."""
+    the engine: its prefill (bucket or chunks, batch 1), the state put into
+    a slot as the engine puts it (kv_pool.scatter_slot: a chunked
+    prefill's K/V cut to the pool's ``seq_len`` rows and its dtype, so
+    attention reduces over the engine's row count), copied to ``capacity``
+    rows, and decode steps at that many rows over the tokens ``toks``
+    (decode rows are independent: the engine's other rows change nothing).
+    Returns row 0's logits at ``step``."""
     rows = eng.capacity
     with torch.no_grad():
-        logits, state = engine_mod.prefill_prompt(eng.serve_params, eng.cfg, req.prompt,
-                                                  eng.seq_len, eng.chunk, dev)
+        logits, one = engine_mod.prefill_prompt(eng.serve_params, eng.cfg, req.prompt,
+                                                eng.seq_len, eng.chunk, dev)
+        state = lm.init_decode_state(eng.cfg, 1, eng.seq_len, dev)
+        for g, group in enumerate(state):
+            for lk, layer in group.items():
+                for k, v in layer.items():
+                    v.copy_(one[g][lk][k][:, :v.shape[1]])
         state = [{lk: {k: torch.cat([v] * rows) for k, v in layer.items()}
                   for lk, layer in g.items()} for g in state]
         for i in range(step):
@@ -2373,20 +2387,38 @@ def scan_rows(torch, dev, gen, ref, wrappers, cfg, path, cases) -> list:
         nbytes = scan_bytes(B, S, di, ds, dt.element_size(), h0 is not None)
         row = timed_row(torch, MAMBA, kernel, plain, None, nbytes, scan_ops(B, S, di, ds), dname)
         row.update(B=B, S=S, di=di, ds=ds, dtype=dname, h0=h0_kind, max_abs_err=err, path=path,
-                   count=count)
+                   count=count, sfu_ms=B * S * di * ds / SFU_EXP_S * 1e3)
         rows.append(row)
         log(f"[mamba-kernels] {what} x{count}: max_err={err:.2e} (y and hT) ms={row['ms']:.4f} "
             f"(eager {row['ms_eager']:.4f}) plain_ms={row['plain_ms']:.4f} library_ms=none "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) sfu_ms={row['sfu_ms']:.4f}")
         del dt, x, Bm, Cm, y, hT, y_ref, h_ref
     return rows
+
+
+def scan_ptxas(build_log: dict) -> dict:
+    """Phase 14 (a): ptxas' registers and spills of the scan's instances
+    <dtype, lanes, vector> from the mamba_scan library's nvcc log
+    (``_build.build_log``, read back from beside a library built earlier).
+    Raises if no vector instance (jamba's 16 states) is listed or one
+    spills."""
+    ptxas = ptxas_of(build_log.get("mamba_scan", ""))
+    for entry, (regs, st, ld) in ptxas.items():
+        log(f"[mamba-kernels] ptxas {entry}: {regs} registers, {st} / {ld} bytes spilled")
+    spilled = [k for k, (_, st, ld) in ptxas.items() if "Lb1E" in k and st + ld]
+    if spilled or not any("Lb1E" in k for k in ptxas):
+        raise AssertionError(f"{MAMBA}: vector instances spill or are missing: {spilled}")
+    return ptxas
 
 
 def scan_bits(torch, dev, gen, wrappers, cfg) -> dict:
     """Phase 14 (a), bit for bit at jamba's width, 4 x 256 tokens: 128 + 128
     tokens carried through hT against one launch of 256; dt = 0 on the last
     7 tokens leaves hT at the state before them; three launches in a row;
-    bf16 inputs against float32 inputs of the same values."""
+    bf16 inputs against float32 inputs of the same values; at 4 x 1 and 4 x
+    128 in bf16, each row of the 4-row launch against a 1-row launch of it;
+    and 8 one-token launches (4 lanes a channel) against one launch of 8 (2
+    lanes)."""
     di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
     dt, x, Bm, Cm, A, D, h0 = ins = scan_inputs(torch, dev, gen, 4, 256, di, ds)
     k = wrappers[MAMBA]
@@ -2408,8 +2440,27 @@ def scan_bits(torch, dev, gen, wrappers, cfg) -> dict:
     widened = torch.equal(yb16, y32) and torch.equal(hb16, h32)
     out = dict(split_128_128=split, dt0_tail_identity=identity, three_launches=repeat,
                bf16_equals_widened_f32=widened)
-    log(f"[mamba-kernels] {MAMBA} 4x256 bit for bit: " + ", ".join(f"{a} {v}"
-                                                                   for a, v in out.items()))
+    # the engine mixes 4-row micro-steps with batch-1 chunks: a row of a
+    # 4-row launch gives the bits of a 1-row launch of that row
+    for S in (1, 128):
+        dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, 4, S, di, ds)
+        dt, x, Bm, Cm = (t.bfloat16() for t in (dt, x, Bm, Cm))
+        y, hT = k(dt, x, Bm, Cm, A, D, h0)
+        one = [k(*(t[r:r + 1].contiguous() for t in (dt, x, Bm, Cm)), A, D,
+                 h0[r:r + 1].contiguous()) for r in range(4)]
+        out[f"batch_rows_4x{S}"] = all(torch.equal(y[r:r + 1], a) and torch.equal(hT[r:r + 1], h)
+                                       for r, (a, h) in enumerate(one))
+    # a launch of one token runs 4 lanes a channel, a longer one 2: 8 tokens
+    # one launch at a time, carried through hT, against one launch of 8
+    dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, 4, 8, di, ds)
+    dt, x, Bm, Cm = (t.bfloat16() for t in (dt, x, Bm, Cm))
+    y, hT = k(dt, x, Bm, Cm, A, D, h0)
+    h, ys = h0, []
+    for t in range(8):
+        yt, h = k(*(u[:, t:t + 1].contiguous() for u in (dt, x, Bm, Cm)), A, D, h)
+        ys.append(yt)
+    out["token_by_token_4x8"] = torch.equal(torch.cat(ys, 1), y) and torch.equal(h, hT)
+    log(f"[mamba-kernels] {MAMBA} bit for bit: " + ", ".join(f"{a} {v}" for a, v in out.items()))
     if not all(out.values()):
         raise AssertionError(f"{MAMBA}: not bit for bit: {out}")
     return out
@@ -2493,10 +2544,7 @@ def mamba_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, laun
         (1, 1, torch.bfloat16, "random", 0)])
     bits = scan_bits(torch, dev, gen, wrappers, cfg)
     from repro_torch.kernels import _build
-    ptxas = {k: v for k, v in ptxas_of(_build.build_log.get("mamba_scan", "")).items()
-             if "Li16E" in k}
-    for entry, (regs, st, ld) in ptxas.items():
-        log(f"[mamba-kernels] ptxas {entry}: {regs} registers, {st} / {ld} bytes spilled")
+    ptxas = scan_ptxas(_build.build_log)
     torch.cuda.empty_cache()
     # (b) the model at full depth
     cfg, params, built = mamba_build(torch, dev, lm, get_config)
@@ -2893,7 +2941,129 @@ def time_wkv_bwd(tree: str) -> int:
     return 0
 
 
+# --time-mamba-scan: the shapes (B, S, h0) that hold most of the scan's time
+# in jamba's generate and engine run, and a decode step at batch 1
+SCAN_TIMED = ((LM_REQUESTS, LM_PROMPT, "zero"), (LM_REQUESTS, 1, "random"), (1, 128, "random"),
+              (1, 1, "random"))
+
+
+def time_mamba_scan(tree: str) -> int:
+    """``python3 chip_smoke.py --time-mamba-scan TREE``: the selective-scan
+    kernel of the port in checkout TREE at jamba's width in bf16, at
+    SCAN_TIMED: 4 x 256 with a zero h0 (the generate's prefill), 4 x 1 (a
+    decode step or engine micro-step), 1 x 128 (an engine chunk) and 1 x 1,
+    a random h0 at the last three.  Device ms a launch (graph_ms, three
+    readings after 200 ms of launches), the largest error as a share of the
+    gate (KERNEL_TOL, y and hT) against the plain version, the bytes bound,
+    the SFU's time for the exponentials, and at S = 1 an L2-cold time over
+    copies of h0 and A rotated past L2_COLD_BYTES; one JSON line with the
+    card line.  To compare two checkouts' kernels, run it for each in turn
+    in one chip call (A, B, B, A)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    _build.build_all()
+    cfg = get_config(MAMBA_ARCH, "kernel-q3", ffn_pattern=MAMBA_FFN)
+    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = dict(tree=tree, card=card_line(), di=di, ds=ds, dtype="bfloat16")
+    for B, S, h0_kind in SCAN_TIMED:
+        dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, B, S, di, ds, h0_kind)
+        dt, x, Bm, Cm = (t.bfloat16() for t in (dt, x, Bm, Cm))
+        kernel = lambda: mamba_scan(dt, x, Bm, Cm, A, D, h0)
+        over = max(float(((a - r).abs() / (KERNEL_TOL + KERNEL_TOL * r.abs())).max())
+                   for a, r in zip(kernel(), ref.mamba_scan_ref(dt, x, Bm, Cm, A, D, h0)))
+        time_ms(torch, kernel, 200.0)       # the card's clocks up before the readings
+        row = dict(h0=h0_kind, ms=[graph_ms(torch, kernel) for _ in range(3)], over_gate=over,
+                   bound_ms=scan_bytes(B, S, di, ds, 2, h0 is not None) / HBM_BYTES_S * 1e3,
+                   sfu_ms=B * S * di * ds / SFU_EXP_S * 1e3)
+        if S == 1:
+            pairs = [(A.clone(), h0.clone())
+                     for _ in range(-(-L2_COLD_BYTES // (4 * (A.numel() + h0.numel()))) + 1)]
+            cold = itertools.cycle(pairs)
+
+            def kernel_cold():
+                a, h = next(cold)
+                return mamba_scan(dt, x, Bm, Cm, a, D, h)
+            row.update(ms_cold=[graph_ms(torch, kernel_cold) for _ in range(3)],
+                       cold_copies=len(pairs))
+            del pairs
+        out[f"{B}x{S}"] = row
+        del dt, x, Bm, Cm, A, D, h0
+    print(json.dumps(out))
+    return 0
+
+
+def time_jamba_engine(tree: str) -> int:
+    """``python3 chip_smoke.py --time-jamba-engine TREE``: phase 14 (c)'s
+    engine (jamba kernel-q3 from mamba_build, phase 10's requests and
+    geometry) on the port of checkout TREE: one K = 4 run to warm up, then
+    two K = 4 runs and one K = 1 run, each through engine_drive (its gates,
+    launches exact): wall, tok/s, TTFT p50, median ms a macro-step; before
+    the model, the scan wrapper's host time a call at 4 x 1 (2000 calls
+    back to back, five readings).  One JSON line with the card line.  To
+    compare two checkouts, run it for each in turn in one chip call (A, B,
+    B, A)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.launch import engine as engine_mod
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    dev = torch.device("cuda")
+    out = dict(tree=tree, card=card_line())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cfg = get_config(MAMBA_ARCH, "kernel-q3", ffn_pattern=MAMBA_FFN)
+    dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, LM_REQUESTS, 1, cfg.mamba_d_inner,
+                                          cfg.mamba_d_state)
+    dt, x, Bm, Cm = (t.bfloat16() for t in (dt, x, Bm, Cm))
+    host_us = []
+    for _ in range(5):
+        for _ in range(200):
+            mamba_scan(dt, x, Bm, Cm, A, D, h0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            mamba_scan(dt, x, Bm, Cm, A, D, h0)
+        host_us.append((time.perf_counter() - t0) / 2000 * 1e6)
+        torch.cuda.synchronize()
+    out["scan_host_us"] = host_us
+    del dt, x, Bm, Cm, A, D, h0
+    cfg, params, _ = mamba_build(torch, dev, lm, get_config)
+    geometry = dict(capacity=ENGINE_CAPACITY, max_len=ENGINE_MAX_LEN, page_size=16, kv_pages=0,
+                    prefill_chunk=ENGINE_CHUNK)
+    reqs = engine_requests(torch, engine_mod.Request, cfg.vocab)
+
+    def run(k):
+        eng = engine_mod.EpimEngine(cfg, params, decode_block=k, device=dev, **geometry)
+        r = engine_drive(torch, eng, reqs, range(len(reqs)), launch_counts,
+                         reset_launch_counts, MAMBA_SITES)
+        return dict(wall_s=r["wall_s"], tok_s=r["tok_s"], ttft_p50_s=r["ttft_p50_s"],
+                    macro_ms=statistics.median(r["step_ms"][k]), launches=r["launches"])
+    run(ENGINE_BLOCK)
+    out.update(k4=[run(ENGINE_BLOCK) for _ in range(2)], k1=run(1))
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-wkv-bwd"]:
         sys.exit(time_wkv_bwd(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--time-mamba-scan"]:
+        sys.exit(time_mamba_scan(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--time-jamba-engine"]:
+        sys.exit(time_jamba_engine(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

@@ -5,7 +5,9 @@ compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the repo root at
 first use.  A library's file name carries a hash of every source in
 ``csrc/`` and of the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is.  All missing libraries are compiled at once, one
-nvcc process per source.
+nvcc process per source.  nvcc's output (ptxas' registers and spills) is
+kept beside each library as ``lib<name>-<hash>.log`` and read back when the
+library is found built.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ LIBRARIES = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_log: Dict[str, str] = {}    # library -> nvcc output of this process's build
+build_log: Dict[str, str] = {}    # library -> nvcc output of its build (kept on disk)
 
 
 def _nvcc() -> str:
@@ -90,6 +92,8 @@ def build_all() -> Dict[str, Path]:
         for name, (src, _) in LIBRARIES.items():
             out = _target(name)
             if out.exists():
+                if name not in build_log and out.with_suffix(".log").exists():
+                    build_log[name] = out.with_suffix(".log").read_text()
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
@@ -103,6 +107,10 @@ def build_all() -> Dict[str, Path]:
             if proc.returncode:
                 failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             else:
+                # the log first: a library found built always has its log
+                tmp_log = tmp.with_suffix(".log")
+                tmp_log.write_text(log)
+                os.replace(tmp_log, out.with_suffix(".log"))
                 os.replace(tmp, out)     # atomic: a concurrent loader sees all or nothing
         if failed:
             raise RuntimeError("building the CUDA kernels failed:\n" + "\n".join(failed))

@@ -7,12 +7,13 @@ the recurrence the reference evaluates as an associative scan in plain jnp
 (``repro.models.ssm.mamba_mix``).  With ``h0=None`` the state starts at
 zero.
 
-For CUDA tensors this launches the kernel of ``csrc/mamba_scan.cu`` (one
-thread per (batch, channel), its states in registers), which reads dt, x,
-B and C as float32 or as bfloat16, the LM's activations as they come; for
-CPU tensors it runs the plain version in ``ref.py``.  ``MambaScan`` is the
-autograd function the LM calls: on the CPU its backward differentiates the
-plain version; on the card the scan has no backward kernel yet.
+For CUDA tensors this launches the kernel of ``csrc/mamba_scan.cu`` (two
+lanes a (batch, channel) with 8 states each in registers, four at a decode
+step; y summed in one fixed tree), which reads dt, x, B and C as float32 or
+as bfloat16, the LM's activations as they come; for CPU tensors it runs the
+plain version in ``ref.py``.  ``MambaScan`` is the autograd function the LM
+calls: on the CPU its backward differentiates the plain version; on the
+card the scan has no backward kernel yet.
 """
 from __future__ import annotations
 

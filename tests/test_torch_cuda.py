@@ -865,11 +865,12 @@ def _scan_case(B, S, di, ds, device, seed=0, state=True):
 
 @pytest.mark.parametrize("B,S,di,ds,state", [
     (4, 256, 16384, 16, True), (2, 250, 1000, 16, False), (4, 1, 16384, 16, True),
-    (1, 1, 512, 16, True), (3, 77, 300, 4, True)])
+    (1, 1, 512, 16, True), (3, 77, 300, 4, True), (1, 128, 16384, 16, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_scan_kernel_matches_plain(B, S, di, ds, state, dtype, cuda_device):
     """The scan kernel against mamba_scan_ref on the same values (bf16
-    inputs widened exactly), jamba's width and decode rows among them."""
+    inputs widened exactly), jamba's width, decode rows and the engine's
+    batch-1 chunk among them."""
     from repro_torch.kernels.mamba_scan import mamba_scan
     dt, x, Bm, Cm, A, D, h0 = _scan_case(B, S, di, ds, cuda_device, state=state)
     dt, x, Bm, Cm = (t.to(dtype) for t in (dt, x, Bm, Cm))
@@ -903,6 +904,68 @@ def test_mamba_scan_kernel_splits_repeats_and_identity(cuda_device):
     yb16, hb16 = mamba_scan(*bf, A, D, h0)
     y32, h32 = mamba_scan(*(t.float() for t in bf), A, D, h0)
     assert torch.equal(yb16, y32) and torch.equal(hb16, h32)
+
+
+@pytest.mark.parametrize("S", [1, 128])
+def test_mamba_scan_kernel_batch_rows_equal_one_row_launches(S, cuda_device):
+    """Bit for bit at jamba's width in bf16: each row of a 4-row launch
+    against a 1-row launch of that row, as the engine mixes 4-row decode
+    micro-steps with batch-1 chunks."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    dt, x, Bm, Cm, A, D, h0 = _scan_case(4, S, 16384, 16, cuda_device)
+    dt, x, Bm, Cm = (t.bfloat16() for t in (dt, x, Bm, Cm))
+    y, hT = mamba_scan(dt, x, Bm, Cm, A, D, h0)
+    for r in range(4):
+        y1, h1 = mamba_scan(*(t[r:r + 1].contiguous() for t in (dt, x, Bm, Cm)), A, D,
+                            h0[r:r + 1].contiguous())
+        assert torch.equal(y[r:r + 1], y1) and torch.equal(hT[r:r + 1], h1)
+
+
+def test_mamba_scan_kernel_token_by_token_equals_one_launch(cuda_device):
+    """Bit for bit at jamba's width in bf16: 8 one-token launches carried
+    through hT (4 lanes a channel) against one launch of 8 tokens (2
+    lanes), as the engine's decode steps continue its prefill chunks."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    dt, x, Bm, Cm, A, D, h0 = _scan_case(4, 8, 16384, 16, cuda_device)
+    dt, x, Bm, Cm = (t.bfloat16() for t in (dt, x, Bm, Cm))
+    y, hT = mamba_scan(dt, x, Bm, Cm, A, D, h0)
+    h, ys = h0, []
+    for t in range(8):
+        yt, h = mamba_scan(*(u[:, t:t + 1].contiguous() for u in (dt, x, Bm, Cm)), A, D, h)
+        ys.append(yt)
+    assert torch.equal(torch.cat(ys, 1), y) and torch.equal(h, hT)
+
+
+def test_mamba_scan_kernel_scalar_instance_gives_the_vector_bits(cuda_device):
+    """A state 4 bytes off 16-byte alignment takes the scalar-access
+    instance of the kernel: the same y and hT bits as the vector one."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    dt, x, Bm, Cm, A, D, h0 = _scan_case(2, 40, 4096, 16, cuda_device)
+    y, hT = mamba_scan(dt, x, Bm, Cm, A, D, h0)
+    off = torch.empty(h0.numel() + 1, device=cuda_device)[1:].view(h0.shape)
+    off.copy_(h0)
+    assert off.data_ptr() % 16 != 0
+    y2, h2 = mamba_scan(dt, x, Bm, Cm, A, D, off)
+    assert torch.equal(y, y2) and torch.equal(hT, h2)
+
+
+def test_mamba_scan_ptxas_gate_holds_on_a_warm_cache(cuda_device):
+    """chip_smoke.py's phase-14 ptxas gate in a process that builds
+    nothing: every library already built, the nvcc logs read back from
+    beside them list the vector instances, none spilling."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    _build.build_all()
+    _build.build_log.clear()
+    _build.build_all()
+    assert set(_build.build_log) == set(_build.LIBRARIES)
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_gate", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ptxas = smoke.scan_ptxas(_build.build_log)
+    assert sum("Lb1E" in k for k in ptxas) == 4
 
 
 def test_mamba_scan_backward_raises_on_card(cuda_device):

@@ -23,8 +23,16 @@ and of the JAX reference's ``ssm.rwkv_chunked``, where one TF32 pass
 misses it.  Its gradient (csrc/wkv6_bwd.cu) runs the chunked backward on
 the same arithmetic: the model holds dr, dk, dv, dlogw, du and dh0 within
 the WKV gate of ``ref.wkv6_chunked_bwd_ref`` and of ``jax.grad`` of
-``ssm.rwkv_chunked``, at log w = -20 too.  Inputs are drawn with numpy
-from a seed; nothing here needs a card."""
+``ssm.rwkv_chunked``, at log w = -20 too.  Mamba's scan (csrc/mamba_scan.cu)
+takes 2^(dt A log2 e) on the SFU, A log2 e rounded once, and sums y by one
+pairwise tree over the states whatever the lanes a channel is split over;
+the model reads the kernel's log2(e) from its source, bounds the exponent
+path against float64 and holds itself to ``ref.mamba_scan_ref`` at the fp32
+gate.  Inputs are drawn with numpy from a seed; nothing here
+needs a card."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -793,3 +801,127 @@ def test_one_tf32_pass_misses_the_wkv_gate_backward():
         got = wkv6_bwd_mma_model(*args, passes=1)
         want = ref.wkv6_chunked_bwd_ref(*args)
         assert all(_over(y, r, WKV) for y, r in zip(got[:4], want[:4]))
+
+
+# -- Mamba's selective scan (csrc/mamba_scan.cu) ---------------------------------
+SCAN_SRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/mamba_scan.cu"
+# log2(e) as the kernel rounds it to float32, read from its source
+SCAN_LOG2E = float.fromhex(re.search(r"LOG2E = (0x[0-9a-f.]+p[+-]?\d+)f",
+                                     SCAN_SRC.read_text()).group(1))
+SCAN_STATES = 16        # states a channel keeps; those past ds are zero
+# ex2.approx.ftz.f32's relative error (PTX ISA: 2 ulp over the full range)
+SCAN_EX2_ERR = 2.0 ** -22
+
+
+def _fma(a, b, c):
+    """fma in float32, through float64: a b is exact there, and the sum is
+    rounded twice (once to float64), which can differ from one rounding in
+    the last bit on rare ties; the model is held to the plain version at the
+    gate, not to the card's bits."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def scan_exp2(e):
+    """ex2.approx.ftz.f32, stood in for by torch.exp2 with results below
+    2^-126 flushed to zero."""
+    r = torch.exp2(e)
+    return torch.where(r < 2.0 ** -126, torch.zeros_like(r), r)
+
+
+def _scan_tree(v):
+    """Pairwise sum over the last axis (a power of two), in float32."""
+    while v.shape[-1] > 1:
+        v = v[..., 0::2] + v[..., 1::2]
+    return v[..., 0]
+
+
+def mamba_scan_model(dt, x, Bm, Cm, A, D, h0=None, lanes=4):
+    """The scan kernel's arithmetic in float32 torch, its channel's 16
+    states on ``lanes`` lanes: A2 = A log2(e) rounded once; dA = 2^(dt A2)
+    (the SFU stand-in); dBx = (dt x) B; h = fma(dA, h, dBx); each h C
+    rounded on its own, summed pairwise inside a lane, then one exchange
+    level for each doubling of the lanes (keep + the partner's); y = fma(D,
+    x, sum).  States past ds are zero.  Returns (y, hT) as the plain version
+    does."""
+    Bsz, S, di = dt.shape
+    ds = Bm.shape[-1]
+    pad = lambda t: F.pad(t.float(), (0, SCAN_STATES - ds))
+    dt, x, D = dt.float(), x.float(), D.float()
+    Bm, Cm = pad(Bm), pad(Cm)
+    A2 = pad(A) * SCAN_LOG2E
+    h = torch.zeros(Bsz, di, SCAN_STATES) if h0 is None else pad(h0)
+    npl = SCAN_STATES // lanes
+    ys = []
+    for t in range(S):
+        dA = scan_exp2(dt[:, t, :, None] * A2)
+        dBx = (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        h = _fma(dA, h, dBx)
+        part = _scan_tree((h * Cm[:, t, None, :]).reshape(Bsz, di, lanes, npl))
+        m = 1
+        while m < lanes:
+            part = part + part[..., torch.arange(lanes) ^ m]
+            m *= 2
+        ys.append(_fma(D, x[:, t], part[..., 0]))
+    y = torch.stack(ys, 1) if ys else torch.zeros(Bsz, 0, di)
+    return y, h[..., :ds].contiguous()
+
+
+def _scan_case(B, S, di, ds, state=True, seed=0):
+    """Inputs with numpy from a seed: dt = softplus(N - 1), A = -exp(N / 2)
+    (the LM's), bf16-exact B and C."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    dt = F.softplus(f(B, S, di) - 1.0)
+    A = -torch.exp(f(di, ds) * 0.5)
+    return (dt, f(B, S, di), f(B, S, ds).bfloat16().float(), f(B, S, ds).bfloat16().float(),
+            A, f(di), f(B, di, ds) if state else None)
+
+
+def test_scan_exponent_path_is_one_at_dt0_and_near_exp():
+    """2^(dt fl(A log2 e)) is exactly 1 at dt = +-0 (the identity the
+    engine's pads rely on) and, over dt and A of the LM's ranges (dt to
+    20, |A| to 30, exponents down to -600), within SCAN_EX2_ERR plus the
+    one rounding of A2 (|dt A| 2^-24) and of dt A2 (2^-24 |dt A|) of
+    float64's exp(dt A)."""
+    rng = np.random.default_rng(3)
+    A = torch.from_numpy(-np.exp(rng.uniform(-4.0, np.log(30.0), 4096)).astype(np.float32))
+    dt = torch.from_numpy(np.exp(rng.uniform(-12.0, np.log(20.0), 4096)).astype(np.float32))
+    A2 = A * SCAN_LOG2E
+    for zero in (0.0, -0.0):
+        assert bool((scan_exp2(torch.full_like(A2, zero) * A2) == 1.0).all())
+    got = scan_exp2(dt * A2).double()
+    z = dt.double() * A.double()
+    want = torch.exp(z)
+    normal = want > 2.0 ** -125
+    tol = SCAN_EX2_ERR + 2 * z.abs() * 2.0 ** -24 + 2.0 ** -24
+    assert bool(((got - want).abs() <= tol * want)[normal].all())
+    assert bool((got[~normal] <= 2.0 ** -124).all())
+
+
+def test_scan_model_tree_gives_the_same_bits_on_1_2_and_4_lanes():
+    """The pairwise tree over the 16 states, split over 1, 2 or 4 lanes,
+    is one tree: the same y and hT bits."""
+    args = _scan_case(2, 24, 40, 16)
+    y1, h1 = mamba_scan_model(*args, lanes=1)
+    for lanes in (2, 4):
+        y, h = mamba_scan_model(*args, lanes=lanes)
+        assert torch.equal(y, y1) and torch.equal(h, h1)
+
+
+@pytest.mark.parametrize("B,S,di,ds,state", [(2, 40, 300, 16, True), (3, 33, 100, 4, True),
+                                             (2, 20, 64, 16, False), (1, 7, 1000, 4, False)])
+def test_scan_model_holds_the_gate_and_dt0_is_the_identity(B, S, di, ds, state):
+    """Within KERNEL_TOL (2e-4 + 2e-4 |ref|) of ``ref.mamba_scan_ref`` (y
+    and hT), with and without a state, ragged di, ds 4 and 16; and dt = 0
+    on the last 5 tokens leaves hT at the state before them, bit for
+    bit."""
+    args = _scan_case(B, S, di, ds, state)
+    got, want = mamba_scan_model(*args), ref.mamba_scan_ref(*args)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _within(a, b, FP32)
+    dt, x, Bm, Cm, A, D, h0 = args
+    tail = dt.clone()
+    tail[:, -5:] = 0.0
+    _, h_tail = mamba_scan_model(tail, x, Bm, Cm, A, D, h0)
+    _, h_before = mamba_scan_model(*(t[:, :-5] for t in (tail, x, Bm, Cm)), A, D, h0)
+    assert torch.equal(h_tail, h_before)

@@ -253,3 +253,19 @@ def test_fold_table_gathers_every_virtual_row_once(args):
     scatter = xt.new_zeros(7, ts.m).index_add_(-1, torch.as_tensor(ts.row_index_map()), xt)
     np.testing.assert_allclose(tops.fold_rows(torch.from_numpy(x), ts).numpy(),
                                scatter.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_build_reads_back_the_nvcc_log_of_a_built_library(tmp_path, monkeypatch):
+    """A library found built is loaded as it is, and its nvcc log (ptxas'
+    registers and spills) comes back from beside it: the card's checks of
+    spills hold in a process that compiles nothing.  No nvcc is needed."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "build_log", {})
+    for name in _build.LIBRARIES:
+        so = _build._target(name)
+        so.write_bytes(b"")
+        so.with_suffix(".log").write_text(f"ptxas info    : {name}\n")
+    paths = _build.build_all()
+    assert paths == {name: _build._target(name) for name in _build.LIBRARIES}
+    assert _build.build_log == {name: f"ptxas info    : {name}\n" for name in _build.LIBRARIES}
