@@ -53,6 +53,9 @@ Ten main paths, each at the full width of its model:
   alike, and kernel #1 at its 4 projections, the attention's 4 and the
   dense FFN's 3.
 
+Besides, phase 15 tunes the searched ResNet-50 plan's kernel blocks on the
+card and searches a plan by kernel latency measured there, and serves both.
+
 Phases:
 
 1. build   — nvcc builds the kernels from ``src/repro_torch/kernels/csrc``;
@@ -215,6 +218,27 @@ Phases:
              with the dense FFN, 2 x 64 tokens, and the jamba smoke config
              (16 layers: Mamba, attention, MoE) with the router's experts
              equal; backward() through the scan refuses on the card.
+15. tuning — on phase 8's evo-latency-q3 plan at batch 32 x 224^2, with
+             caches of its own under build/tune: (a) ``autotune.tune`` over
+             the default grid (iters 5) at the plan's most-launched kernel
+             shape: one line per candidate (bk, bn, fold), its time, bit
+             identity and error against the float64 oracle; the winner no
+             slower than the heuristic, source ``timed``, and a second call
+             ``cache`` with no launch; (b) ``tune_plan(t=32, grid="tiny")``,
+             the tuned plan saved under build/ and reloaded with ``plan=``:
+             its batch-32 forward launches kernel #2 once per fused-fold
+             winner and kernel #1 once per other layer, and where every
+             winner is bit-identical its logits equal the untuned plan's
+             bit for bit; both forwards timed, 5 times each, interleaved;
+             (c) ``search_plan(cost=measured_cost_for("resnet50", t=1))``
+             (population 16, 8 generations) and ``legalize_plan(cost=)``:
+             the cost model stays available, then the same search twice from
+             the warm cache, 0 timings each, whose plan JSON match byte for
+             byte (and the cold one's but for each layer's source, memo
+             against cache); the measured plan's batch-32 forward with
+             exact launches; (d) ``calibrate_tiny_coefficients`` on the card
+             beside the stored coefficients.  The phase's launches are its
+             own, outside phase 11's sums.
 11. times  — each kernel's times and bounds summed over the launches of
              the main paths (the ResNet forwards, one LM generate at each
              variant and of each attention LM and of the MoE LM, the
@@ -667,6 +691,12 @@ def main() -> int:
     launches[MAMBA] = (mamba_report["lm"]["launches"][MAMBA]
                        + mamba_report["engine"]["launches"][MAMBA])
 
+    # -- 15. tuning and measured cost: the searched ResNet-50 plan -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tune_report = tune_phase(torch, dev, get_resnet, images, launch_counts,
+                             reset_launch_counts)
+
     # -- 11. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
@@ -730,7 +760,7 @@ def main() -> int:
                   attention_card_vs_cpu=attn_cpu, engine=engine_runs,
                   engine_card_vs_cpu=engine_cpu, fold_probe=fold, plan=plan_run["plan"],
                   quant_matmul_vs_f64=qm_f64, moe=moe_report, train=train_report,
-                  mamba=mamba_report,
+                  mamba=mamba_report, tuning=tune_report,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -742,7 +772,7 @@ def main() -> int:
         + ", ".join(f"{a} {t:.1f}" for a, t in report["attention_s"].items()) + ", engine "
         + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items())
         + f", MoE {moe_report['seconds']:.1f}, training {train_report['seconds']:.1f}, "
-        f"Mamba {mamba_report['seconds']:.1f})")
+        f"Mamba {mamba_report['seconds']:.1f}, tuning {tune_report['seconds']:.1f})")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
     # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
@@ -2883,6 +2913,203 @@ def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T, names=None):
             row["fold_ms"] = graph_ms(torch, lambda: ops.fold_rows(x, spec))
         rows.append(row)
     return rows
+
+
+# -- phase 15: tuning and measured cost --------------------------------------------
+FUSED = "quant_epitome_matmul_fused_fold"
+TUNE_EVO = dict(population=16, iterations=8, seed=0)
+TUNE_REPEATS = 5
+
+
+def _source_free(plan_json: str) -> str:
+    """A measured plan's JSON with each layer cost's ``source`` (timed, memo
+    or cache: where the number came from) left out."""
+    d = json.loads(plan_json)
+    for layer in d["provenance"]["cost"]["layers"]:
+        layer.pop("source")
+    return json.dumps(d, sort_keys=True)
+
+
+def _plan_forward(torch, label, model, images, expect, launch_counts, reset_launch_counts):
+    """One batch forward of a plan's ResNet-50 with exact launch counts."""
+    with torch.no_grad():
+        reset_launch_counts()
+        y = model.apply(images)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+    if counts != {k: v for k, v in expect.items() if v}:
+        raise AssertionError(f"{label}: launches {counts}, expected {expect}")
+    if y.shape != (BATCH, 1000) or not torch.isfinite(y).all():
+        raise AssertionError(f"{label}: logits {tuple(y.shape)} not finite")
+    return y, counts
+
+
+def tune_phase(torch, dev, get_resnet, images, launch_counts, reset_launch_counts) -> dict:
+    """Phase 15: kernel autotuning and measured cost on the card, on phase
+    8's evo-latency-q3 plan (see the module docstring)."""
+    import shutil
+    from repro_torch.configs.registry import _evo_variant
+    from repro_torch.kernels import autotune
+    from repro_torch.pim.costmodel import measured_cost_for
+    from repro_torch.pim.evo import EvoConfig
+    from repro_torch.pim.plan import inventory_for, legalize_plan, search_plan
+    from repro_torch.pim.simulator import calibrate_tiny_coefficients
+    from repro_torch.pim.tables import TINY_CALIBRATION
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "tune"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"launches": {}}
+    plan = _evo_variant("resnet50", "evo-latency-q3")
+    n_ep = plan.n_epitomized
+    shapes = {}
+    for l, lp in zip(inventory_for("resnet50")(), plan.layers):
+        if lp.spec is not None:
+            T = BATCH * (l.rounds if l.kind == "conv" else 1)
+            shapes.setdefault((lp.spec, T), []).append(l.name)
+
+    # (a) the most-launched kernel shape over the default grid
+    (spec, T), names = max(shapes.items(), key=lambda kv: len(kv[1]))
+    t0 = time.perf_counter()
+    res = autotune.tune(spec, 3, T, grid="default", iters=5, cache_dir=str(root / "a"),
+                        device=dev)
+    one_s = time.perf_counter() - t0
+    for c in res.sweep:
+        log(f"[tune] ({c['bk']}, {c['bn']}, {'fold' if c['fused_fold'] else 'blocks'}): "
+            f"{c['us']:.2f} us bit_identical={c['bit_identical']} "
+            f"max_err={c['max_err']:.3e}")
+    for why in res.skipped:
+        log(f"[tune] skipped, refused before launch: {why}")
+    log(f"[tune] ({spec.M},{spec.N})->({spec.m},{spec.n}) bm={spec.bm} bn={spec.bn} T={T} "
+        f"x{len(names)}: {len(res.sweep)} candidates in {one_s:.2f} s, winner "
+        f"bk={res.blocks[1]} bn={res.blocks[2]} fused_fold={res.fused_fold} "
+        f"{res.tuned_us:.2f} us against the heuristic's {res.heuristic_us:.2f} us, "
+        f"bit_identical={res.bit_identical} max_err={res.max_err:.3e} source={res.source}")
+    if res.source != "timed" or not res.tuned_us <= res.heuristic_us:
+        raise AssertionError(f"tune: source {res.source}, {res.tuned_us} us against the "
+                             f"heuristic's {res.heuristic_us} us")
+    reset_launch_counts()
+    again = autotune.tune(spec, 3, T, grid="default", iters=5, cache_dir=str(root / "a"),
+                          device=dev)
+    torch.cuda.synchronize()
+    if again.source != "cache" or again.record() != res.record() or any(launch_counts().values()):
+        raise AssertionError(f"tune: the second call's source is {again.source}, launches "
+                             f"{launch_counts()}")
+    out["one_shape"] = dict(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bm=spec.bm, bn=spec.bn,
+                            T=T, layers=names, seconds=one_s, record=res.record(),
+                            sweep=list(res.sweep), skipped=list(res.skipped))
+
+    # (b) the plan tuned at batch 32, saved, reloaded and served
+    t0 = time.perf_counter()
+    tuned = autotune.tune_plan(plan, t=BATCH, grid="tiny", cache_dir=str(root / "b"),
+                               device=dev)
+    sweep_s = time.perf_counter() - t0
+    rec = tuned.provenance["tuned_blocks"]
+    bad = {n: r["source"] for n, r in rec.items() if r["source"] not in ("timed", "cache")}
+    if len(rec) != n_ep or bad:
+        raise AssertionError(f"tune_plan: {len(rec)} records for {n_ep} layers, sources {bad}")
+    path = ROOT / "build" / "plan_resnet50_evo-latency-q3_tuned.json"
+    tuned.save(str(path))
+    fused = sum(1 for r in rec.values() if r["fused_fold"])
+    all_ident = all(r["bit_identical"] for r in rec.values())
+    gen = lambda: torch.Generator().manual_seed(SEED)
+    model_t = get_resnet("resnet50", plan=str(path), device=dev).init(gen()).prepack()
+    model_u = get_resnet("resnet50", plan=plan, device=dev).init(gen()).prepack()
+    y_t, out["launches"]["tuned"] = _plan_forward(
+        torch, "tuned", model_t, images, {QUANT: n_ep - fused, FUSED: fused},
+        launch_counts, reset_launch_counts)
+    y_u, out["launches"]["untuned"] = _plan_forward(
+        torch, "untuned", model_u, images, {QUANT: n_ep}, launch_counts, reset_launch_counts)
+    same = bool(torch.equal(y_t, y_u))
+    diff = float((y_t - y_u).abs().max())
+    if all_ident and not same:
+        raise AssertionError(f"every winner is bit-identical, yet the tuned logits differ "
+                             f"from the untuned by {diff:.3e}")
+    ms_t, ms_u = [], []
+    with torch.no_grad():
+        for _ in range(TUNE_REPEATS):
+            for model, times in ((model_t, ms_t), (model_u, ms_u)):
+                t0 = time.perf_counter()
+                model.apply(images)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+    del model_t, model_u, y_t, y_u
+    torch.cuda.empty_cache()
+    winners = {}
+    for r in rec.values():
+        k = f"bk={r['bk']} bn={r['bn']}{' fold' if r['fused_fold'] else ''}"
+        winners[k] = winners.get(k, 0) + 1
+    log(f"[tune-plan] evo-latency-q3 at t={BATCH}: {len(rec)} layers "
+        f"({sum(r['source'] == 'timed' for r in rec.values())} timed, the rest from the "
+        f"cache) in {sweep_s:.2f} s; {fused} fused-fold winners; every winner "
+        f"bit-identical: {all_ident}; winners {winners}; saved "
+        f"{path.relative_to(ROOT)}")
+    log(f"[tune-plan] b{BATCH} forward: tuned median {statistics.median(ms_t):.2f} ms "
+        f"(runs {', '.join(f'{t:.2f}' for t in ms_t)}), untuned median "
+        f"{statistics.median(ms_u):.2f} ms (runs {', '.join(f'{t:.2f}' for t in ms_u)}); "
+        f"launches {out['launches']['tuned']} against {out['launches']['untuned']}; "
+        f"logits equal bit for bit: {same} (max |dy| {diff:.3e})")
+    out["plan"] = dict(seconds=sweep_s, layers=len(rec), fused_fold_winners=fused,
+                       all_bit_identical=all_ident, winners=winners,
+                       logits_equal=same, logits_max_abs_diff=diff,
+                       tuned_forward_ms=ms_t, untuned_forward_ms=ms_u,
+                       tuned_blocks=rec, plan_path=str(path.relative_to(ROOT)))
+
+    # (c) the measured search, cold then twice from the warm cache
+    def measured(label):
+        cm = measured_cost_for("resnet50", t=1, cache_dir=str(root / "c"), device=dev)
+        t0 = time.perf_counter()
+        sp = search_plan("resnet50", objective="latency", weight_bits=3, act_bits=9,
+                         evo=EvoConfig(**TUNE_EVO), cost=cm)
+        legal = legalize_plan(sp, cost=cm)
+        seconds = time.perf_counter() - t0
+        gens = sp.provenance["measured_elites"]
+        cost = legal.provenance["cost"]
+        row = dict(seconds=seconds, timings=cm.timings, lookups=cm.lookups,
+                   available=cm.available, generations=len(gens),
+                   measured_generations=sum(1 for g in gens if g["measured"]),
+                   analytic_ms=cost["analytic_s"] * 1e3,
+                   measured_ms=None if cost["measured_s"] is None else cost["measured_s"] * 1e3,
+                   n_epitomized=legal.n_epitomized)
+        log(f"[measured] {label}: {seconds:.2f} s, {cm.timings} timings for {cm.lookups} "
+            f"layer lookups, {row['measured_generations']}/{len(gens)} generations ranked "
+            f"by measured latency, available={cm.available}; legalized plan "
+            f"{legal.n_epitomized} epitomized layers, analytic {row['analytic_ms']:.3f} ms "
+            f"against measured {_ms(row['measured_ms'])} ms (kernels at t=1)")
+        if not cm.available or row["measured_ms"] is None:
+            raise AssertionError(f"measured search ({label}): the cost model degraded")
+        return legal, row
+
+    cold, out["measured_cold"] = measured("cold")
+    warm, out["measured_warm"] = measured("warm")
+    warm2, out["measured_warm2"] = measured("warm again")
+    if out["measured_warm"]["timings"] or out["measured_warm2"]["timings"]:
+        raise AssertionError("a search from the warm cache timed kernels")
+    if warm.to_json() != warm2.to_json():
+        raise AssertionError("two searches from the warm cache wrote different plans")
+    if _source_free(cold.to_json()) != _source_free(warm.to_json()):
+        raise AssertionError("the warm search's plan differs from the cold one's")
+    mpath = ROOT / "build" / "plan_resnet50_measured.json"
+    warm.save(str(mpath))
+    model = get_resnet("resnet50", plan=str(mpath), device=dev).init(gen()).prepack()
+    _, out["launches"]["measured"] = _plan_forward(
+        torch, "measured plan", model, images, {QUANT: warm.n_epitomized},
+        launch_counts, reset_launch_counts)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[measured] warm plans byte-identical: True; cold against warm equal but for each "
+        f"layer's source; {mpath.relative_to(ROOT)}: b{BATCH} forward launches "
+        f"{out['launches']['measured']}")
+
+    # (d) the tiny calibration refit on the card
+    cal = calibrate_tiny_coefficients(device=dev)
+    out["calibration"] = dataclasses.asdict(cal)
+    log(f"[calibrate] tiny-resnet on the card: A={cal.A:.4e} B={cal.B:.4e} (dense "
+        f"{cal.measured_dense_s * 1e3:.3f} ms, kernel-q3 {cal.measured_epitome_s * 1e3:.3f} "
+        f"ms, batch {cal.batch} at {cal.hw}^2); stored A={TINY_CALIBRATION.A:.4e} "
+        f"B={TINY_CALIBRATION.B:.4e}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[tune] phase 15 {out['seconds']:.1f} s; its own launches {out['launches']}")
+    return out
 
 
 def _ms(t, digits: int = 3) -> str:

@@ -26,6 +26,10 @@ quant_matmul          — a dense int8 dequant matmul with one (scale, zero)
                         ``csrc/epitome_mma.cuh``)
 ref                   — the plain PyTorch version of each kernel
 ops                   — the public wrappers: fold, block picks, trim
+autotune              — measured pack blocks and fold variant per (spec,
+                        bits, T bucket), timed by CUDA events, with a
+                        per-device JSON cache under benchmarks/tuned/ and
+                        plan-provenance integration (legalize --tune)
 
 Each kernel wrapper counts its launches in a plain integer attribute
 ``launches``; ``launch_counts`` reads them and ``reset_launch_counts`` sets

@@ -6,9 +6,20 @@ The plan -> legalize -> execute pipeline from the command line:
   PYTHONPATH=src python -m repro_torch.launch.plan search --arch resnet50 \\
       --objective latency --weight-bits 3 --act-bits 9 --out plan.json
 
+  # hardware-in-the-loop: re-rank each generation's elite front by kernel
+  # latency measured on the card (memoized in benchmarks/tuned/) and emit a
+  # legalized plan with analytic + measured cost in provenance
+  PYTHONPATH=src python -m repro_torch.launch.plan search --arch resnet50 \\
+      --objective latency --weight-bits 3 --act-bits 9 --measured --out plan.json
+
   # snap the searched specs to the kernel-exact families + re-simulate
   PYTHONPATH=src python -m repro_torch.launch.plan legalize --plan plan.json \\
       --out plan_legal.json
+
+  # ... and time the kernels' pack blocks and fold variant per layer on the
+  # card, recording the winners in provenance['tuned_blocks']
+  PYTHONPATH=src python -m repro_torch.launch.plan legalize --plan plan.json \\
+      --tune --tune-t 32 --out plan_tuned.json
 
   # inspect a plan (per-layer spec / bits / snap error + predicted cost)
   PYTHONPATH=src python -m repro_torch.launch.plan show --plan plan_legal.json
@@ -20,10 +31,12 @@ The plan -> legalize -> execute pipeline from the command line:
       --batch 32 --hw 224 --iters 5
 
 Plans are the reference's format (``repro.launch.plan`` writes the same
-JSON), so a plan from either package runs in the other.  Searching or
-legalizing with measured kernel latency (``--measured``, ``--tune``) comes
-with the tuning slice, and sharding by placement (``--mesh``) with the
-scale-out slice; both are refused here.
+JSON), so a plan from either package runs in the other.  ``--measured``
+and ``--tune`` time on ``--device`` (the card by default; ``--device cpu``
+times the kernels' plain versions on the host) and share the port's cache
+file, ``benchmarks/tuned/torch-<device type>.json`` (``--measure-cache``,
+``--tune-cache``).  Sharding by placement (``--mesh``) comes with the
+scale-out slice and is refused here.
 """
 from __future__ import annotations
 
@@ -32,10 +45,6 @@ import statistics
 import time
 
 _LATER = {
-    "measured": "--measured (search by measured kernel latency) comes with the "
-                "tuning slice of the port (ROADMAP item 13)",
-    "tune": "--tune (autotuned kernel blocks) comes with the tuning slice of the "
-            "port (ROADMAP item 13)",
     "mesh": "--mesh (sharding by placement) comes with the scale-out slice of the "
             "port (ROADMAP item 16)",
 }
@@ -50,6 +59,37 @@ def _refuse_later(args) -> None:
 def _load(path: str):
     from ..pim.plan import EpitomePlan
     return EpitomePlan.load(path)
+
+
+def _cost_model(args, arch: str):
+    """The CostModel the --measured flags select (None = analytic default).
+    One factory shared by search and legalize so both score with the same
+    keys and the same cache file."""
+    if not getattr(args, "measured", False):
+        return None
+    from ..pim.costmodel import measured_cost_for
+    return measured_cost_for(arch, t=args.measure_t,
+                             iters=args.measure_iters,
+                             cache_dir=args.measure_cache or None,
+                             device=args.device)
+
+
+def _add_measure_flags(s) -> None:
+    s.add_argument("--measured", action="store_true",
+                   help="hardware-in-the-loop: score by measured kernel "
+                        "latency (memoized per legalized spec/bits/T in the "
+                        "autotuner cache); degrades to analytic with a "
+                        "warning if timing is unavailable")
+    s.add_argument("--measure-t", type=int, default=1,
+                   help="per-image batch assumed when deriving measured T")
+    s.add_argument("--measure-iters", type=int, default=2,
+                   help="timing iterations per measured kernel")
+    s.add_argument("--measure-cache", default="",
+                   help="measurement-cache dir (default: benchmarks/tuned/, "
+                        "shared with legalize --tune)")
+    s.add_argument("--device", default="cuda",
+                   help="where --measured and --tune time the kernels "
+                        "(cpu: their plain versions, a host time)")
 
 
 def _print_cost(plan) -> None:
@@ -71,12 +111,19 @@ def _fmt_spec(spec) -> str:
 
 def cmd_search(args) -> None:
     from ..pim.evo import EvoConfig
-    from ..pim.plan import search_plan
+    from ..pim.plan import legalize_plan, search_plan
     evo = EvoConfig(population=args.population, iterations=args.iterations,
                     seed=args.seed)
+    cost = _cost_model(args, args.arch)
     plan = search_plan(args.arch, objective=args.objective,
                        weight_bits=args.weight_bits or None,
-                       act_bits=args.act_bits or None, evo=evo)
+                       act_bits=args.act_bits or None, evo=evo,
+                       cost=cost, measure_top_k=args.measure_top_k)
+    if cost is not None:
+        # hardware-in-the-loop output contract: the saved artifact is the
+        # legalized design the measurements were keyed on, with both cost
+        # columns stamped — ready for `run`, no separate legalize step
+        plan = legalize_plan(plan, cost=cost)
     plan.save(args.out)
     pred = plan.predicted
     print(f"[plan] searched {args.arch} ({args.objective}, "
@@ -84,15 +131,37 @@ def cmd_search(args) -> None:
           f"{plan.n_epitomized}/{len(plan.layers)} layers epitomized, "
           f"predicted {pred['latency_s']*1e3:.3f}ms / "
           f"{pred['energy_j']*1e3:.3f}mJ / {pred['xbars']} XBs")
-    print(f"[plan] saved -> {args.out}  (NOT legalized; run "
-          f"`legalize --plan {args.out}` before executing)")
+    if cost is not None:
+        gens = plan.provenance.get("measured_elites") or []
+        n_meas = sum(1 for g in gens if g.get("measured"))
+        print(f"[plan] measured elites: {n_meas}/{len(gens)} generations "
+              f"ranked by measured latency on {args.device} ({cost.timings} "
+              f"timings for {cost.lookups} layer lookups; degraded="
+              f"{not cost.available})")
+        _print_cost(plan)
+        print(f"[plan] saved -> {args.out}  (legalized; ready for "
+              f"`run --plan {args.out}`)")
+    else:
+        print(f"[plan] saved -> {args.out}  (NOT legalized; run "
+              f"`legalize --plan {args.out}` before executing)")
 
 
 def cmd_legalize(args) -> None:
     from ..pim.plan import legalize_plan
     plan = _load(args.plan)
     patch = tuple(int(v) for v in args.patch.split("x")) if args.patch else None
-    legal = legalize_plan(plan, patch=patch)
+    legal = legalize_plan(plan, patch=patch, cost=_cost_model(args, plan.arch))
+    if args.tune:
+        from ..kernels.autotune import tune_plan
+        legal = tune_plan(legal, t=args.tune_t, grid=args.tune_grid,
+                          iters=args.tune_iters,
+                          cache_dir=args.tune_cache or None, device=args.device)
+        rec = legal.provenance.get("tuned_blocks") or {}
+        for name, r in sorted(rec.items()):
+            print(f"[tune] {name}: bt={r['bt']} bk={r['bk']} bn={r['bn']} "
+                  f"fused_fold={r['fused_fold']} "
+                  f"tuned={r['tuned_us']:.1f}us heuristic="
+                  f"{r['heuristic_us']:.1f}us source={r['source']}")
     legal.save(args.out)
     pred = legal.predicted
     print(f"[plan] legalized {plan.arch}: snap error "
@@ -121,8 +190,8 @@ def cmd_show(args) -> None:
     tuned = prov.get("tuned_blocks") or {}
     if cost:
         _print_cost(plan)
-    cost_hdr = f" {'pred_ms':>8}" if by_layer else ""
-    tuned_hdr = f" {'tuned':<12}" if tuned else ""
+    cost_hdr = f" {'pred_ms':>8} {'meas_ms':>8} {'src':<6}" if by_layer else ""
+    tuned_hdr = f" {'tuned':<15}" if tuned else ""
     print(f"{'layer':<18} {'bits':>4} {'mode':<11} {'snap':>6} "
           f"{'placement':<16}{cost_hdr}{tuned_hdr} spec")
     for lp in plan.layers:
@@ -131,13 +200,17 @@ def cmd_show(args) -> None:
             f"{pl.row_axis or '.'}x{pl.col_axis or '.'}/{pl.scales[:4]}"
         cols = ""
         if by_layer:
-            a = (by_layer.get(lp.name) or {}).get("analytic_s")
-            cols = f" {'-' if a is None else f'{a*1e3:8.3f}':>8}"
+            c = by_layer.get(lp.name) or {}
+            a, m = c.get("analytic_s"), c.get("measured_s")
+            cols = (f" {'-' if a is None else f'{a*1e3:8.3f}':>8}"
+                    f" {'-' if m is None else f'{m*1e3:8.3f}':>8}"
+                    f" {c.get('source', '-'):<6}")
         if tuned:
             t = tuned.get(lp.name)
-            ttxt = "-" if t is None else (f"{t['bt']}x{t['bk']}x{t['bn']}"
+            ttxt = "-" if t is None else (f"{t['bt']}x{t['bk']}x{t['bn']}/"
+                                          f"{t.get('source', '?')[:4]}"
                                           f"{'/fold' if t.get('fused_fold') else ''}")
-            cols += f" {ttxt:<12}"
+            cols += f" {ttxt:<15}"
         print(f"{lp.name:<18} {lp.weight_bits or '-':>4} {lp.mode:<11} "
               f"{lp.snap_err:>6.3f} {where:<16}{cols} {_fmt_spec(lp.spec)}")
 
@@ -278,7 +351,10 @@ def main(argv=None) -> None:
     s.add_argument("--iterations", type=int, default=8)
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--out", default="plan.json")
-    s.add_argument("--measured", action="store_true", help="not available yet")
+    _add_measure_flags(s)
+    s.add_argument("--measure-top-k", type=int, default=4,
+                   help="elite-front size re-ranked by measured latency "
+                        "each generation (--measured only)")
     s.set_defaults(fn=cmd_search)
 
     s = sub.add_parser("legalize",
@@ -288,8 +364,19 @@ def main(argv=None) -> None:
                    help="execution patch 'BMxBN' (default: per-arch)")
     s.add_argument("--out", default="plan_legal.json")
     s.add_argument("--mesh", default="", help="not available yet")
-    s.add_argument("--tune", action="store_true", help="not available yet")
-    s.add_argument("--measured", action="store_true", help="not available yet")
+    s.add_argument("--tune", action="store_true",
+                   help="autotune kernel pack blocks and the fused fold per "
+                        "epitomized layer and record the winners in plan "
+                        "provenance (schema-additive; plans without it run "
+                        "unchanged)")
+    s.add_argument("--tune-t", type=int, default=1,
+                   help="per-image batch assumed when deriving the tuned T")
+    s.add_argument("--tune-grid", default="tiny", choices=("tiny", "default"),
+                   help="candidate-grid size for --tune")
+    s.add_argument("--tune-iters", type=int, default=2)
+    s.add_argument("--tune-cache", default="",
+                   help="tuning-cache dir (default: benchmarks/tuned/)")
+    _add_measure_flags(s)
     s.set_defaults(fn=cmd_legalize)
 
     s = sub.add_parser("show", help="print a plan")

@@ -44,7 +44,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 from ..core.epitome import EpitomeSpec
 from ..core.placement import (LayerPlacement, MESH_AXES, SCALE_MODES,
                               default_placement, snap_placement)
-from .costmodel import AnalyticCost
+from .costmodel import AnalyticCost, CostModel
 from .evo import EvoConfig, candidate_specs, evolution_search
 from .simulator import (PimSimulator, default_calibrated_simulator,
                         tiny_calibrated_simulator)
@@ -527,7 +527,8 @@ def legalize_plan(plan: EpitomePlan, *,
                   patch: Optional[Tuple[int, int]] = None,
                   simulator: Optional[PimSimulator] = None,
                   wrapping: bool = True,
-                  mesh_shape: Optional[Dict[str, int]] = None) -> EpitomePlan:
+                  mesh_shape: Optional[Dict[str, int]] = None,
+                  cost: Optional[CostModel] = None) -> EpitomePlan:
     """The legalization pass: every spec snaps to a kernel-exact family,
     per-layer snap errors are recorded, and the cost is re-simulated so the
     plan's prediction describes the design that will actually run.  Layers
@@ -535,7 +536,8 @@ def legalize_plan(plan: EpitomePlan, *,
     (axis name -> size) the placements are additionally snapped to the
     divisibility constraints of the legalized specs (reported fallbacks in
     provenance).  ``provenance['cost']`` records the per-layer cost under
-    the analytic simulator."""
+    ``cost`` (default: the analytic simulator; pass a ``MeasuredCost`` to
+    record measured kernel latency next to the analytic numbers)."""
     layers = inventory_for(plan.arch)()
     patch = tuple(patch or exec_patch_for(plan.arch))
     out: List[LayerPlan] = []
@@ -554,18 +556,19 @@ def legalize_plan(plan: EpitomePlan, *,
     legal_plan.predicted = sim.simulate_plan(
         legal_plan, wrapping=wrapping,
         act_bits=plan.provenance.get("act_bits")).summary()
-    _stamp_cost(legal_plan, sim)
+    _stamp_cost(legal_plan, cost or AnalyticCost(sim))
     return legal_plan
 
 
 # ---------------------------------------------------------------------------
 # Planners — every design path emits an EpitomePlan
 # ---------------------------------------------------------------------------
-def _stamp_cost(plan: EpitomePlan, sim: PimSimulator) -> EpitomePlan:
-    """Record a plan's per-layer analytic cost into ``provenance['cost']``
-    (schema-additive: provenance is free-form); the record's
-    ``measured_s`` fields are null."""
-    cost = AnalyticCost(sim)
+def _stamp_cost(plan: EpitomePlan, cost: CostModel) -> EpitomePlan:
+    """Record a plan's per-layer cost under ``cost`` into
+    ``provenance['cost']`` (schema-additive: provenance is free-form).
+    Under ``AnalyticCost`` the record's ``measured_s`` fields are null;
+    under ``MeasuredCost`` both columns are real numbers — the artifact
+    always shows predicted and (when available) measured side by side."""
     plan.provenance["cost_model"] = cost.name
     plan.provenance["cost"] = cost.plan_cost(plan).record()
     return plan
@@ -602,11 +605,12 @@ def plan_from_specs(arch: str, specs: Sequence[Optional[EpitomeSpec]], *,
                     act_bits: Optional[int] = None, wrapping: bool = True,
                     provenance: Optional[Dict[str, Any]] = None,
                     placements: Optional[Sequence[Optional[LayerPlacement]]]
-                    = None) -> EpitomePlan:
+                    = None,
+                    cost: Optional[CostModel] = None) -> EpitomePlan:
     """Wrap a bare spec list into a plan: provenance + simulated cost.
     Placement defaults to the role-based serving layout per layer.
-    ``provenance['cost']`` records per-layer latency under the analytic
-    simulator."""
+    ``provenance['cost']`` records per-layer analytic (and, with a
+    ``MeasuredCost``, measured) latency."""
     layers = inventory_for(arch)()
     if len(specs) != len(layers):
         raise ValueError(f"{len(specs)} specs for {len(layers)} layers")
@@ -624,7 +628,7 @@ def plan_from_specs(arch: str, specs: Sequence[Optional[EpitomeSpec]], *,
     sim = simulator or simulator_for(arch)
     plan.predicted = sim.simulate_plan(plan, wrapping=wrapping,
                                        act_bits=act_bits).summary()
-    return _stamp_cost(plan, sim)
+    return _stamp_cost(plan, cost or AnalyticCost(sim))
 
 
 def uniform_plan(arch: str, m: int = 1024, n: int = 256, *,
@@ -666,15 +670,22 @@ def search_plan(arch: str, *, objective: str = "latency",
                 budget_xbars: Optional[int] = None,
                 evo: Optional[EvoConfig] = None, mode: str = "kernel",
                 simulator: Optional[PimSimulator] = None,
-                seed_plan: Optional[EpitomePlan] = None) -> EpitomePlan:
+                seed_plan: Optional[EpitomePlan] = None,
+                cost: Optional[CostModel] = None,
+                measure_top_k: int = 4) -> EpitomePlan:
     """Algorithm-1 evolution search, emitted as a plan.
 
     Seeds {P}_0 with ``seed_plan`` (default: the auto_plan design, which
     also sets the crossbar budget so the search optimizes cost at matched
     area).  The searched specs are generally NOT kernel-exact — run the
-    result through ``legalize_plan`` before executing it.  Searching by
-    measured kernel latency (the reference's ``cost=``) comes with the
-    tuning slice."""
+    result through ``legalize_plan`` before executing it.
+
+    ``cost`` (a ``MeasuredCost``) switches on hardware-in-the-loop mode:
+    each generation's elite front (top ``measure_top_k`` feasible designs)
+    is re-ranked by measured kernel latency, the winner is the
+    measured-best elite across generations, and provenance additionally
+    records ``cost_model``, the per-generation ``measured_elites`` log, and
+    the winning plan's per-layer analytic+measured ``cost``."""
     layers = inventory_for(arch)()
     sim = simulator or simulator_for(arch)
     cfg = dataclasses.replace(evo or EvoConfig(), objective=objective)
@@ -695,9 +706,12 @@ def search_plan(arch: str, *, objective: str = "latency",
     wb = None if weight_bits is None else [weight_bits] * len(layers)
     if budget_xbars is None:
         budget_xbars = count_crossbars(layers, sim.mapping, seed_specs, wb)
+    elite_log: Optional[List[Dict[str, Any]]] = \
+        [] if cost is not None else None
     best, simres, curve = evolution_search(
         layers, cands, sim, budget_xbars, cfg, weight_bits=wb,
-        seeds=[seed_specs], act_bits=act_bits)
+        seeds=[seed_specs], act_bits=act_bits, cost=cost,
+        measure_top_k=measure_top_k, elite_log=elite_log)
     provenance = {"planner": "evolution_search", "objective": cfg.objective,
                   "seed": cfg.seed, "population": cfg.population,
                   "iterations": cfg.iterations,
@@ -705,10 +719,16 @@ def search_plan(arch: str, *, objective: str = "latency",
                   "act_bits": act_bits, "shapes": [list(s) for s in shapes],
                   "best_curve": [float(r) for r in curve],
                   "legalized": False}
-    return EpitomePlan(
+    if cost is not None:
+        provenance["cost_model"] = cost.name
+        provenance["measured_elites"] = elite_log
+    plan = EpitomePlan(
         arch=arch,
         layers=[LayerPlan(l.name, s, weight_bits, mode,
                           placement=default_placement(l.name))
                 for l, s in zip(layers, best)],
         provenance=provenance,
         predicted=simres.summary())
+    if cost is not None:
+        _stamp_cost(plan, cost)
+    return plan

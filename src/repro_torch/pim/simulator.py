@@ -26,9 +26,9 @@ Everything downstream (r101 rows, wrapping/evo gains, EDP, quantized rows)
 is a structural prediction, not a fit.
 
 A copy of ``repro.pim.simulator``, float64 operation for operation, so that
-both packages predict the same costs and search the same plans.  Refitting
-the tiny coefficients on measured times (``calibrate_tiny_coefficients``)
-comes with the tuning slice.
+both packages predict the same costs and search the same plans.
+``calibrate_tiny_coefficients`` refits the tiny coefficients on forwards
+timed on the card and returns them; the stored ones stay the reference's.
 """
 from __future__ import annotations
 
@@ -252,12 +252,88 @@ def calibrate(sim: PimSimulator, layers: Sequence[LayerShape],
 
 def tiny_calibrated_simulator() -> PimSimulator:
     """The (8, 8)-crossbar simulator for tiny-resnet with the reference's
-    tiny latency coefficients (tables.TINY_CALIBRATION).  Energy
-    coefficients stay at the structural defaults."""
+    tiny latency coefficients (tables.TINY_CALIBRATION; a refit on the
+    card is ``calibrate_tiny_coefficients``).  Energy coefficients stay at
+    the structural defaults."""
     from .tables import TINY_CALIBRATION as tc
     sim = PimSimulator(MappingConfig(xb_rows=8, xb_cols=8))
     sim.coeff.A, sim.coeff.B = tc.A, tc.B
     return sim
+
+
+def tiny_calibration_system(plan):
+    """The 2x2 latency system ``calibrate_tiny_coefficients`` solves: rows
+    (dense, ``plan``) of the (8, 8)-crossbar simulator's summed (round
+    events R, buffer elements V) over tiny-resnet, the plan's at act_bits
+    9 with wrapping."""
+    import numpy as np
+    from .workloads import tiny_resnet_layers
+    layers = tiny_resnet_layers()
+    sim = PimSimulator(MappingConfig(xb_rows=8, xb_cols=8))
+    d = _sums(sim.counters(layers))
+    e = _sums(sim.counters(layers, plan.specs(), plan.bits(),
+                           wrapping=True, act_bits=9))
+    return np.array([[d[0], d[1]], [e[0], e[1]]])
+
+
+def calibrate_tiny_coefficients(batch: int = 2, hw: int = 16, iters: int = 5,
+                                device=None):
+    """Re-derive tables.TINY_CALIBRATION from forwards timed on ``device``
+    (the card unless the caller names another).
+
+    Times (a) the dense tiny-resnet and (b) the auto-planned kernel x q3
+    tiny-resnet with ``autotune.wall_timer`` (warm-up + best-of-iters, the
+    clock MeasuredCost and tune() use), then solves the same 2x2 latency
+    system ``calibrate`` solves — on measured anchors instead of Table-1
+    numbers.  Returns a ``tables.TinyCalibration`` and changes nothing:
+    the stored constants stay the reference's, so both packages keep
+    writing the same plans."""
+    import numpy as np
+    import torch
+
+    from .tables import TinyCalibration
+    from .plan import auto_plan
+    from ..kernels.autotune import resolve_device, wall_timer
+    from ..models.resnet import ResNetModel, tiny_resnet
+
+    dev = resolve_device(device)
+    x = torch.randn(batch, hw, hw, 3,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def wall(model) -> float:
+        with torch.no_grad():
+            return wall_timer(lambda: model.apply(x), iters) * 1e-6
+
+    dense = tiny_resnet(specs=None, device=dev)
+    t_dense = wall(dense.init(torch.Generator().manual_seed(0)))
+    plan = auto_plan("tiny-resnet", target_cr=2.0, weight_bits=3,
+                     mode="kernel")
+    model = ResNetModel.from_plan(plan, device=dev)
+    t_ep = wall(model.init(torch.Generator().manual_seed(0)).prepack())
+
+    M = tiny_calibration_system(plan)
+    y = np.array([t_dense, t_ep])
+    A, B = np.linalg.solve(M, y)
+    if min(A, B) < 0:
+        # project to the non-negative cone: best single-coefficient fit
+        best, best_r = None, np.inf
+        for keep in (0, 1):
+            sol, *_ = np.linalg.lstsq(M[:, [keep]], y, rcond=None)
+            if sol[0] < 0:
+                continue
+            r = float(np.sum((M[:, [keep]] @ sol - y) ** 2))
+            if r < best_r:
+                full = np.zeros(2)
+                full[keep] = sol[0]
+                best, best_r = full, r
+        if best is None:
+            raise ValueError("tiny latency calibration infeasible")
+        A, B = best
+    return TinyCalibration(A=float(A), B=float(B),
+                           measured_dense_s=float(t_dense),
+                           measured_epitome_s=float(t_ep),
+                           batch=batch, hw=hw,
+                           method=f"calibrate_tiny_coefficients on {dev.type}")
 
 
 def default_calibrated_simulator() -> PimSimulator:

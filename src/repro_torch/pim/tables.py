@@ -25,8 +25,9 @@ class TinyCalibration:
     own tiny-resnet forwards (dense, and the auto-planned kernel x q3
     design, batch 2 at 16 x 16) on a CPU host running its Pallas kernels in
     interpret mode: 0.521 ms and 2.524 ms.  They are not times of this
-    port or of any card; refitting them on the card waits for the tuning
-    slice.  The model is
+    port or of any card; ``simulator.calibrate_tiny_coefficients`` refits
+    them on the card and returns the fit without storing it.  The model
+    is
 
       latency = A * R + B * V   with   A, B >= 0
 

@@ -1044,3 +1044,65 @@ def test_smoke_jamba_engine_on_card(ffn, cuda_device):
             _engine_sites(cfg) * (prefills + st["decode_micro_steps"])
         runs.append({i: h.result().tokens for i, h in handles.items()})
     assert runs[0] == runs[1] == runs[2]
+
+
+# -- the autotuner on the card ------------------------------------------------------------
+def test_wall_timer_on_card_rises_with_work(cuda_device):
+    from repro_torch.kernels.autotune import wall_timer
+    a = torch.randn(512, 512, device=cuda_device)
+    b = torch.randn(4096, 4096, device=cuda_device)
+    small = wall_timer(lambda: a @ a, 5)
+    large = wall_timer(lambda: b @ b, 5)
+    assert 0 < small < float("inf") and 0 < large < float("inf")
+    assert large > small
+
+
+def _tune_shapes():
+    from repro_torch.pim.plan import auto_plan
+    out = []
+    for arch, T in (("tiny-resnet", 64), ("rwkv6-7b-smoke", 4)):
+        spec = next(s for s in auto_plan(arch, weight_bits=3).specs() if s is not None)
+        out.append((arch, spec, T))
+    return out
+
+
+@pytest.mark.parametrize("case", range(2), ids=["tiny-resnet", "rwkv6-7b-smoke"])
+def test_tune_on_card_timed_then_cache(case, cuda_device, tmp_path):
+    from repro_torch.kernels import autotune
+    _, spec, T = _tune_shapes()[case]
+    r1 = autotune.tune(spec, 3, T, grid="default", cache_dir=str(tmp_path))
+    assert r1.source == "timed" and r1.tuned_us <= r1.heuristic_us
+    assert r1.bit_identical and r1.backend == "torch-cuda" and not r1.skipped
+    reset_launch_counts()
+    r2 = autotune.tune(spec, 3, T, grid="default", cache_dir=str(tmp_path))
+    assert r2.source == "cache" and r2.record() == r1.record()
+    assert not any(launch_counts().values())
+
+
+def test_tuned_tiny_plan_logits_equal_untuned_on_card(cuda_device, tmp_path):
+    """At the inventory's input (32 x 32, so every layer runs the rows the
+    tuner measured), a plan whose winners are all bit-identical serves the
+    untuned plan's logits bit for bit.  Bit identity is measured at the
+    tuned T only: at 16 x 16 inputs (a quarter of the rows) the same plans'
+    logits differed by about 1e-4 on an H100."""
+    from repro_torch.configs import get_resnet
+    from repro_torch.kernels.autotune import tune_plan
+    from repro_torch.pim.plan import auto_plan
+    plan = auto_plan("tiny-resnet", weight_bits=3, mode="kernel")
+    tuned = tune_plan(plan, t=2, grid="default", cache_dir=str(tmp_path))
+    rec = tuned.provenance["tuned_blocks"]
+    assert rec and all(r["source"] in ("timed", "cache") for r in rec.values())
+    assert all(r["bit_identical"] for r in rec.values())
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    base = get_resnet("tiny-resnet", plan=plan, device=cuda_device)
+    base.init(torch.Generator().manual_seed(0)).prepack()
+    model = get_resnet("tiny-resnet", plan=tuned, device=cuda_device)
+    model.init(torch.Generator().manual_seed(0)).prepack()
+    with torch.no_grad():
+        reset_launch_counts()
+        y = model.apply(x)
+        counts = launch_counts()
+        fused = sum(1 for r in rec.values() if r["fused_fold"])
+        assert counts["quant_epitome_matmul_fused_fold"] == fused
+        assert counts["quant_epitome_matmul_blocks"] == len(rec) - fused
+        assert torch.equal(y, base.apply(x))
