@@ -5,6 +5,7 @@
     python3 chip_smoke.py --time-wkv-bwd TREE   # the WKV backward of checkout TREE alone
     python3 chip_smoke.py --time-mamba-scan TREE   # the selective scan of checkout TREE alone
     python3 chip_smoke.py --time-jamba-engine TREE   # jamba's engine on checkout TREE's port
+    python3 chip_smoke.py --time-mesh   # rwkv6-7b, no mesh against a (1, 1) mesh, in turns
 
 Ten main paths, each at the full width of its model:
 
@@ -54,7 +55,9 @@ Ten main paths, each at the full width of its model:
   dense FFN's 3.
 
 Besides, phase 15 tunes the searched ResNet-50 plan's kernel blocks on the
-card and searches a plan by kernel latency measured there, and serves both.
+card and searches a plan by kernel latency measured there, and serves both;
+phase 16 serves rwkv6-7b sharded by placement on a (1, 1) NCCL mesh
+(``launch.mesh``), bit for bit against the same model without a mesh.
 
 Phases:
 
@@ -239,6 +242,22 @@ Phases:
              exact launches; (d) ``calibrate_tiny_coefficients`` on the card
              beside the stored coefficients.  The phase's launches are its
              own, outside phase 11's sums.
+16. mesh   — sharded serving on a (1, 1) NCCL mesh (one card: no traffic
+             between ranks; the mesh path's layout, gathers and kernels):
+             (a) rwkv6-7b from a plan searched (population 6, 3 iterations)
+             and legalized for the mesh, every layer with a placement, at
+             full width and depth in bf16: phase 5's generate and timed
+             prefill and decode steps without a mesh, then with the packed
+             tree laid out by placement (``lm.shard_params``; 256 int8 code
+             leaves), logits and tokens bit for bit and launches equal, and
+             both trees' prefill and decode step in turns (5 rounds;
+             ``--time-mesh`` runs 20 alone);
+             (b) ``python -m repro_torch.launch.plan run --mesh 1,1`` on the
+             smoke plan in a subprocess, both ``bit-identical=True`` lines;
+             (c) ``EngineConfig(mesh="1,1")`` serving phase 10's requests at
+             K = 4, greedy tokens and launches equal to phase 10's.  The
+             process group is destroyed at the end.  Its mesh runs' launches
+             enter phase 11's sums, timed at the plan's shapes.
 11. times  — each kernel's times and bounds summed over the launches of
              the main paths (the ResNet forwards, one LM generate at each
              variant and of each attention LM and of the MoE LM, the
@@ -370,6 +389,15 @@ MAMBA_ARCH, MAMBA_FFN = "jamba-1.5-large-398b", ("dense", "none") * 4
 MAMBA_SITES, MAMBA_LAYERS = 63 * 4 + 9 * 4 + 36 * 3, 63
 MAMBA_MICRO, MAMBA_CHUNKS, MAMBA_ONESHOT = 77, 9, (1, 4)
 MAMBA_WORKSPACE = 3 << 29   # 1.5 GiB the phase needs free beside the parameters
+# phase 16, sharded serving: rwkv6-7b from a plan searched (the reference
+# test's search size) and legalized for a (1, 1) mesh, served on a (1, 1)
+# NCCL mesh with its codes laid out by placement, held bit for bit to the
+# same plan without a mesh; the plan CLI's own check on a smoke plan; and
+# phase 10's rwkv6-7b requests through EngineConfig(mesh="1,1")
+MESH_EVO = dict(population=6, iterations=3, seed=0)
+MESH_PATH = f"{LM_ARCH} mesh 1,1"
+MESH_TURNS = 5          # phase 16's in-turns rounds
+MESH_AB_ROUNDS = 20     # --time-mesh
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/quant_epitome_matmul.cu",
@@ -697,6 +725,16 @@ def main() -> int:
     tune_report = tune_phase(torch, dev, get_resnet, images, launch_counts,
                              reset_launch_counts)
 
+    # -- 16. sharded serving: rwkv6-7b on a (1, 1) NCCL mesh, laid out by placement --
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_rows, mesh_report = mesh_phase(
+        torch, dev, gen, ops, ref, WRAPPERS, lm, serve, get_config, launch_counts,
+        reset_launch_counts, lm_rows, engine_rows, engine_runs[0])
+    rows += mesh_rows
+    launches[QUANT] += mesh_report["launches"][QUANT]
+    launches[WKV] += mesh_report["launches"][WKV]
+
     # -- 11. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
@@ -760,7 +798,7 @@ def main() -> int:
                   attention_card_vs_cpu=attn_cpu, engine=engine_runs,
                   engine_card_vs_cpu=engine_cpu, fold_probe=fold, plan=plan_run["plan"],
                   quant_matmul_vs_f64=qm_f64, moe=moe_report, train=train_report,
-                  mamba=mamba_report, tuning=tune_report,
+                  mamba=mamba_report, tuning=tune_report, mesh=mesh_report,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -772,7 +810,8 @@ def main() -> int:
         + ", ".join(f"{a} {t:.1f}" for a, t in report["attention_s"].items()) + ", engine "
         + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items())
         + f", MoE {moe_report['seconds']:.1f}, training {train_report['seconds']:.1f}, "
-        f"Mamba {mamba_report['seconds']:.1f}, tuning {tune_report['seconds']:.1f})")
+        f"Mamba {mamba_report['seconds']:.1f}, tuning {tune_report['seconds']:.1f}, "
+        f"mesh {mesh_report['seconds']:.1f})")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
     # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
@@ -1184,13 +1223,17 @@ def wkv6_ops(B, S, H, K, L) -> tuple:
 
 
 def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_launch_counts,
-            requests=LM_REQUESTS, prompt=LM_PROMPT, new=LM_NEW, built=None) -> dict:
+            requests=LM_REQUESTS, prompt=LM_PROMPT, new=LM_NEW, built=None, keep=None,
+            profile=True) -> dict:
     """An LM (``cfg``, at ``variant``) at full width and depth from seeded
     weights: generate ``new`` greedy tokens for ``requests`` prompts of
     ``prompt`` random tokens with exactly the launches of ``expect``
     ({kernel: launches}) and none of any other kernel, then prefill (three
-    times, bit for bit) and decode timed and profiled.  ``built`` (params,
-    seconds) passes parameters the caller drew and keeps."""
+    times, bit for bit) and decode timed and (``profile``) profiled.
+    ``built`` (params, seconds) passes parameters the caller drew and
+    keeps; ``keep`` (a dict) receives the generated tokens and the first
+    prefill's logits."""
+    from repro_torch.core.layers import unshard
     name = cfg.name
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1237,8 +1280,11 @@ def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_la
         top2 = torch.topk(outs[0][0], 2).values
         mixer = params["groups"][0]["L0"]["mixer"]
         w = mixer[next(k for k in ("wr", "wq", "in_proj") if k in mixer)]
-        fingerprint = [float(params["embed"].double().sum()), float(prompts.sum()),
-                       int(w["Eq"].long().sum()) if "Eq" in w else float(w["E"].double().sum())]
+        fingerprint = [float(unshard(params["embed"]).double().sum()), float(prompts.sum()),
+                       int(unshard(w["Eq"]).long().sum()) if "Eq" in w
+                       else float(unshard(w["E"]).double().sum())]
+        if keep is not None:
+            keep.update(tokens=toks, logits=outs[0])
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
         logits, state = lm.decode_step(params, state, tok, prompt, cfg)   # warm-up
         dec, dec_host = [], []
@@ -1252,9 +1298,11 @@ def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_la
             dec.append(1e3 * (time.perf_counter() - t0))
         finite(torch, logits, f"{name} decode logits")
         peak = torch.cuda.max_memory_allocated()
-        prof_pre = device_breakdown(torch, lambda: lm.prefill(params, prompts, state0, cfg))
-        prof_dec = device_breakdown(
-            torch, lambda: lm.decode_step(params, state, tok, prompt + 6, cfg))
+        prof_pre = prof_dec = []
+        if profile:
+            prof_pre = device_breakdown(torch, lambda: lm.prefill(params, prompts, state0, cfg))
+            prof_dec = device_breakdown(
+                torch, lambda: lm.decode_step(params, state, tok, prompt + 6, cfg))
     decode_ms = statistics.median(dec)
     run = dict(arch=name, variant=variant, n_layers=cfg.n_layers, d_model=cfg.d_model,
                vocab=cfg.vocab, traffic=[requests, prompt, new],
@@ -1284,7 +1332,7 @@ def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_la
         f"{statistics.median(dec_host):.2f}) = {run['decode_tok_s']:.1f} tok/s; "
         f"peak {peak / 2**30:.2f} GiB; device kernels: prefill {run['prefill_kernels']}, "
         f"decode step {run['decode_kernels_per_step']}")
-    for label, prof in (("prefill", prof_pre), ("decode", prof_dec)):
+    for label, prof in (("prefill", prof_pre), ("decode", prof_dec)) if profile else ():
         log(f"[profile] lm {name} {variant} {label}: device busy "
             f"{sum(ms for _, ms, _ in prof):.3f} ms")
         for kname, ms, n in prof[:8]:
@@ -1737,7 +1785,7 @@ def engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size, 
                k1=dict(wall_s=k1["wall_s"], tok_s=k1["tok_s"], stats=k1["stats"]),
                reverse=dict(wall_s=rev["wall_s"], tok_s=rev["tok_s"]),
                forwards_by_rows=by_T, wkv_by_rows=by_T_wkv, one_shot=vs, one_shot_s=oneshot_s,
-               tokens_sample=list(main["tokens"][0][:8]))
+               tokens_sample=list(main["tokens"][0][:8]), tokens=main["tokens"])
     p_tot = st["pages_total"]
     log(f"[engine] {arch} kernel-q3 bf16 {cfg.n_layers} layers, d_model {cfg.d_model}: "
         f"{n} requests ({len(ENGINE_PROMPTS)} greedy, {len(ENGINE_SAMPLED)} sampled), capacity "
@@ -2915,6 +2963,256 @@ def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T, names=None):
     return rows
 
 
+# -- phase 16: sharded serving -----------------------------------------------------
+def _mesh_plan(arch: str, out: Path):
+    """``arch``'s plan: searched (MESH_EVO), legalized for a (1, 1) mesh,
+    every layer carrying a placement; saved to ``out``."""
+    from repro_torch.pim.evo import EvoConfig
+    from repro_torch.pim.plan import legalize_plan, search_plan
+    plan = legalize_plan(search_plan(arch, objective="latency", weight_bits=3, act_bits=9,
+                                     evo=EvoConfig(**MESH_EVO)),
+                         mesh_shape={"data": 1, "model": 1})
+    if not all(lp.placement is not None for lp in plan.layers):
+        raise AssertionError(f"{arch}: a legalized layer carries no placement")
+    if plan.provenance.get("placement_fallbacks"):
+        raise AssertionError(f"{arch}: placement fallbacks on a (1, 1) mesh "
+                             f"{plan.provenance['placement_fallbacks']}")
+    plan.save(str(out))
+    return plan
+
+
+def mesh_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, launch_counts,
+               reset_launch_counts, lm_rows, engine_rows, engine_run):
+    """Phase 16: sharded serving on a (1, 1) NCCL mesh (one card shows no
+    traffic between ranks: what it shows is that the mesh path runs the
+    same kernels on the same operands).  (a) rwkv6-7b from a searched,
+    legalized plan: generate and the timed prefill and decode steps
+    without a mesh, then with the packed tree laid out by placement on the
+    mesh (``lm.shard_params``; the state by ``lm.state_specs``): logits
+    and tokens bit for bit, launches equal; (b) ``plan run --mesh 1,1`` on
+    the smoke plan as a subprocess, its two ``bit-identical=True`` lines;
+    (c) ``EngineConfig(mesh="1,1")`` (``prepack_params(mesh=)``) serving
+    phase 10's requests at K = 4, tokens and launches equal to phase 10's.
+    Returns (kernel rows of the mesh runs, report)."""
+    from repro_torch.core.layers import Sharded
+    from repro_torch.launch import engine as engine_mod
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.common import set_mesh
+    from repro_torch.train.tree import leaves
+    t_phase = time.perf_counter()
+    smoke_path = ROOT / "build" / "plan_rwkv6-7b-smoke_mesh.json"
+    torch.cuda.reset_peak_memory_stats()
+    plan, cfg, params, setup_s = _mesh_model(torch, dev, lm, get_config)
+    _mesh_plan(f"{LM_ARCH}-smoke", smoke_path)
+    per_fwd = sum(site_specs(lm, cfg).values()) * cfg.n_groups
+    expect = {QUANT: per_fwd * LM_NEW, WKV: cfg.n_layers}
+    report = dict(plan_specs={lp.name: str(lp.spec) for lp in plan.layers},
+                  placements={lp.name: str(lp.placement) for lp in plan.layers})
+    one_keep, sh_keep = {}, {}
+    one = lm_path(torch, dev, lm, serve, cfg, "plan, no mesh", expect, launch_counts,
+                  reset_launch_counts, built=(params, setup_s), keep=one_keep, profile=False)
+    try:
+        mesh = tmesh.mesh_for_plan(plan, 1, 1, dev)
+        backend = torch.distributed.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"the card's mesh runs over {backend}, not NCCL")
+        set_mesh(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sharded = lm.shard_params(params, cfg, mesh)
+        layout_s = time.perf_counter() - t0
+        laid = [v for v in leaves(sharded["groups"]) if isinstance(v, Sharded)]
+        codes = sum(1 for g in sharded["groups"] for k, v in _named_leaves(g)
+                    if k.endswith("/Eq") and isinstance(v, Sharded))
+        if codes != per_fwd:
+            raise AssertionError(f"{codes} int8 code leaves laid out, expected {per_fwd}")
+        sh = lm_path(torch, dev, lm, serve, cfg, "plan, mesh 1,1", expect, launch_counts,
+                     reset_launch_counts, built=(sharded, layout_s), keep=sh_keep, profile=False)
+        logits_ok = torch.equal(one_keep["logits"], sh_keep["logits"])
+        toks_ok = torch.equal(one_keep["tokens"], sh_keep["tokens"])
+        if not (logits_ok and toks_ok and one["launches"] == sh["launches"]):
+            raise AssertionError(f"mesh 1,1 drifted from no mesh: logits {logits_ok}, tokens "
+                                 f"{toks_ok}, launches {sh['launches']} vs {one['launches']}")
+        log(f"[mesh] {LM_ARCH} plan ({', '.join(sorted(set(report['plan_specs'].values())))}) on "
+            f"{tmesh.describe(mesh)}: {len(laid)} leaves laid out ({codes} int8 code leaves, "
+            f"whole on the one rank); logits bit-identical={logits_ok} tokens "
+            f"bit-identical={toks_ok}; launches {sh['launches']} (no mesh {one['launches']})")
+        for label, run in (("no mesh", one), ("mesh 1,1", sh)):
+            log(f"[mesh] {label}: prefill {run['prefill_ms_median']:.2f} ms, decode step "
+                f"{run['decode_ms_median']:.2f} ms ({run['decode_tok_s']:.1f} tok/s), host "
+                f"returns after {statistics.median(run['decode_host_ms']):.2f} ms, peak "
+                f"{run['peak_bytes'] / 2**30:.2f} GiB; {card_line()}")
+        turns = _in_turns(torch, dev, lm, cfg, {"no mesh": (params, None),
+                                                 "mesh 1,1": (sharded, mesh)}, MESH_TURNS)
+        log(f"[mesh] in turns ({MESH_TURNS} rounds after a warm-up, the order alternating): "
+            + "; ".join(f"{k}: prefill {turns[k]['prefill']['median']:.2f} ms, decode step "
+                        f"{turns[k]['decode']['median']:.2f} ms" for k in ("no mesh", "mesh 1,1"))
+            + f"; mesh faster in {turns['faster_rounds']} rounds; {card_line()}")
+        del params, sharded
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the plan CLI's own sharded-vs-one-rank check, in its own process
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.plan", "run", "--plan",
+                              str(smoke_path), "--mesh", "1,1", "--device", "cuda"],
+                             capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        cli_s = time.perf_counter() - t0
+        for line in cli.stdout.splitlines():
+            log(f"[mesh-cli] {line}")
+        if cli.returncode != 0 or "logits bit-identical=True" not in cli.stdout \
+                or "tokens bit-identical=True" not in cli.stdout:
+            raise AssertionError(f"plan run --mesh 1,1 (rc {cli.returncode}): "
+                                 f"{cli.stdout[-2000:]} {cli.stderr[-4000:]}")
+
+        # (c) the engine on the mesh: phase 10's requests, tokens and launches
+        t0 = time.perf_counter()
+        eng = engine_mod.EngineConfig(
+            arch=LM_ARCH, epitome="kernel-q3", mesh="1,1", decode_block=ENGINE_BLOCK, seed=SEED,
+            capacity=ENGINE_CAPACITY, max_len=ENGINE_MAX_LEN, page_size=0, kv_pages=0,
+            prefill_chunk=ENGINE_CHUNK).build()
+        eng_setup_s = time.perf_counter() - t0
+        if not isinstance(eng.serve_params["groups"][0]["L0"]["mixer"]["wr"]["Eq"], Sharded):
+            raise AssertionError("EngineConfig(mesh='1,1') left the codes unlaid")
+        reqs = engine_requests(torch, engine_mod.Request, eng.cfg.vocab)
+        drive = engine_drive(torch, eng, reqs, range(len(reqs)), launch_counts,
+                             reset_launch_counts, 8 * eng.cfg.n_layers)
+        greedy = range(len(ENGINE_PROMPTS))
+        diff = [i for i in range(len(reqs)) if drive["tokens"][i] != engine_run["tokens"][i]]
+        if any(i in greedy for i in diff) or drive["launches"] != engine_run["launches"]:
+            raise AssertionError(f"engine on mesh 1,1: requests {diff} differ from phase 10's, "
+                                 f"launches {drive['launches']} vs {engine_run['launches']}")
+        log(f"[mesh-engine] {LM_ARCH} kernel-q3 EngineConfig(mesh='1,1'): {len(reqs)} requests "
+            f"in {drive['wall_s']:.2f} s ({drive['tok_s']:.1f} tok/s; phase 10 "
+            f"{engine_run['wall_s']:.2f} s), build {eng_setup_s:.1f} s; tokens equal to phase "
+            f"10's for {len(reqs) - len(diff)}/{len(reqs)} requests (every greedy one), "
+            f"launches {drive['launches']} equal")
+        del eng
+    finally:
+        tmesh.destroy_world()
+    if torch.distributed.is_initialized():
+        raise AssertionError("the phase left its process group up")
+    torch.cuda.empty_cache()
+
+    # kernel rows: #1 at the plan's specs and the generate's rows; #4 and the
+    # engine's rows as phases 5 and 10 timed them (the same shapes and dtype)
+    rows = quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, MESH_PATH,
+                         ((LM_REQUESTS * LM_PROMPT, 1), (LM_REQUESTS, LM_NEW - 1)), LM_REQUESTS,
+                         dtypes=((torch.bfloat16, BF16_TOL),))
+    wkv = next(r for r in lm_rows if r["kernel"] == WKV and r["count"])
+    rows.append(dict(wkv, path=MESH_PATH))
+    rows += [dict(r, path=f"{LM_ARCH} engine mesh 1,1") for r in engine_rows
+             if r["path"] == f"{LM_ARCH} engine" and r["count"]]
+    seconds = time.perf_counter() - t_phase
+    report.update(lm=sh, lm_no_mesh=one, in_turns=turns, cli_s=cli_s, cli_stdout=cli.stdout,
+                  engine=dict(wall_s=drive["wall_s"], tok_s=drive["tok_s"],
+                              launches=drive["launches"], setup_s=eng_setup_s,
+                              requests_equal=len(reqs) - len(diff)),
+                  launches={k: sh["launches"][k] + drive["launches"][k] for k in (QUANT, WKV)},
+                  seconds=seconds)
+    log(f"[mesh] phase 16 {seconds:.1f} s (plan run subprocess {cli_s:.1f} s)")
+    return rows, report
+
+
+def _in_turns(torch, dev, lm, cfg, trees, rounds: int) -> dict:
+    """Phase 5's prefill and one decode step of each of ``trees`` ({label:
+    (params, mesh or None)}), in turns for ``rounds`` rounds after one
+    unrecorded warm-up round, the order reversed every other round: per
+    label the median, the quartiles and every run (ms, device-synchronised,
+    and when the host returned), and per metric the rounds in which the
+    last label was faster than the first."""
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    metrics = ("prefill", "prefill_host", "decode", "decode_host")
+    runs = {k: {m: [] for m in metrics} for k in trees}
+    with torch.no_grad():
+        for i in range(rounds + 1):
+            for name in (list(trees) if i % 2 == 0 else list(trees)[::-1]):
+                params, mesh = trees[name]
+                state = lm.init_decode_state(cfg, LM_REQUESTS, LM_PROMPT + LM_NEW + 1, dev,
+                                             mesh=mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, state = lm.prefill(params, prompts, state, cfg)
+                host = time.perf_counter()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                lm.decode_step(params, state, tok, LM_PROMPT, cfg)
+                host2 = time.perf_counter()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                if i:
+                    for m, v in zip(metrics, (t1 - t0, host - t0, t3 - t2, host2 - t2)):
+                        runs[name][m].append(1e3 * v)
+    first, last = list(trees)
+    out = {k: {m: dict(median=statistics.median(v), quartiles=statistics.quantiles(v, n=4),
+                       runs=v) for m, v in r.items()} for k, r in runs.items()}
+    out["faster_rounds"] = {m: sum(b < a for a, b in zip(runs[first][m], runs[last][m]))
+                            for m in ("prefill", "decode")}
+    return out
+
+
+def _mesh_model(torch, dev, lm, get_config):
+    """Phase 16's plan (searched and legalized for a (1, 1) mesh) and
+    rwkv6-7b at it, prepacked: (plan, cfg, params, seconds of init and
+    prepack)."""
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    plan = _mesh_plan(LM_ARCH, out_dir / "plan_rwkv6-7b_mesh.json")
+    cfg = get_config(LM_ARCH, "off", plan=plan)
+    t0 = time.perf_counter()
+    params = lm.prepack_params(lm.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                                              cfg, dev), cfg)
+    torch.cuda.synchronize()
+    return plan, cfg, params, time.perf_counter() - t0
+
+
+def time_mesh() -> int:
+    """``python3 chip_smoke.py --time-mesh``: phase 16's rwkv6-7b without a
+    mesh and laid out on a (1, 1) NCCL mesh, prefill and one decode step
+    each in turns for MESH_AB_ROUNDS rounds (``_in_turns``).  One JSON line
+    with the card line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import set_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    dev = torch.device("cuda")
+    plan, cfg, params, _ = _mesh_model(torch, dev, lm, get_config)
+    try:
+        mesh = tmesh.mesh_for_plan(plan, 1, 1, dev)
+        set_mesh(mesh)
+        turns = _in_turns(torch, dev, lm, cfg, {"no mesh": (params, None), "mesh 1,1": (
+            lm.shard_params(params, cfg, mesh), mesh)}, MESH_AB_ROUNDS)
+    finally:
+        tmesh.destroy_world()
+    print(json.dumps(dict(card=card_line(), rounds=MESH_AB_ROUNDS, **turns)))
+    return 0
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+
 # -- phase 15: tuning and measured cost --------------------------------------------
 FUSED = "quant_epitome_matmul_fused_fold"
 TUNE_EVO = dict(population=16, iterations=8, seed=0)
@@ -3293,4 +3591,6 @@ if __name__ == "__main__":
         sys.exit(time_mamba_scan(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--time-jamba-engine"]:
         sys.exit(time_jamba_engine(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--time-mesh"]:
+        sys.exit(time_mesh())
     sys.exit(main())

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -173,21 +173,182 @@ def _dispatch_epitome_matmul(params: dict, x: torch.Tensor,
     raise ValueError(f"unknown mode {cfg.mode}")
 
 
-def prepack_tree(params, layer_configs: Mapping[str, EpLayerConfig], prefix: str = ""):
+# ---------------------------------------------------------------------------
+# Sharded serving: placement specs, the layout step, gather at the layer
+# ---------------------------------------------------------------------------
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a mesh (a ``DeviceMesh``, or already a dict)."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+class Sharded:
+    """A tensor laid out on a mesh: ``local`` is this rank's block of the
+    whole ``shape``, split along each dim over the mesh axes that ``spec``
+    names for it (None: whole; a tuple of axes splits over their product,
+    the first axis major).  ``full()`` gathers the blocks back with
+    ``all_gather`` over each named axis's group, so a layer computes on the
+    very tensor one card would hold; a dim whose axes all have size 1 is
+    whole already and costs no copy (a (1, 1) mesh gathers nothing)."""
+
+    __slots__ = ("local", "spec", "shape", "mesh")
+
+    def __init__(self, local: torch.Tensor, spec: Tuple, shape, mesh):
+        self.local, self.spec, self.shape, self.mesh = local, tuple(spec), torch.Size(shape), mesh
+
+    def is_split(self) -> bool:
+        """True when this rank holds less than the whole."""
+        return self.local.shape != self.shape
+
+    def full(self) -> torch.Tensor:
+        import torch.distributed as dist
+        if not self.is_split():
+            return self.local
+        t, sizes = self.local, axis_sizes(self.mesh)
+        for dim, entry in enumerate(self.spec):
+            # the innermost axis first: its blocks are adjacent in the dim
+            for a in reversed(_axes(entry)):
+                if sizes[a] == 1:
+                    continue
+                parts = [torch.empty_like(t) for _ in range(sizes[a])]
+                dist.all_gather(parts, t.contiguous(), group=self.mesh.get_group(a))
+                t = torch.cat(parts, dim)
+        if t.shape != self.shape:
+            raise RuntimeError(f"gathered {tuple(t.shape)}, expected {tuple(self.shape)} "
+                               f"(spec {self.spec})")
+        return t
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={tuple(self.shape)}, spec={self.spec}, "
+                f"local={tuple(self.local.shape)}, dtype={self.local.dtype})")
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def unshard(x):
+    """The whole tensor of a ``Sharded`` (gathered), anything else as is."""
+    return x.full() if isinstance(x, Sharded) else x
+
+
+def distribute(t: torch.Tensor, spec: Tuple, mesh) -> Sharded:
+    """The layout step: this rank's block of ``t`` under ``spec`` (as
+    ``constrained_sharding`` returns it: every named axis divides its dim).
+    A block smaller than the whole is copied out, so the whole can be
+    freed; a whole block is ``t`` itself."""
+    sizes, local = axis_sizes(mesh), t
+    for dim, entry in enumerate(spec):
+        axes = _axes(entry)
+        n = math.prod(sizes[a] for a in axes)
+        if n == 1:
+            continue
+        idx = 0
+        for a in axes:
+            idx = idx * sizes[a] + mesh.get_local_rank(a)
+        step = t.shape[dim] // n
+        local = local.narrow(dim, idx * step, step)
+    if local.shape != t.shape:
+        local = local.clone()
+    return Sharded(local, spec, t.shape, mesh)
+
+
+def lay_out(t: torch.Tensor, pspec, mesh):
+    """``t`` laid out on ``mesh`` by ``pspec`` after the divisibility snap:
+    a ``Sharded`` when an axis survives, else ``t`` itself (a replicated
+    leaf stays a plain tensor, so code that reads it directly needs no
+    gather)."""
+    spec = constrained_sharding(mesh, pspec, t.shape)
+    return distribute(t, spec, mesh) if any(e is not None for e in spec) else t
+
+
+def lay_out_as(t: torch.Tensor, like):
+    """``t`` laid out as ``like`` is (a ``Sharded`` of the same shape), or
+    ``t`` itself when ``like`` is a plain tensor."""
+    return distribute(t, like.spec, like.mesh) if isinstance(like, Sharded) else t
+
+
+def placement_pspec(placement: Optional[LayerPlacement], leaf: str, ndim: int) -> Tuple:
+    """The spec (one mesh axis or None a dim) of one layer-subdict leaf
+    under a LayerPlacement.
+
+    The last two dims of E / W / Eq are (rows, cols): they map to
+    (row_axis, col_axis); leading dims replicate.  The per-block Es/Ez
+    scale grids follow the codes only when ``scales == 'shard'``; a bias
+    shards its single (cols) dim.  Anything else replicates."""
+    if placement is None:
+        return (None,) * ndim
+    row, col = placement.row_axis, placement.col_axis
+    if leaf in ("E", "W", "Eq") and ndim >= 2:
+        return (None,) * (ndim - 2) + (row, col)
+    if leaf in ("Es", "Ez") and ndim >= 2 and placement.scales == "shard":
+        return (None,) * (ndim - 2) + (row, col)
+    if leaf == "b" and ndim >= 1:
+        return (None,) * (ndim - 1) + (col,)
+    return (None,) * ndim
+
+
+def constrained_sharding(mesh, pspec, shape) -> Tuple:
+    """``pspec`` with axes dropped when absent from the mesh (a
+    ``DeviceMesh`` or a {axis: size} dict) or when they do not divide the
+    dim: the divisibility snap the placement legalizer applies to plans,
+    enforced again at the tensor layer so a stale annotation degrades to
+    replicated instead of failing the layout."""
+    sizes = axis_sizes(mesh)
+    fixed = []
+    for i, entry in enumerate(pspec):
+        axes = tuple(a for a in _axes(entry) if a in sizes)
+        ok = axes and shape[i] % math.prod(sizes[a] for a in axes) == 0
+        fixed.append((axes if len(axes) > 1 else axes[0]) if ok else None)
+    return tuple(fixed)
+
+
+def _place_layer(leaves: dict, cfg: EpLayerConfig, mesh) -> dict:
+    """Lay one (possibly prepacked) layer subdict out on ``mesh`` by its
+    config's placement record.  Layers without one pass through untouched
+    (the caller's fallback specs own them)."""
+    if cfg.placement is None:
+        return leaves
+    return {k: lay_out(v, placement_pspec(cfg.placement, k, v.ndim), mesh)
+            for k, v in leaves.items()}
+
+
+def prepack_tree(params, layer_configs: Mapping[str, EpLayerConfig], prefix: str = "",
+                 mesh=None):
     """Tree variant of ``prepack_linear`` for the LM's nested parameter dicts.
 
     Walks ``params`` and packs every linear-layer subdict whose '/'-joined
     path (under ``prefix``) names a kernel x quant epitome entry of
     ``layer_configs``; everything else passes through untouched.  The port
     keeps one dict per group rather than stacking leaves over a group axis,
-    so nothing is vmapped: the caller walks each group with prefix ""."""
+    so nothing is vmapped: the caller walks each group with prefix "".
+
+    With ``mesh``, every layer subdict named by ``layer_configs`` is also
+    laid out by its placement record (``_place_layer``): the packed int8
+    codes land as this rank's blocks as they are made."""
     if not isinstance(params, dict):
         return params
     if "E" in params or "W" in params:       # a linear/conv layer subdict
         cfg = layer_configs.get(prefix)
-        return params if cfg is None else prepack_linear(params, cfg)
-    return {k: prepack_tree(v, layer_configs, f"{prefix}/{k}" if prefix else k)
+        if cfg is None:
+            return params
+        out = prepack_linear(params, cfg)
+        return out if mesh is None else _place_layer(out, cfg, mesh)
+    return {k: prepack_tree(v, layer_configs, f"{prefix}/{k}" if prefix else k, mesh)
             for k, v in params.items()}
+
+
+def param_count(params) -> int:
+    """Elements in a parameter tree (dicts and lists; a laid-out leaf
+    counts whole)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return math.prod(params.shape)
 
 
 def exact_dot(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -201,8 +362,19 @@ def exact_dot(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return x @ W.to(x.dtype)
 
 
+def _whole(params: dict) -> dict:
+    """A layer subdict with its laid-out leaves gathered (``Sharded``):
+    the layer computes on exactly the tensors one card holds, so a sharded
+    model's outputs are the one-card model's bit for bit."""
+    if not any(isinstance(v, Sharded) for v in params.values()):
+        return params
+    return {k: unshard(v) for k, v in params.items()}
+
+
 def apply_linear(params: dict, x: torch.Tensor, cfg: EpLayerConfig) -> torch.Tensor:
-    """y = x @ W (+ b), with W possibly epitome-backed and quantized."""
+    """y = x @ W (+ b), with W possibly epitome-backed and quantized.  Leaves
+    laid out on a mesh are gathered first (``_whole``)."""
+    params = _whole(params)
     if not cfg.is_epitome:
         W = params["W"]
         if cfg.quant is not None:
@@ -279,6 +451,7 @@ def apply_conv(params: dict, x: torch.Tensor, kh: int, kw: int, cin: int,
     ``_dispatch_epitome_matmul``, folding each patch row into epitome rows
     once (the IFRT reuse).  Dense convs and 'reconstruct' run one
     convolution (cuDNN on the card), as the reference runs XLA's."""
+    params = _whole(params)
     if cfg.is_epitome and cfg.mode != "reconstruct":
         patches = im2col(x, kh, kw, stride=stride, padding=padding)
         return _dispatch_epitome_matmul(params, patches, cfg)

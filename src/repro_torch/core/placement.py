@@ -21,9 +21,9 @@ schema-checked record of that decision for one layer:
 
 A copy of ``repro.core.placement``, so plans round-trip between the two
 packages.  pim/plan.py (the planner side) and core/layers.py (the
-execution side) both import it.  On one card a placement is carried in
-the plan and the layer configs, not applied: sharding by placement comes
-with the scale-out slice.
+execution side) both import it.  A placement is carried in the plan and
+the layer configs and applied on a mesh (``core.layers.placement_pspec``,
+``_place_layer``); with no mesh it changes nothing.
 """
 from __future__ import annotations
 

@@ -28,9 +28,14 @@ API
     ``kv_pages`` (block-paged KV geometry; page size 0 = dense per-slot
     rows), ``prefill_chunk`` (0 = whole-prompt prefill), ``decode_block``
     (decode micro-steps per dispatch), ``seed`` (weights, from
-    ``serve.build_model``'s generator) and ``device``.  ``mesh`` is ``''``
-    or None: sharding comes with the scale-out slice.  ``build()`` returns
-    a ready ``EpimEngine``.
+    ``serve.build_model``'s generator) and ``device``.  ``mesh``, as the
+    reference reads it: ``'D,M'`` a (D, M) mesh (``launch.mesh``; with a
+    plan its placements are legalized against it) that the parameters are
+    laid out on; ``''`` the world that is running (a (world, 1) mesh under
+    ``torchrun``, parameters whole; one card when there is no process
+    group); None: as is.  ``build()`` returns a ready ``EpimEngine``,
+    whose ``mesh`` is the mesh that runs; its slot pool stays whole on
+    every rank.
 ``EpimEngine``
     ``submit`` checks a request (length against ``max_len``, ids against
     the vocabulary, pages against the pool) and admits it when a slot and
@@ -262,7 +267,7 @@ class EngineConfig:
     arch: str = "rwkv6-7b"
     epitome: str = "off"
     plan: Any = None                 # path str | EpitomePlan | None
-    mesh: Optional[str] = ""         # '' or None: one card
+    mesh: Optional[str] = ""         # '' the running world | 'D,M' sharded | None as-is
     smoke: bool = False
     capacity: int = 4
     max_len: int = 128
@@ -274,21 +279,24 @@ class EngineConfig:
     device: str = "cuda"
 
     def build(self) -> "EpimEngine":
-        if self.mesh:
-            raise NotImplementedError(
-                f"mesh {self.mesh!r}: sharded serving comes with the scale-out slice "
-                f"of the port (ROADMAP.md item 16); use '' or None")
+        from ..models.common import set_mesh
+        from .mesh import resolve_mesh
         plan = self.plan or None
         if isinstance(plan, str):
             from ..pim.plan import EpitomePlan
             plan = EpitomePlan.load(plan)
+        mesh = resolve_mesh(self.mesh, plan, self.device)
+        if mesh is not None:
+            set_mesh(mesh)
+        # an explicit 'D,M' lays the parameters out on the mesh
         cfg, params = build_model(self.arch, self.epitome, self.smoke, self.seed,
-                                  self.device, plan=plan)
+                                  self.device, plan=plan,
+                                  mesh=mesh if self.mesh else None)
         engine = EpimEngine(cfg, params, capacity=self.capacity, max_len=self.max_len,
                             page_size=self.page_size, kv_pages=self.kv_pages,
                             prefill_chunk=self.prefill_chunk,
                             decode_block=self.decode_block, device=self.device)
-        engine.config = self
+        engine.config, engine.mesh = self, mesh
         return engine
 
 

@@ -35,26 +35,23 @@ JSON), so a plan from either package runs in the other.  ``--measured``
 and ``--tune`` time on ``--device`` (the card by default; ``--device cpu``
 times the kernels' plain versions on the host) and share the port's cache
 file, ``benchmarks/tuned/torch-<device type>.json`` (``--measure-cache``,
-``--tune-cache``).  Sharding by placement (``--mesh``) comes with the
-scale-out slice and is refused here.
+``--tune-cache``).
+
+Sharded serving by placement: ``legalize --mesh DATA,MODEL`` also snaps
+every layer's placement to that mesh; ``run --mesh DATA,MODEL`` serves an
+LM plan on the mesh (``launch.mesh``; under ``torchrun`` for more than one
+rank) with its codes laid out by placement, and checks the prefill logits
+and greedy tokens against the same plan served whole on one rank, bit for
+bit (the two ``bit-identical=`` lines; rank 0 prints):
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \
+      -m repro_torch.launch.plan run --plan plan_legal.json --mesh 2,4 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import statistics
 import time
-
-_LATER = {
-    "mesh": "--mesh (sharding by placement) comes with the scale-out slice of the "
-            "port (ROADMAP item 16)",
-}
-
-
-def _refuse_later(args) -> None:
-    for flag, why in _LATER.items():
-        if getattr(args, flag, None):
-            raise SystemExit(f"[plan] {why}; not available yet")
-
 
 def _load(path: str):
     from ..pim.plan import EpitomePlan
@@ -150,7 +147,13 @@ def cmd_legalize(args) -> None:
     from ..pim.plan import legalize_plan
     plan = _load(args.plan)
     patch = tuple(int(v) for v in args.patch.split("x")) if args.patch else None
-    legal = legalize_plan(plan, patch=patch, cost=_cost_model(args, plan.arch))
+    mesh_shape = None
+    if args.mesh:
+        from .mesh import parse_mesh
+        data, model = parse_mesh(args.mesh)
+        mesh_shape = {"data": data, "model": model}
+    legal = legalize_plan(plan, patch=patch, mesh_shape=mesh_shape,
+                          cost=_cost_model(args, plan.arch))
     if args.tune:
         from ..kernels.autotune import tune_plan
         legal = tune_plan(legal, t=args.tune_t, grid=args.tune_grid,
@@ -170,6 +173,8 @@ def cmd_legalize(args) -> None:
           f"{pred['latency_s']*1e3:.3f}ms / {pred['energy_j']*1e3:.3f}mJ / "
           f"{pred['xbars']} XBs")
     _print_cost(legal)
+    for name, reasons in (legal.provenance.get("placement_fallbacks") or {}).items():
+        print(f"[plan] placement fallback {name}: {'; '.join(reasons)}")
     print(f"[plan] saved -> {args.out}")
 
 
@@ -226,10 +231,20 @@ def _run_lm(plan, args, device) -> None:
     """Serve a legalized '<arch>-smoke' LM plan: plan-driven smoke config,
     prepacked, greedy generate of a few tokens; with ``--decode-block K``
     > 1 also through the engine at K micro-steps a dispatch, whose greedy
-    tokens must equal the one-shot generate's."""
+    tokens must equal the one-shot generate's.
+
+    With ``--mesh DATA,MODEL`` the codes are laid out on the mesh by the
+    plan's placements and served sharded; the sharded prefill logits and
+    greedy tokens must equal the same plan's on one rank bit for bit, and
+    its kernels launch as often.  Every rank runs both; rank 0 prints."""
     import torch
+    from ..core.layers import Sharded
     from ..kernels import launch_counts, reset_launch_counts
+    from ..models import lm
+    from ..models.common import set_mesh
+    from ..train.tree import leaves
     from ..pim.plan import LM_SMOKE_SUFFIX
+    from .mesh import describe, destroy_world, mesh_for_plan, parse_mesh, say
     from .serve import build_model, generate
     if not plan.arch.endswith(LM_SMOKE_SUFFIX):
         raise SystemExit(
@@ -239,28 +254,65 @@ def _run_lm(plan, args, device) -> None:
     arch = plan.arch[:-len(LM_SMOKE_SUFFIX)]
     cfg, params = build_model(arch, "off", True, args.seed, device, plan=plan)
     B, P, gen = args.batch, 8, 8
+    max_len = P + gen + 1
     prompts = torch.randint(0, cfg.vocab, (B, P), device=device,
                             generator=torch.Generator(device=device).manual_seed(args.seed))
-    print(f"[plan] {plan.arch}: {plan.n_epitomized}/{len(plan.layers)} "
-          f"projections epitomized")
+    say(f"[plan] {plan.arch}: {plan.n_epitomized}/{len(plan.layers)} "
+        f"projections epitomized")
     reset_launch_counts()
-    toks, _ = generate(params, cfg, prompts, P + gen + 1, gen)
+    toks, _ = generate(params, cfg, prompts, max_len, gen)
     launches = {k: v for k, v in launch_counts().items() if v}
     if args.decode_block > 1:
         from .engine import EpimEngine, Request
-        engine = EpimEngine(cfg, params, capacity=B, max_len=P + gen + 1,
+        engine = EpimEngine(cfg, params, capacity=B, max_len=max_len,
                             decode_block=args.decode_block, device=device)
         for row in prompts.tolist():
             engine.submit(Request(prompt=row, max_new_tokens=gen))
         comps = engine.drain()
         same = all(tuple(toks[i].tolist()) == c.tokens for i, c in enumerate(comps))
         st = engine.stats
-        print(f"[plan] engine decode_block={args.decode_block}: "
-              f"steps={st['decode_steps']} micro_steps={st['decode_micro_steps']} "
-              f"bit_identical={same}")
+        say(f"[plan] engine decode_block={args.decode_block}: "
+            f"steps={st['decode_steps']} micro_steps={st['decode_micro_steps']} "
+            f"bit_identical={same}")
         if not same:
             raise AssertionError("the engine's greedy tokens drifted from the "
                                  "one-shot generate's")
+    if args.mesh:
+        with torch.no_grad():
+            ref_logits, _ = lm.prefill(params, prompts,
+                                       lm.init_decode_state(cfg, B, max_len, device), cfg)
+        mesh = mesh_for_plan(plan, *parse_mesh(args.mesh), device=device)
+        set_mesh(mesh)
+        try:
+            params = lm.prepack_params(params, cfg, mesh=mesh)
+            split = [l for l in leaves(params) if isinstance(l, Sharded) and l.is_split()]
+            say(f"[plan] mesh: {describe(mesh)}; {len(split)} parameter leaves split "
+                f"across the ranks")
+            with torch.no_grad():
+                sh_logits, _ = lm.prefill(params, prompts, lm.init_decode_state(
+                    cfg, B, max_len, device, mesh=mesh), cfg)
+            reset_launch_counts()
+            sh_toks, _ = generate(params, cfg, prompts, max_len, gen)
+            sh_launches = {k: v for k, v in launch_counts().items() if v}
+            logits_ok = torch.equal(ref_logits, sh_logits)
+            toks_ok = torch.equal(toks, sh_toks)
+            say(f"[plan] sharded vs single-device: logits bit-identical={logits_ok} "
+                f"tokens bit-identical={toks_ok}; kernel launches per generate "
+                f"{sh_launches} (one rank: {launches})")
+            if not (logits_ok and toks_ok and sh_launches == launches):
+                raise AssertionError("sharded serving drifted from the single-device "
+                                     "prepacked path")
+            _time_lm(plan, args, device, params, cfg, prompts, gen, sh_launches)
+        finally:
+            destroy_world()
+        return
+    _time_lm(plan, args, device, params, cfg, prompts, gen, launches)
+
+
+def _time_lm(plan, args, device, params, cfg, prompts, gen, launches) -> None:
+    from .mesh import say
+    from .serve import generate
+    B, P = prompts.shape
     times = []
     for _ in range(args.iters):
         t0 = time.perf_counter()
@@ -268,13 +320,13 @@ def _run_lm(plan, args, device) -> None:
         toks = toks.cpu()                  # waits for the device
         times.append(time.perf_counter() - t0)
     pred = plan.predicted or {}
-    print(f"[plan] predicted (PIM simulator): "
-          f"{pred.get('latency_s', float('nan'))*1e3:.3f}ms "
-          f"/ {pred.get('energy_j', float('nan'))*1e3:.3f}mJ "
-          f"/ {pred.get('xbars', '-')} XBs")
-    print(f"[plan] measured ({_where(device)}; batch={B} prompt={P} gen={gen}): "
-          f"{B * gen / statistics.median(times):.1f} tok/s; kernel launches per "
-          f"generate {launches}")
+    say(f"[plan] predicted (PIM simulator): "
+        f"{pred.get('latency_s', float('nan'))*1e3:.3f}ms "
+        f"/ {pred.get('energy_j', float('nan'))*1e3:.3f}mJ "
+        f"/ {pred.get('xbars', '-')} XBs")
+    say(f"[plan] measured ({_where(device)}; batch={B} prompt={P} gen={gen}): "
+        f"{B * gen / statistics.median(times):.1f} tok/s; kernel launches per "
+        f"generate {launches}")
 
 
 def cmd_run(args) -> None:
@@ -291,6 +343,9 @@ def cmd_run(args) -> None:
     if is_lm_arch(plan.arch):
         _run_lm(plan, args, device)
         return
+    if args.mesh:
+        raise SystemExit("--mesh applies to LM plans (sharded weight-stationary "
+                         "serving); ResNet plans run on one device")
     from ..kernels import launch_counts, reset_launch_counts
     from ..models.resnet import ResNetModel
     model = ResNetModel.from_plan(plan, device=device)
@@ -363,7 +418,9 @@ def main(argv=None) -> None:
     s.add_argument("--patch", default="",
                    help="execution patch 'BMxBN' (default: per-arch)")
     s.add_argument("--out", default="plan_legal.json")
-    s.add_argument("--mesh", default="", help="not available yet")
+    s.add_argument("--mesh", default="",
+                   help="'DATA,MODEL': also snap every layer's placement to this mesh "
+                        "(fallbacks reported in provenance)")
     s.add_argument("--tune", action="store_true",
                    help="autotune kernel pack blocks and the fused fold per "
                         "epitomized layer and record the winners in plan "
@@ -394,11 +451,13 @@ def main(argv=None) -> None:
                    help="LM plans: also serve through the engine at this many "
                         "decode micro-steps a dispatch and require its greedy "
                         "tokens to equal the one-shot path's (1 = skip)")
-    s.add_argument("--mesh", default="", help="not available yet")
+    s.add_argument("--mesh", default="",
+                   help="LM plans: 'DATA,MODEL' mesh to serve on with the codes laid out "
+                        "by placement (under torchrun for more than one rank), checked "
+                        "bit for bit against one rank")
     s.set_defaults(fn=cmd_run)
 
     args = ap.parse_args(argv)
-    _refuse_later(args)
     args.fn(args)
 
 

@@ -16,6 +16,9 @@ recurrent state.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-1.5-large-398b --epitome kernel-q3 --smoke --device cpu \\
         --engine --decode-block 4                       # Mamba, attention, MoE
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \
+        -m repro_torch.launch.serve --arch rwkv6-7b --epitome kernel-q3 --smoke \
+        --device cpu --mesh 2,4                         # 8 gloo ranks, sharded
 
 (counterpart of ``repro.launch.serve``).  It serves rwkv6-7b, the six
 attention architectures with the dense FFN (qwen2-72b, qwen1.5-110b,
@@ -24,8 +27,8 @@ token ids here, their embedding inputs through ``models.lm`` directly),
 the two with the MoE FFN (phi3.5-moe-42b-a6.6b, grok-1-314b), and
 jamba-1.5-large-398b (Mamba layers with one attention layer in eight, the
 dense and the MoE FFN in turn).  At full size grok-1 and jamba need more
-than one card for their MoE FFNs (the scale-out slice); on one card they
-serve as ``--smoke``, and jamba also without its MoE FFNs
+than one card for their MoE FFNs (the serving specs keep the experts whole
+on every rank); on one card they serve as ``--smoke``, and jamba also without its MoE FFNs
 (``get_config(..., ffn_pattern=("dense", "none") * 4)``, as ``chip_smoke.py``
 phase 14 serves it at full width and depth).  Parameters are drawn from
 ``--seed`` on the serving device and, for a kernel x quant variant such as
@@ -35,6 +38,9 @@ token: prefill, argmax, then max_new_tokens - 1 decode steps.  Sampled
 decoding (``--temperature`` > 0) draws from a ``torch.Generator`` seeded
 from ``--seed``; its bits cannot match the reference's gumbel draws from a
 JAX key, so only greedy tokens are comparable across the two packages.
+``--mesh D,M`` serves on a (D, M) mesh (``launch.mesh``; under
+``torchrun`` for more than one rank), the parameters laid out by
+placement; every rank computes every row, rank 0 prints.
 ``--engine`` also serves every prompt through the continuous-batching
 ``launch.engine.EpimEngine`` (one request per prompt: ``--page-size``,
 ``--kv-pages``, ``--prefill-chunk``, ``--decode-block``) and reports its
@@ -50,6 +56,7 @@ from typing import Optional
 import torch
 
 from ..models import lm
+from ..models.common import get_mesh, set_mesh
 
 
 def _select(logits: torch.Tensor, temperature: float,
@@ -73,13 +80,15 @@ def generate(params, cfg, prompts: torch.Tensor, max_len: int, gen: int,
     """prompts: (B, P) int.  Returns (tokens (B, gen) int32, final state).
     ``max_len`` (at least P + gen - 1) sizes the attention layers' KV
     caches (unused by the recurrent kinds);
-    ``generator`` draws the sampled tokens (on the prompts' device)."""
+    ``generator`` draws the sampled tokens (on the prompts' device).  On an
+    installed mesh the decode state is laid out by ``lm.state_specs``."""
     B, P = prompts.shape
     if max_len < P + gen - 1:
         raise ValueError(f"max_len {max_len} holds no KV cache row for a decode step: "
                          f"{P} prompt tokens and {gen} generated need {P + gen - 1}")
     with torch.no_grad():
-        state = lm.init_decode_state(cfg, B, max_len, device=prompts.device)
+        state = lm.init_decode_state(cfg, B, max_len, device=prompts.device,
+                                     mesh=get_mesh())
         logits, state = lm.prefill(params, prompts, state, cfg)
         tok = _select(logits[:, -1], temperature, generator)
         toks = [tok]
@@ -91,18 +100,22 @@ def generate(params, cfg, prompts: torch.Tensor, max_len: int, gen: int,
 
 
 def build_model(arch: str, epitome: str, smoke: bool, seed: int, device="cuda",
-                plan=None):
+                plan=None, mesh=None):
     """(cfg, params) as the CLI serves them: drawn from ``seed`` on
     ``device`` and prepacked when a layer runs the fused int8 kernel.
     ``plan`` (an EpitomePlan or plan JSON path; arch '<arch>-smoke' with
-    ``smoke``) sets the per-layer specs, bits and modes."""
+    ``smoke``) sets the per-layer specs, bits and modes.  With ``mesh``
+    the parameters are laid out on it by placement (every rank draws the
+    same weights from ``seed`` and keeps its blocks)."""
     from ..configs import get_config, get_smoke_config
     cfg = (get_smoke_config(arch, epitome, plan=plan) if smoke
            else get_config(arch, epitome, plan=plan))
     gen = torch.Generator(device=device).manual_seed(seed)
     params = lm.init_params(gen, cfg, device)
     if lm.needs_prepack(cfg):
-        params = lm.prepack_params(params, cfg)
+        params = lm.prepack_params(params, cfg, mesh=mesh)
+    elif mesh is not None:
+        params = lm.shard_params(params, cfg, mesh)
     return cfg, params
 
 
@@ -117,6 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plan", default="",
                     help="EpitomePlan JSON driving per-layer epitome "
                          "specs/bits/mode (arch '<arch>-smoke' with --smoke)")
+    ap.add_argument("--mesh", default="",
+                    help="'DATA,MODEL' mesh (e.g. 2,4 under torchrun, 1,1 on one card) to "
+                         "serve on, parameters laid out by placement; default: the running "
+                         "world (one device when there is no process group)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -143,10 +160,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from .mesh import destroy_world, resolve_mesh
     args = build_parser().parse_args(argv)
     device = torch.device(args.device)
+    plan = args.plan or None
+    if plan is not None:
+        from ..pim.plan import EpitomePlan
+        plan = EpitomePlan.load(plan)
+    mesh = resolve_mesh(args.mesh, plan, device)
+    set_mesh(mesh)
+    try:
+        return _serve(args, device, plan, mesh)
+    finally:
+        if mesh is not None:
+            destroy_world()
+
+
+def _serve(args, device, plan, mesh):
+    """Every rank serves the same prompts; rank 0 prints."""
+    from .mesh import describe, say
     cfg, params = build_model(args.arch, args.epitome, args.smoke, args.seed, device,
-                              plan=args.plan or None)
+                              plan=plan, mesh=mesh if args.mesh else None)
+    # the mesh that actually runs (a requested mesh is clamped to the world)
+    say(f"[serve] mesh: {describe(mesh)}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),
                             generator=gen, device=device)
@@ -156,18 +192,18 @@ def main(argv=None):
                        temperature=args.temperature, generator=gen)
     toks = toks.cpu()          # waits for the device
     dt = time.perf_counter() - t0
-    print(f"[serve] {args.arch} epitome={args.plan or args.epitome}"
+    say(f"[serve] {args.arch} epitome={args.plan or args.epitome}"
           f"{' (prepacked)' if lm.needs_prepack(cfg) else ''} on {device}: generated "
           f"{tuple(toks.shape)} in {dt:.2f}s "
           f"({args.requests * args.max_new_tokens / dt:.1f} tok/s)")
-    print("[serve] sample:", toks[0, :16].tolist())
+    say("[serve] sample:", toks[0, :16].tolist())
     if args.engine:
-        serve_engine(args, cfg, params, prompts, max_len, toks)
+        serve_engine(args, cfg, params, prompts, max_len, toks, say)
     return toks
 
 
 def serve_engine(args, cfg, params, prompts: torch.Tensor, max_len: int,
-                 toks: torch.Tensor) -> None:
+                 toks: torch.Tensor, say=print) -> None:
     """Serve every prompt through the engine (one request each, ``--seed``
     for the sampled ones) and print its line; greedy tokens are compared
     with the one-shot batch's ``toks``."""
@@ -190,7 +226,7 @@ def serve_engine(args, cfg, params, prompts: torch.Tensor, max_len: int,
     if args.temperature == 0.0:
         same = all(tuple(toks[i].tolist()) == c.tokens for i, c in enumerate(comps))
         line += f" bit_identical={same}"
-    print(line)
+    say(line)
 
 
 if __name__ == "__main__":

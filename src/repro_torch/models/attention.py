@@ -12,8 +12,8 @@ used: it would not reproduce the reference's chunked sums, its finite
 The decode caches are preallocated (``init_kv_cache``) and written in place
 at the step's position (a Python int or a device tensor, never read back by
 the host), so a decode step copies no cache and can be captured in a CUDA
-graph.  The reference's ``kv_cache_spec`` (a mesh layout) has no
-counterpart on one card.
+graph.  ``kv_cache_spec`` is a cache's layout on a mesh
+(``lm.state_specs``).
 """
 from __future__ import annotations
 
@@ -166,6 +166,12 @@ def init_kv_cache(cfg: ModelConfig, spec: CacheSpec, n: int = 1,
                 "k_s": zeros(sshp, torch.float16), "v_s": zeros(sshp, torch.float16)}
     return {"k": torch.zeros(shp, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shp, dtype=cfg.cdtype, device=device)}
+
+
+def kv_cache_spec(batch_axes, seq_axes) -> tuple:
+    """The spec of one layer's cache (B, S, Hkv, hd): the reference's, whose
+    cache has a leading layers axis more."""
+    return (batch_axes, seq_axes, None, None)
 
 
 def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

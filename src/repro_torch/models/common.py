@@ -1,6 +1,5 @@
-"""Shared LM pieces: norms, activations, RoPE, embedding (counterpart of
-the model-side half of ``repro.models.common``; the mesh helpers have no
-counterpart on one card)."""
+"""Shared LM pieces: the mesh helpers, norms, activations, RoPE, embedding
+(counterpart of ``repro.models.common``)."""
 from __future__ import annotations
 
 import functools
@@ -8,7 +7,59 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..core.layers import exact_dot
+from ..core.layers import axis_sizes, exact_dot, lay_out
+
+# Logical mesh axes (launch/mesh.py): batch -> ('pod', 'data'), tensor -> 'model'
+BATCH_AXES = ("pod", "data")
+TENSOR_AXIS = "model"
+
+_CURRENT_MESH = None
+
+
+def set_mesh(mesh) -> None:
+    """Install the mesh the model serves on (a ``DeviceMesh`` of
+    ``launch.mesh``, or None): the launch code calls this; the MoE FFN
+    reads it to choose its dispatch path."""
+    global _CURRENT_MESH
+    _CURRENT_MESH = mesh
+
+
+def get_mesh():
+    return _CURRENT_MESH
+
+
+def clean_spec(*spec) -> tuple:
+    """A spec with the axes absent from the current mesh dropped."""
+    names = set(axis_sizes(_CURRENT_MESH)) if _CURRENT_MESH is not None else set()
+    clean = []
+    for s in spec:
+        if isinstance(s, (tuple, list)):
+            keep = tuple(a for a in s if a in names)
+            clean.append(keep if keep else None)
+        else:
+            clean.append(s if s in names else None)
+    return tuple(clean)
+
+
+def shard(x: torch.Tensor, *spec):
+    """The explicit layout step for one tensor: with a mesh installed, this
+    rank's block of ``x`` as a ``core.layers.Sharded`` (axes absent from
+    the mesh or not dividing their dim dropped, as
+    ``constrained_sharding`` drops them; nothing left: ``x`` itself); with
+    none, the identity.  The
+    reference's ``shard`` is a sharding constraint inside a traced
+    program; eager PyTorch has none, so the port calls this where a tensor
+    is laid out (parameters, decode state), never on activations, which
+    every rank holds whole."""
+    mesh = _CURRENT_MESH
+    if mesh is None:
+        return x
+    return lay_out(x, spec, mesh)
+
+
+def batch_spec(extra: int = 0) -> tuple:
+    """The spec over batch then ``extra`` unsharded dims."""
+    return (BATCH_AXES,) + (None,) * extra
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -5,10 +5,12 @@ smallest repeating "super-block", e.g. jamba's 1-attention-per-8 or gemma2's
 local/global alternation).  Each pattern position names a sequence mixer and
 an FFN kind.  The fields, their defaults and the per-site epitome
 resolution (``ModelConfig.ep``) are the reference's; ``pdtype``/``cdtype``
-are torch dtypes.  The reference's sharding knobs have no counterpart on
-one card, while ``remat_policy`` (what the
-training forward keeps of each group) and ``kv_cache_bits`` (the int8 KV
-cache of the attention kinds) are kept.
+are torch dtypes.  Of the reference's distribution knobs the port keeps
+``moe_decode_dispatch`` (the MoE FFN's all_to_all dispatch at decode on a
+mesh), ``remat_policy`` (what the training forward keeps of each group)
+and ``kv_cache_bits`` (the int8 KV cache of the attention kinds);
+``seq_shard_residual`` (a sharding constraint on the residual) has no
+counterpart: the port's activations are whole on every rank.
 """
 from __future__ import annotations
 
@@ -116,6 +118,7 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 2
     capacity_factor: float = 1.25
+    moe_decode_dispatch: bool = False      # all_to_all dispatch even at decode
     router_jitter: float = 0.0
 
     # Mamba (jamba)

@@ -7,6 +7,14 @@ per-group dicts (and the decode state as a list of per-group states) and
 loops over them in Python: PyTorch runs eagerly, so a scan buys nothing,
 and per-group tensors need no slicing.  ``convert.lm_params_from_jax``
 unstacks the reference's tree into this layout.
+
+On a mesh (``launch.mesh``), ``prepack_params(mesh=)`` / ``shard_params``
+lay the parameters out by the plan's placements and the serving specs,
+and ``init_decode_state(mesh=)`` the state by ``state_specs``: each rank
+holds its blocks (``core.layers.Sharded``).  A layer gathers its blocks
+where it reads them and every rank computes every row, so the sharded
+model's logits are the one-card model's bit for bit.  The specs are the
+reference's with its leading group axis dropped (the port has none).
 """
 from __future__ import annotations
 
@@ -18,9 +26,13 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..core.layers import EpLayerConfig, prepack_tree
+from ..core.layers import (EpLayerConfig, Sharded, lay_out, lay_out_as, placement_pspec,
+                           prepack_tree, unshard)
+from ..train.tree import leaves, tree_map
+from .attention import kv_cache_spec
 from .blocks import apply_group, decode_group, init_group, init_group_state, prefill_group
-from .common import embed_lookup, init_rms_norm, rms_norm, unembed
+from .common import (BATCH_AXES, TENSOR_AXIS, embed_lookup, init_rms_norm, rms_norm,
+                     unembed)
 from .config import ModelConfig
 from .ssm import last_real
 
@@ -55,13 +67,129 @@ def needs_prepack(cfg: ModelConfig) -> bool:
                for lc in lm_layer_configs(cfg).values())
 
 
-def prepack_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+def prepack_params(params: Dict[str, Any], cfg: ModelConfig, mesh=None) -> Dict[str, Any]:
     """Pack every kernel x quant epitome once (int8 codes + per-block scale
-    and zero beside E), so every forward feeds the kernel stored codes."""
+    and zero beside E), so every forward feeds the kernel stored codes.
+
+    With ``mesh``, ``prepack_tree`` lays the packed codes of the layers
+    with a placement record out as it makes them, and ``shard_params``
+    covers the rest of the tree (embedding, head, layers without a record)
+    with the serving specs: one call gives the sharded serving tree."""
     configs = lm_layer_configs(cfg)
     with torch.no_grad():
-        groups = [prepack_tree(g, configs) for g in params["groups"]]
-    return {**params, "groups": groups}
+        groups = [prepack_tree(g, configs, mesh=mesh) for g in params["groups"]]
+    out = {**params, "groups": groups}
+    return out if mesh is None else shard_params(out, cfg, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Sharding specs (FSDP over 'data', TP over 'model'), the reference's rules.
+#
+# A layer the plan-driven ``cfg.layer_config`` names with a placement record
+# is sharded as the plan says (placement_pspec); everything else falls back
+# to the role rules below: _leaf_spec (training FSDP x TP) or
+# _serving_leaf_spec (column-parallel serving).  The rules read a group
+# leaf's shape with the reference's leading group axis (``(1,) + shape``)
+# and param_specs drops that axis from their answer.
+# ---------------------------------------------------------------------------
+def _leaf_spec(path: str, shape: Tuple[int, ...]) -> tuple:
+    """Spec by parameter role.  Fan-in is FSDP-sharded over 'data', fan-out
+    TP-sharded over 'model' (transposed for down/out projections so the
+    large d_ff/heads dim is always on 'model')."""
+    def last(*names):
+        return any(path.endswith(n) for n in names)
+
+    if last("/embed"):
+        return (TENSOR_AXIS, "data")
+    if last("/head"):
+        return ("data", TENSOR_AXIS)
+    if last("/router"):
+        return (None, None)
+    # prepacked codes Eq shard like E; the per-block scale grids replicate
+    if path.endswith("/Eq"):
+        return _leaf_spec(path[:-1], shape)
+    if path.endswith("/Es") or path.endswith("/Ez"):
+        return (None,) * len(shape)
+    # rwkv channel mix under /ffn/: wk, wr (d, ff) fan-out, wv (ff, d) fan-in
+    if "/ffn/" in path:
+        if last("wk/W", "wk/E", "wr/W", "wr/E"):
+            return (None, "data", TENSOR_AXIS)
+        if last("wv/W", "wv/E"):
+            return (None, TENSOR_AXIS, "data")
+    fan_out = ("wq/W", "wk/W", "wv/W", "wg/W", "wr/W", "in_proj/W",
+               "x_proj/W", "dt_proj/W", "w_gate/W", "w_up/W", "w_gate",
+               "w_up", "wq/E", "wk/E", "wv/E", "wg/E", "wr/E", "in_proj/E",
+               "x_proj/E", "dt_proj/E", "w_gate/E", "w_up/E")
+    fan_in = ("wo/W", "out_proj/W", "w_down/W", "w_down", "wo/E",
+              "out_proj/E", "w_down/E")
+    if last(*fan_out):
+        if len(shape) == 4:        # stacked MoE experts (G, E, d, ff)
+            return (None, None, "data", TENSOR_AXIS)
+        return (None, "data", TENSOR_AXIS)
+    if last(*fan_in):
+        if len(shape) == 4:
+            return (None, None, TENSOR_AXIS, "data")
+        return (None, TENSOR_AXIS, "data")
+    return (None,) * len(shape)
+
+
+def _serving_leaf_spec(path: str, shape: Tuple[int, ...]) -> tuple:
+    """Serving default for layers no plan names: the role-based
+    column-parallel placement (core.placement.default_placement) by path.
+    Only output dims shard; contraction dims stay whole."""
+    from ..core.placement import default_placement
+    if path.endswith("/embed"):
+        return (TENSOR_AXIS, None)
+    if path.endswith("/head"):
+        return (None, TENSOR_AXIS)
+    if path.endswith("/router"):
+        return (None, None)
+    name, _, leaf = path.rpartition("/")
+    name = name[len("/groups/"):] if name.startswith("/groups/") else name
+    if leaf in ("E", "W", "Eq", "Es", "Ez", "b") and name:
+        return placement_pspec(default_placement(name), leaf, len(shape))
+    return (None,) * len(shape)
+
+
+def _map_specs(tree, prefix: str, leaf_fn):
+    if isinstance(tree, dict):
+        return {k: _map_specs(v, f"{prefix}/{k}", leaf_fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_specs(v, f"{prefix}/{i}", leaf_fn) for i, v in enumerate(tree))
+    return leaf_fn(prefix, tuple(tree.shape))
+
+
+def param_specs(cfg: ModelConfig, params: Dict[str, Any], *,
+                serving: bool = False) -> Dict[str, Any]:
+    """The spec tree of ``params`` (one entry a dim: a mesh axis, a tuple of
+    axes or None).  Layers the plan-driven ``cfg.layer_config`` names are
+    sharded by their placement record; the other leaves by the role rules,
+    FSDP x TP for training or column-parallel serving (``serving=True``)."""
+    placements = {name: lc.placement for name, lc in cfg.layer_config
+                  if lc.placement is not None}
+    fallback = _serving_leaf_spec if serving else _leaf_spec
+
+    def group_leaf(path, shape):
+        name, _, leaf = path.rpartition("/")
+        pl = placements.get(name[len("/groups/"):])
+        if pl is not None:
+            return placement_pspec(pl, leaf, len(shape))
+        return fallback(path, (1,) + shape)[1:]
+
+    return {k: ([_map_specs(g, "/groups", group_leaf) for g in v] if k == "groups"
+                else _map_specs(v, f"/{k}", fallback))
+            for k, v in params.items()}
+
+
+def shard_params(params: Dict[str, Any], cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """Lay a (possibly prepacked) parameter tree out on ``mesh`` for
+    serving: plan placements where the config carries them, the serving
+    defaults elsewhere; axes that do not divide their dim degrade to
+    replicated.  Leaves already laid out (``prepack_params(mesh=)``) stay
+    as they are; a replicated leaf stays a plain tensor."""
+    specs = param_specs(cfg, params, serving=True)
+    return tree_map(lambda t, sp: t if isinstance(t, Sharded) else lay_out(t, sp, mesh),
+                    params, specs, tuples=False)
 
 
 def _embed(params: Dict[str, Any], inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -70,14 +198,14 @@ def _embed(params: Dict[str, Any], inputs: torch.Tensor, cfg: ModelConfig) -> to
     dtype."""
     if inputs.ndim != 2:
         return inputs.to(cfg.cdtype)
-    x = embed_lookup(params["embed"], inputs, cfg.cdtype)
+    x = embed_lookup(unshard(params["embed"]), inputs, cfg.cdtype)
     # the scale rounded to the compute dtype first, as jnp.asarray(..., cdtype)
     return x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype))
 
 
 def _logits(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["head"] if "head" in params else params["embed"].T
+    head = unshard(params["head"]) if "head" in params else unshard(params["embed"]).T
     return unembed(x, head, cfg.logit_softcap)
 
 
@@ -140,10 +268,47 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device="cuda") -> List[Dict[str, Any]]:
+                      device="cuda", mesh=None) -> List[Dict[str, Any]]:
     """One decode state per group; ``max_len`` rows of KV cache for each
-    attention layer."""
-    return [init_group_state(cfg, batch, max_len, device) for _ in range(cfg.n_groups)]
+    attention layer.  With ``mesh``, laid out by ``state_specs``."""
+    state = [init_group_state(cfg, batch, max_len, device) for _ in range(cfg.n_groups)]
+    if mesh is None:
+        return state
+    return tree_map(lambda t, sp: lay_out(t, sp, mesh), state, state_specs(cfg, state, batch),
+                    tuples=False)
+
+
+def state_specs(cfg: ModelConfig, state: List[Dict[str, Any]], batch: int) -> List[Dict[str, Any]]:
+    """The decode state's spec tree, the reference's rules: KV caches batch
+    over the batch axes and sequence over 'model' (a batch of one:
+    sequence over every axis); the RWKV state over batch and heads, the
+    Mamba state over batch and channels."""
+    b = BATCH_AXES if batch > 1 else None
+
+    def leaf(path, shape):
+        if path.endswith(("/k", "/v", "/k_s", "/v_s")):      # (B, S, Hkv, hd | 1)
+            return (kv_cache_spec(BATCH_AXES, TENSOR_AXIS) if batch > 1
+                    else kv_cache_spec(None, ("pod", "data", "model")))
+        if path.endswith("/s"):             # rwkv (B, H, K, V)
+            return (b, TENSOR_AXIS, None, None)
+        if path.endswith("/h"):             # mamba (B, di, ds)
+            return (b, TENSOR_AXIS, None)
+        if path.endswith("/conv"):          # (B, dc - 1, di)
+            return (b, None, TENSOR_AXIS)
+        return (None,) * len(shape)
+    return _map_specs(state, "", leaf)
+
+
+def _whole_state(state: List[Dict[str, Any]]):
+    """(state with its laid-out leaves gathered, the ``Sharded`` leaves to
+    lay the new state out like, or None when nothing is laid out)."""
+    if not any(isinstance(t, Sharded) for t in leaves(state)):
+        return state, None
+    return tree_map(unshard, state), state
+
+
+def _lay_out_like(state: List[Dict[str, Any]], like) -> List[Dict[str, Any]]:
+    return state if like is None else tree_map(lay_out_as, state, like)
 
 
 def prefill(params: Dict[str, Any], inputs: torch.Tensor, state: List[Dict[str, Any]],
@@ -163,13 +328,16 @@ def prefill(params: Dict[str, Any], inputs: torch.Tensor, state: List[Dict[str, 
     one chunk of a chunked prefill at positions chunk_start +
     arange(S), against a state that carries the earlier chunks (its
     attention caches in float); ``valid_len`` then counts the chunk's real
-    rows."""
+    rows.  A state laid out on a mesh is gathered here and the new state
+    laid out as it was."""
+    state, like = _whole_state(state)
     x = _embed(params, inputs, cfg)
     new_state = []
     for group, st in zip(params["groups"], state):
         x, st = prefill_group(group, st, x, cfg, positions, valid_len, chunk_start)
         new_state.append(st)
-    return _logits(params, last_real(x, valid_len)[:, None], cfg), new_state
+    return (_logits(params, last_real(x, valid_len)[:, None], cfg),
+            _lay_out_like(new_state, like))
 
 
 def decode_step(params: Dict[str, Any], state: List[Dict[str, Any]], token: torch.Tensor,
@@ -181,13 +349,15 @@ def decode_step(params: Dict[str, Any], state: List[Dict[str, Any]], token: torc
     the attention caches of ``state`` are written in place at ``pos``.
     ``page_table`` ((B, pages per slot) int, per-row ``pos``): the
     attention caches are the serving engine's block-paged pool
-    (``models.kv_pool``), read and written through the table."""
+    (``models.kv_pool``), read and written through the table.  A state
+    laid out on a mesh is gathered and laid out again, as in ``prefill``."""
+    state, like = _whole_state(state)
     x = _embed(params, token, cfg)
     new_state = []
     for group, st in zip(params["groups"], state):
         x, st = decode_group(group, st, x, pos, cfg, page_table)
         new_state.append(st)
-    return _logits(params, x, cfg), new_state
+    return _logits(params, x, cfg), _lay_out_like(new_state, like)
 
 
 def decode_scan(params: Dict[str, Any], state: List[Dict[str, Any]], tok: torch.Tensor,

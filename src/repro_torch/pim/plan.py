@@ -24,7 +24,8 @@ PIMCOMP-style:
 
 A copy of ``repro.pim.plan``: plan JSON written by either package loads
 in the other, and a search or a legalization gives the same plan in both.
-On one card a plan's placements are carried, not applied.
+A plan's placements are applied on a mesh (``launch.mesh.mesh_for_plan``,
+``lm.prepack_params(mesh=)``) and carried otherwise.
 
 LM plans work the same way: every configs/archs.py architecture registers
 a plan arch (``"<arch>"``, plus ``"<arch>-smoke"`` for the reduced smoke

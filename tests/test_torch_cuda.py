@@ -1106,3 +1106,94 @@ def test_tuned_tiny_plan_logits_equal_untuned_on_card(cuda_device, tmp_path):
         assert counts["quant_epitome_matmul_fused_fold"] == fused
         assert counts["quant_epitome_matmul_blocks"] == len(rec) - fused
         assert torch.equal(y, base.apply(x))
+
+
+# -- sharded serving on a (1, 1) NCCL mesh ------------------------------------------------
+def _rwkv_smoke_plan():
+    from repro_torch.pim.plan import auto_plan, legalize_plan
+    return legalize_plan(auto_plan("rwkv6-7b-smoke", target_cr=2.0, weight_bits=3,
+                                   mode="kernel"), mesh_shape={"data": 1, "model": 1})
+
+
+def test_smoke_rwkv_plan_on_a_one_card_mesh_bit_identical(cuda_device):
+    """A plan's codes laid out on a (1, 1) NCCL mesh serve the logits and
+    greedy tokens of the same plan without a mesh, bit for bit, with as
+    many launches of kernels #1 and #4."""
+    from repro_torch.core.layers import Sharded
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.serve import build_model, generate
+    from repro_torch.models import lm
+    from repro_torch.models.common import set_mesh
+    plan = _rwkv_smoke_plan()
+    cfg, params = build_model("rwkv6-7b", "off", True, 0, cuda_device, plan=plan)
+    prompts = torch.randint(0, cfg.vocab, (2, 8), device=cuda_device,
+                            generator=torch.Generator(cuda_device).manual_seed(0))
+
+    def run(p, mesh=None):
+        with torch.no_grad():
+            logits, _ = lm.prefill(p, prompts, lm.init_decode_state(
+                cfg, 2, 17, cuda_device, mesh=mesh), cfg)
+        reset_launch_counts()
+        toks, _ = generate(p, cfg, prompts, 17, 8)
+        return logits, toks, dict(launch_counts())
+
+    ref = run(params)
+    try:
+        mesh = tmesh.mesh_for_plan(plan, 1, 1, cuda_device)
+        assert torch.distributed.get_backend() == "nccl"
+        set_mesh(mesh)
+        sharded = lm.prepack_params(params, cfg, mesh=mesh)
+        assert isinstance(sharded["groups"][0]["L0"]["mixer"]["wr"]["Eq"], Sharded)
+        got = run(sharded, mesh)
+    finally:
+        tmesh.destroy_world()
+    assert torch.equal(ref[0], got[0]) and torch.equal(ref[1], got[1])
+    assert got[2] == ref[2] and ref[2]["quant_epitome_matmul_blocks"] > 0
+    assert ref[2]["wkv6_chunked"] > 0
+
+
+def test_engine_config_mesh_on_card_equals_no_mesh(cuda_device):
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.engine import EngineConfig, Request
+    g = torch.Generator().manual_seed(3)
+    reqs = [Request(prompt=torch.randint(0, 192, (P,), generator=g).tolist(),
+                    max_new_tokens=6) for P in (5, 9, 17)]
+
+    def serve(mesh):
+        eng = EngineConfig(arch="rwkv6-7b", epitome="kernel-q3", smoke=True, mesh=mesh,
+                           capacity=2, max_len=32, decode_block=4, device="cuda").build()
+        for r in reqs:
+            eng.submit(r)
+        return [c.tokens for c in eng.drain()], eng.mesh
+
+    ref, none = serve(None)
+    try:
+        got, mesh = serve("1,1")
+        assert dict(zip(mesh.mesh_dim_names, mesh.shape)) == {"data": 1, "model": 1}
+    finally:
+        tmesh.destroy_world()
+    assert none is None and got == ref
+
+
+def test_moe_dispatch_over_nccl_matches_dense(cuda_device):
+    """One expert on a (1, 1) NCCL mesh: the dispatch path's all_to_all and
+    all_gather run on the card, within rel 1e-4 of the dense path."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import moe
+    from repro_torch.models.common import set_mesh
+    cfg = dataclasses.replace(get_smoke_config("phi3.5-moe-42b-a6.6b"), n_experts=1, top_k=1,
+                              capacity_factor=8.0, compute_dtype="float32",
+                              param_dtype="float32")
+    params = moe.init_moe(torch.Generator(cuda_device).manual_seed(0), cfg, cuda_device)
+    x = torch.randn(4, 16, cfg.d_model, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    try:
+        set_mesh(tmesh.make_host_mesh(1, 1, cuda_device))
+        with torch.no_grad():
+            y_disp = moe.moe_dispatch(params, x, cfg)
+            y_dense = moe.moe_dense(params, x, cfg)
+    finally:
+        tmesh.destroy_world()
+    assert float((y_disp - y_dense).abs().max()) <= 1e-4 * float(y_dense.abs().max())

@@ -565,8 +565,16 @@ def test_engine_config_build(tmp_path):
     assert eng.config.capacity == 1 and eng.device == torch.device("cpu")
     cfg, params = serve.build_model("rwkv6-7b", "kernel-q3", True, 0, "cpu")
     assert torch.equal(params["embed"], eng.serve_params["embed"])   # build_model's draw
-    with pytest.raises(NotImplementedError, match="item 16"):
-        EngineConfig(smoke=True, mesh="2,4", device="cpu").build()
+    # a mesh larger than the world (one rank here) is clamped, with a warning
+    from repro_torch.launch.mesh import destroy_world
+    try:
+        with pytest.warns(UserWarning, match="clamped"):
+            sharded = EngineConfig(smoke=True, mesh="2,4", device="cpu").build()
+        assert dict(zip(sharded.mesh.mesh_dim_names, sharded.mesh.shape)) == \
+            {"data": 1, "model": 1}
+    finally:
+        destroy_world()
+    assert EngineConfig(smoke=True, device="cpu").build().mesh is None
     from repro_torch.pim import plan as tplan
     path = str(tmp_path / "plan.json")
     tplan.auto_plan("rwkv6-7b-smoke", weight_bits=3).save(path)

@@ -23,7 +23,7 @@ def test_port_files_found():
     names = {p.name for p in FILES}
     assert {"__init__.py", "ops.py", "resnet.py", "chip_smoke.py", "optimizer.py", "data.py",
             "checkpoint.py", "loop.py", "train.py", "tree.py", "mamba_scan.py",
-            "ssm.py", "blocks.py", "autotune.py", "costmodel.py"} <= names
+            "ssm.py", "blocks.py", "autotune.py", "costmodel.py", "mesh.py"} <= names
     assert len(FILES) >= 15
 
 

@@ -121,7 +121,7 @@ def test_configs_equal(arch):
     for port, ref in ((get_config(arch, "kernel-q3"), jget_config(arch, "kernel-q3")),
                       (get_smoke_config(arch, "folded"), jget_smoke(arch, "folded"))):
         mine, theirs = dataclasses.asdict(port), dataclasses.asdict(ref)
-        assert set(theirs) - set(mine) == {"seq_shard_residual", "moe_decode_dispatch"}
+        assert set(theirs) - set(mine) == {"seq_shard_residual"}
         assert mine == {k: theirs[k] for k in mine}
         assert port.n_groups == ref.n_groups and port.hd == ref.hd
         assert port.full_pattern == ref.full_pattern

@@ -374,7 +374,7 @@ def test_plan_cli_on_cpu(tmp_path, capsys):
     assert "8/8 projections epitomized" in text and "tok/s" in text
     assert f"epitome={lm_legal} (prepacked)" in text and tuple(toks.shape) == (2, 3)
     # measured search and tuned legalization on the host, into a cache of
-    # their own; scale-out stays refused
+    # their own; --mesh stays refused for a ResNet plan
     cache, measured, tuned = (str(tmp_path / n) for n in ("tuned", "m.json", "t.json"))
     plan_cli.main(["search", "--arch", "tiny-resnet", "--weight-bits", "3", "--act-bits", "9",
                    "--population", "8", "--iterations", "2", "--measured", "--device", "cpu",
@@ -391,5 +391,5 @@ def test_plan_cli_on_cpu(tmp_path, capsys):
     assert "(legalized; ready for" in text and f"[tune] {min(blocks)}:" in text
     assert f"tuned blocks honored for {len(blocks)} layer(s)" in text
     assert len(blocks) == tplan.EpitomePlan.load(measured).n_epitomized
-    with pytest.raises(SystemExit, match="item 16"):
+    with pytest.raises(SystemExit, match="applies to LM plans"):
         plan_cli.main(["run", "--plan", legal, "--mesh", "2,4"])
