@@ -30,11 +30,12 @@ Ten main paths, each at the full width of its model:
 * serving gemma2-2b at kernel-q3 in bf16 (26 layers, local/global
   attention, softcaps, tied head) on a prompt longer than its window;
 * the continuous-batching engine, ``launch.engine.EngineConfig(...).build()``
-  -> ``submit`` -> ``step``, serving rwkv6-7b (dense slot rows) and
-  qwen2-72b (block-paged KV, an oversubscribed pool) at kernel-q3 in bf16
-  at full width and depth: bucketed and chunked prefill (kernel #4 from
-  the carried state of the last chunk), fused decode macro-steps;
-* serving phi3.5-moe at kernel-q3 with bf16 parameters (32 layers, d_model
+  -> ``submit`` -> ``step``, serving rwkv6-7b (dense slot rows) at full
+  width and depth and qwen2-72b (block-paged KV, an oversubscribed pool)
+  at full width cut to 16 layers, at kernel-q3 in bf16: bucketed and
+  chunked prefill (kernel #4 from the carried state of the last chunk),
+  fused decode macro-steps;
+* serving phi3.5-moe at kernel-q3 with bf16 parameters (16 of its 32 layers, d_model
   4096, 16 experts of ff 6400, top 2, vocab 32064): attention and the MoE
   FFN (every expert on every token, the masked combine), kernel #1 at the
   four attention projections, through ``serve.generate`` and through
@@ -45,9 +46,10 @@ Ten main paths, each at the full width of its model:
   ``train_loop`` (what ``launch.train`` runs): each layer a launch of kernel
   #4 forward, again in the backward's recompute, and one of its backward
   kernel (``wkv6_chunked_bwd``);
-* serving jamba-1.5-large at kernel-q3 in bf16 at published widths and
-  full depth (72 layers: 63 Mamba, 9 attention; d_model 8192, d_inner
-  16384, 16 states, vocab 65536), its MoE FFN positions set to none (their
+* serving jamba-1.5-large at kernel-q3 in bf16 at published widths, its
+  depth cut to one period of 8 of its 72 layers (7 Mamba, 1 attention;
+  d_model 8192, d_inner 16384, 16 states, vocab 65536), its MoE FFN
+  positions set to none (their
   experts wait on scale-out), through ``serve.generate`` and through
   ``launch.engine.EpimEngine``: each Mamba layer one launch of the
   selective-scan kernel (``mamba_scan``) a forward, prefill and decode
@@ -140,13 +142,13 @@ Phases:
              prefills bit for bit, timed and profiled; then phase 6 at full
              width cut to 2 float32 layers, at a float32 and an int8 KV cache
              (gemma2 with a window of 64 under a 256-token prompt).
-10. engine — for rwkv6-7b (dense pool) and qwen2-72b (pages of 16, 48 of
-             them, so admission defers): capacity 4, max_len 320, chunk 64, 8 greedy requests of
+10. engine — for rwkv6-7b (dense pool) and qwen2-72b at 16 of its 80
+             layers (pages of 16, 48 of them, so admission defers): capacity 4, max_len 320, chunk 64, 8 greedy requests of
              5-288 tokens and 2 sampled, 16/24/32 new tokens.  At K = 4
              (counted), at K = 1 and in reverse order: every request
              completes with its tokens, in submission order; admitted =
              completed = 10, 6 slot reuses, no page held after the drain;
-             launches exact (kernel #1 256 or 560 a forward, kernel #4 32 a
+             launches exact (kernel #1 256 or 112 a forward, kernel #4 32 a
              prefill or chunk); K = 1 and the reverse order give the same
              tokens bit for bit.  Greedy requests against one-shot generate
              (all 8; 2 at qwen2-72b): first-token logits in float32 (the
@@ -158,10 +160,10 @@ Phases:
              engine's rows against their plain versions and timed; a 2-layer
              float32 engine on the card against the CPU's (1e-4).
 12. MoE LM — phi3.5-moe kernel-q3, bf16 parameters from seed 0, at the
-             first of 32, 28, 24 layers that leaves 1.5 GiB of the card free
+             16 of its 32 layers, 1.5 GiB of the card left free
              (the bytes held logged): (a) kernel #1 at its two epitomized
              specs as phase 9 takes them; (b) phase 5's generate (4 x 256 +
-             32, exactly 128 launches a forward at 32 layers), three
+             32, exactly 64 launches a forward at 16 layers), three
              prefills bit for bit, timed and profiled, the MoE FFNs' device
              time beside kernel #1's; (d) phase 10's requests through the
              engine on the same weights (pages of 16, none deferred): every
@@ -187,7 +189,7 @@ Phases:
              float32 AdamW moments, SyntheticData 8 x 256: a warm-up step
              (exactly 64 forward and 32 backward WKV launches, no kernel #1
              or #3; u, w0 and the E of wr/wk/wv with non-zero gradients),
-             5 timed steps through train_loop (counted; losses and grad
+             3 timed steps through train_loop (counted; losses and grad
              norms finite and > 0), one step profiled, the optimizer and
              fake quant timed, peak memory; the warm-up step again from a
              fresh state of the same seed: loss, gradients and new state bit
@@ -206,11 +208,11 @@ Phases:
              bf16 against float32 of the same values, each row of a 4-row
              launch (S = 1, 128) against its 1-row launch, 8 one-token
              launches against one of 8; ptxas' registers and spills (a
-             vector instance that spills fails).  (b) jamba kernel-q3, 72
-             layers, MoE positions none, bf16 (the bytes it holds logged,
-             1.5 GiB of the card left free): phase 5's generate (4 x 256 +
-             32; exactly 396 launches of kernel #1 and 63 of the scan a
-             forward), three prefills bit for bit, timed and profiled, the
+             vector instance that spills fails).  (b) jamba kernel-q3, 8
+             layers (one period), MoE positions none, bf16 (the bytes it
+             holds logged, 1.5 GiB of the card left free): phase 5's generate
+             (4 x 256 + 32; exactly 44 launches of kernel #1 and 7 of the
+             scan a forward), three prefills bit for bit, timed and profiled, the
              scan's share of busy; kernel #1 at its specs and rows (bf16).
              (c) phase 10's requests through the engine on the same
              weights (pages of 16, chunk 64 rounded to 128: 9 chunks, 77
@@ -261,10 +263,25 @@ Phases:
 11. times  — each kernel's times and bounds summed over the launches of
              the main paths (the ResNet forwards, one LM generate at each
              variant and of each attention LM and of the MoE LM, the
-             quant_matmul calls, the engine's K = 4 runs, the 5 timed
-             training steps, jamba's generate and engine run); kernel #2
-             beside kernel #1 plus the fold on
+             quant_matmul calls, the engine's K = 4 runs, the 3 timed
+             training steps, jamba's generate and engine run, phase 17's
+             3 mesh steps); kernel #2 beside kernel #1 plus the fold on
              each ResNet path.  Run last.
+17. mesh training — after phase 16 has ended its process group: (a)
+             phase 13 (c)'s rwkv6-7b folded-q3 (32 layers, bf16 compute,
+             float32 parameters and moments, 8 x 256, seed 0) on a (1, 1)
+             NCCL mesh through ``init_state(mesh=)``: the warm-up step's
+             loss, gradients and new state bit for bit against phase 13's
+             (64 launches of kernel #4 and 32 of its backward, no other),
+             then 3 steps through ``train_loop`` (counted), their median
+             ms and peak beside phase 13's; (b) at 2 layers an async
+             checkpoint at step 2 of a mesh run, restored with
+             ``shardings=`` on the mesh and on one card with no mesh, both
+             runs' steps 2-3 the straight run's bit for bit; (c)
+             ``torchrun --standalone --nproc-per-node 1 -m
+             repro_torch.launch.train`` (NCCL) for 10 steps with a
+             checkpoint, then for 14, which restores step 10: two
+             processes, run one after the other beside (b).
 
 Any failure exits nonzero.  The line before the last is a JSON object
 listing the kernels; the last line is ``{"ok": true, "device": ...}``.
@@ -327,15 +344,19 @@ ATTN_PATHS = (
     ("gemma2-2b", 1, 4608, 16, 5 * 26, {"window": 64}, 256),
 )
 # phase 10, the serving engine, both LMs at kernel-q3 in bf16 at full width
-# and depth from seed 0: (arch, KV page size (0 = dense rows), KV pool pages,
-# kernel #1 launches a forward, the greedy requests held to a one-shot
-# generate).  qwen2-72b's pool is oversubscribed: its requests pin 2-20
-# pages each, and at 48 pages (below the 80 of four 20-page slots) admission
-# defers at four steps of this schedule; at 52 or more it never would (the
-# schedule's high-water mark is 52 pages, whatever the weights)
+# from seed 0: (arch, KV page size (0 = dense rows), KV pool pages, depth
+# (None: the config's), kernel #1 launches a forward, the greedy requests
+# held to a one-shot generate).  qwen2-72b's pool is oversubscribed: its
+# requests pin 2-20 pages each, and at 48 pages (below the 80 of four
+# 20-page slots) admission defers at four steps of this schedule; at 52 or
+# more it never would (the schedule's high-water mark is 52 pages, whatever
+# the weights or the depth).  qwen2-72b's engine runs 16 of its 80 layers:
+# its host-bound runs took 136-267 s at 80 on the H100's hosts, and the
+# script must end within 1200 s on the slowest of them (phase 9 serves the
+# 80 layers one-shot)
 ENGINE_PATHS = (
-    ("rwkv6-7b", 0, 0, 8 * 32, tuple(range(8))),
-    ("qwen2-72b", 16, 48, 7 * 80, (1, 4)),
+    ("rwkv6-7b", 0, 0, None, 8 * 32, tuple(range(8))),
+    ("qwen2-72b", 16, 48, 16, 7 * 16, (1, 4)),
 )
 ENGINE_CAPACITY, ENGINE_MAX_LEN, ENGINE_CHUNK, ENGINE_BLOCK = 4, 320, 64, 4
 # greedy prompts: three fit a bucket (8, 64, 64), five take 2-5 chunks; then
@@ -349,14 +370,15 @@ ENGINE_CPU_PROMPTS = (5, 130)   # the 2-layer float32 card-vs-CPU engine run
 # 161 GB), kernel #1 at wq, wk, wv and wo of every layer (the experts are
 # plain batched matmuls, never epitomized).  Depth: the first of MOE_DEPTHS whose
 # parameters leave MOE_WORKSPACE bytes of the card free (the phase peaks
-# 1.1-1.4 GiB above its parameters on the H100).  Its engine takes phase
+# 1.1-1.4 GiB above its parameters on the H100); 16 of its 32 layers, which
+# fit (32 did, with 1.64 GiB free), to keep the script within its time.  Its engine takes phase
 # 10's requests on dense-capacity pages of 16 (kv_pages 0) and prefills
 # every prompt whole at its length, so the K = 4 run makes MOE_MICRO decode
 # micro-steps (the schedule, counted on the CPU at smoke size: it does not
 # depend on the weights); MOE_ONESHOT are the greedy requests held to
 # one-shot generate
 MOE_ARCH, MOE_SITES = "phi3.5-moe-42b-a6.6b", 4
-MOE_DEPTHS = (32, 28, 24)
+MOE_DEPTHS = (16,)
 MOE_WORKSPACE = 3 << 29   # 1.5 GiB
 MOE_PAGE, MOE_MICRO, MOE_ONESHOT = 16, 69, (0, 2, 4, 7)
 # phase 13, training: rwkv6-7b folded-q3 (fake-quantized epitomes, the
@@ -368,15 +390,16 @@ MOE_PAGE, MOE_MICRO, MOE_ONESHOT = 16, 69, (0, 2, 4, 7)
 # (tests/test_kernels.py:85) and the reference's folded-gradient tolerance
 # (rtol 1e-3, atol 1e-2; tests/test_epitome.py:91)
 TRAIN_ARCH, TRAIN_VARIANT = "rwkv6-7b", "folded-q3"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 3   # 5 steps until phase 17 came
 TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 64
 TRAIN_CPU_LR = 1e-2         # the card-vs-CPU AdamW step: no warm-up, so it moves ~lr
 GRAD_TOL = 1e-3
 WKV_BWD = "wkv6_chunked_bwd"
-# phase 14, Mamba: jamba-1.5-large at kernel-q3 in bf16 at published widths
-# and full depth (72 layers: 63 Mamba, 9 attention), its 36 MoE FFN
-# positions set to none (a period of 8 layers holds four MoE FFNs of 19.3
-# GB each, which wait on scale-out), so the 36 dense FFNs stay; kernel #1
+# phase 14, Mamba: jamba-1.5-large at kernel-q3 in bf16 at published widths,
+# cut to MAMBA_DEPTH layers, one period of its 72 (7 Mamba, 1 attention; the
+# 72 layers' host-bound runs took 93-211 s), its MoE FFN positions set to
+# none (a period of 8 layers holds four MoE FFNs of 19.3 GB each, which
+# wait on scale-out), so its 4 dense FFNs stay; kernel #1
 # at the 4 Mamba projections, the 4 attention ones and the 3 dense FFN ones
 # of each layer (MAMBA_SITES a forward), the scan once a Mamba layer a
 # forward.  The kernel is held at KERNEL_TOL on jamba's width (d_inner
@@ -386,7 +409,8 @@ WKV_BWD = "wkv6_chunked_bwd"
 # chunks (the schedule, counted on the CPU at smoke size)
 MAMBA = "mamba_scan"
 MAMBA_ARCH, MAMBA_FFN = "jamba-1.5-large-398b", ("dense", "none") * 4
-MAMBA_SITES, MAMBA_LAYERS = 63 * 4 + 9 * 4 + 36 * 3, 63
+MAMBA_DEPTH = 8
+MAMBA_SITES, MAMBA_LAYERS = 7 * 4 + 1 * 4 + 4 * 3, 7
 MAMBA_MICRO, MAMBA_CHUNKS, MAMBA_ONESHOT = 77, 9, (1, 4)
 MAMBA_WORKSPACE = 3 << 29   # 1.5 GiB the phase needs free beside the parameters
 # phase 16, sharded serving: rwkv6-7b from a plan searched (the reference
@@ -398,6 +422,13 @@ MESH_EVO = dict(population=6, iterations=3, seed=0)
 MESH_PATH = f"{LM_ARCH} mesh 1,1"
 MESH_TURNS = 5          # phase 16's in-turns rounds
 MESH_AB_ROUNDS = 20     # --time-mesh
+# phase 17, training on a mesh: phase 13 (c)'s rwkv6-7b on a (1, 1) NCCL mesh
+# through init_state(mesh=), its warm-up step held to phase 13's bit for bit,
+# then MESH_TRAIN_STEPS steps through train_loop (counted); the restart at
+# CPU_LAYERS layers; the train CLI under torchrun, MESH_CLI_STEPS then more
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_PATH = f"{TRAIN_ARCH} {TRAIN_VARIANT} train mesh 1,1"
+MESH_CLI_STEPS = (10, 14)
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/quant_epitome_matmul.cu",
@@ -710,7 +741,7 @@ def main() -> int:
     launches[WKV] += train_report["run"]["launches"][WKV]
     launches[WKV_BWD] = train_report["run"]["launches"][WKV_BWD]
 
-    # -- 14. Mamba: jamba-1.5-large kernel-q3 at full depth, the scan kernel --------
+    # -- 14. Mamba: jamba-1.5-large kernel-q3 (one period of layers), the scan kernel --
     mamba_rows, mamba_report = mamba_phase(torch, dev, gen, ops, ref, WRAPPERS, lm, serve,
                                            get_config, launch_counts, reset_launch_counts)
     rows += mamba_rows
@@ -734,6 +765,16 @@ def main() -> int:
     rows += mesh_rows
     launches[QUANT] += mesh_report["launches"][QUANT]
     launches[WKV] += mesh_report["launches"][WKV]
+
+    # -- 17. training on a (1, 1) NCCL mesh: phase 13's rwkv6-7b, restore, CLI --
+    gc.collect()
+    torch.cuda.empty_cache()
+    mtrain_rows, mtrain_report = mesh_train_phase(
+        torch, dev, lm, get_config, launch_counts, reset_launch_counts, train_report,
+        train_rows)
+    rows += mtrain_rows
+    launches[WKV] += mtrain_report["launches"][WKV]
+    launches[WKV_BWD] += mtrain_report["launches"][WKV_BWD]
 
     # -- 11. times per kernel, summed over the main paths' launches -----------
     summary = []
@@ -799,6 +840,7 @@ def main() -> int:
                   engine_card_vs_cpu=engine_cpu, fold_probe=fold, plan=plan_run["plan"],
                   quant_matmul_vs_f64=qm_f64, moe=moe_report, train=train_report,
                   mamba=mamba_report, tuning=tune_report, mesh=mesh_report,
+                  mesh_train=mtrain_report,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -811,7 +853,7 @@ def main() -> int:
         + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items())
         + f", MoE {moe_report['seconds']:.1f}, training {train_report['seconds']:.1f}, "
         f"Mamba {mamba_report['seconds']:.1f}, tuning {tune_report['seconds']:.1f}, "
-        f"mesh {mesh_report['seconds']:.1f})")
+        f"mesh {mesh_report['seconds']:.1f}, mesh training {mtrain_report['seconds']:.1f})")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
     # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
@@ -1434,12 +1476,18 @@ def engine_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config,
     Returns (kernel rows, runs, card-vs-CPU results, seconds per model)."""
     from repro_torch.launch import engine as engine_mod
     rows, runs, cpu, seconds = [], [], [], {}
-    for arch, page_size, kv_pages, per_fwd, oneshot in ENGINE_PATHS:
+    for arch, page_size, kv_pages, depth, per_fwd, oneshot in ENGINE_PATHS:
         t0 = time.perf_counter()
+        cfg, built = get_config(arch, "kernel-q3"), None
+        if depth is not None:
+            cfg = get_config(arch, "kernel-q3", n_layers=depth)
+            built = (cfg, lm.prepack_params(lm.init_params(
+                torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg))
         run = engine_path(torch, dev, lm, serve, engine_mod, get_config, arch, page_size,
-                          kv_pages, per_fwd, oneshot, launch_counts, reset_launch_counts)
+                          kv_pages, per_fwd, oneshot, launch_counts, reset_launch_counts,
+                          built=built, f32=True)
+        del built
         torch.cuda.empty_cache()
-        cfg = get_config(arch, "kernel-q3")
         path = f"{arch} engine"
         rows += quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path,
                               sorted(run["forwards_by_rows"].items()), ENGINE_CAPACITY)
@@ -2196,6 +2244,40 @@ def train_refusals(torch, dev, lm, get_config, loop, leaves) -> list:
     return out
 
 
+def train_first_step(torch, loop, leaves, cfg, opt, state, batch0, launch_counts,
+                     reset_launch_counts) -> tuple:
+    """The warm-up step in its two parts (``loss_and_grads``, then
+    ``apply_grads``): exactly 2 launches of kernel #4 and one of its
+    backward a layer, no other kernel; u, w0 and the E of wr/wk/wv with
+    non-zero gradients.  On a mesh the state's laid-out leaves are read
+    whole.  Returns (state, loss, the gradients' checksums, the new
+    state's checksums, grad norm)."""
+    from repro_torch.core.layers import unshard
+    per_step = {WKV: 2 * cfg.n_layers, WKV_BWD: cfg.n_layers}
+    what = f"{TRAIN_ARCH} {TRAIN_VARIANT}"
+    reset_launch_counts()
+    loss, grads = loop.loss_and_grads(state["params"], batch0, cfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != {k: per_step.get(k, 0) for k in counts}:
+        raise AssertionError(f"{what}: a step launched {counts}, expected {per_step}")
+    sums = _checksum(torch, leaves(grads))
+    flat = leaves(grads)
+    names = [n for n, _ in _named(state["params"])]
+    wkv = [(g, name) for g, name in zip(flat, names) if "mixer" in name and (
+        name.rsplit("/", 1)[-1] in ("u", "w0") or name.endswith(("wr/E", "wk/E", "wv/E")))]
+    if len(wkv) != 5 * cfg.n_layers:
+        raise AssertionError(f"{what}: {len(wkv)} leaves named u, w0, wr/wk/wv E, "
+                             f"expected 5 a layer")
+    for g, name in wkv:
+        if not bool(g.abs().max() > 0):
+            raise AssertionError(f"{what}: {name} has a zero gradient")
+    state, metrics = loop.apply_grads(state, grads, opt)
+    del grads, flat, wkv
+    return (state, float(loss), sums, _checksum(torch, [unshard(t) for t in leaves(state)]),
+            float(metrics["grad_norm"]))
+
+
 def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
                launch_counts, reset_launch_counts) -> dict:
     """Phase 13 (c): rwkv6-7b folded-q3 at full width and depth (bf16
@@ -2221,29 +2303,8 @@ def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leave
     n_params = sum(p.numel() for p in leaves(state["params"]))
     state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
     batch0 = {k: v.to(dev) for k, v in data.batch(0).items()}
-
-    def first_step(state):
-        reset_launch_counts()
-        loss, grads = loop.loss_and_grads(state["params"], batch0, cfg)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        if counts != {k: per_step.get(k, 0) for k in counts}:
-            raise AssertionError(f"{what}: a step launched {counts}, expected {per_step}")
-        sums = _checksum(torch, leaves(grads))
-        flat = leaves(grads)
-        names = [n for n, _ in _named(state["params"])]
-        wkv = [(g, name) for g, name in zip(flat, names) if "mixer" in name and (
-            name.rsplit("/", 1)[-1] in ("u", "w0") or name.endswith(("wr/E", "wk/E", "wv/E")))]
-        if len(wkv) != 5 * cfg.n_layers:
-            raise AssertionError(f"{what}: {len(wkv)} leaves named u, w0, wr/wk/wv E, "
-                                 f"expected 5 a layer")
-        for g, name in wkv:
-            if not bool(g.abs().max() > 0):
-                raise AssertionError(f"{what}: {name} has a zero gradient")
-        state, metrics = loop.apply_grads(state, grads, opt)
-        del grads, flat
-        return state, float(loss), sums, _checksum(torch, leaves(state)), float(metrics["grad_norm"])
-
+    first_step = lambda state: train_first_step(torch, loop, leaves, cfg, opt, state, batch0,
+                                                launch_counts, reset_launch_counts)
     t0 = time.perf_counter()
     state, loss0, gsum0, ssum0, gn0 = first_step(state)
     warm_s = time.perf_counter() - t0
@@ -2317,7 +2378,8 @@ def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leave
                tokens_s=tokens_s, peak_bytes=peak, launches=counts, launches_per_step=per_step,
                device_busy_ms=busy, device_breakdown=prof[:20], wkv_fwd_ms=wkv_fwd,
                wkv_bwd_ms=wkv_bwd, optimizer_ms=opt_ms, fake_quant_ms=fq_step,
-               repeat_loss=[loss0, loss1])
+               repeat_loss=[loss0, loss1], grad_norm0=gn0,
+               warmup=dict(loss=loss0, grads=gsum0, state=ssum0))
     log(f"[train] {what} bf16 compute, {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters, state {state_bytes / 2**30:.2f} "
         f"GiB, init {init_s:.1f} s, warm-up step {warm_s:.1f} s")
@@ -2547,7 +2609,7 @@ def scan_bits(torch, dev, gen, wrappers, cfg) -> dict:
 def mamba_build(torch, dev, lm, get_config):
     """jamba kernel-q3 (MAMBA_FFN) in bf16 from SEED on the card.  Returns
     (cfg, params, {bytes held, card free, setup s})."""
-    cfg = get_config(MAMBA_ARCH, "kernel-q3", ffn_pattern=MAMBA_FFN)
+    cfg = get_config(MAMBA_ARCH, "kernel-q3", ffn_pattern=MAMBA_FFN, n_layers=MAMBA_DEPTH)
     t0 = time.perf_counter()
     params = lm.prepack_params(
         lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg)
@@ -2587,7 +2649,7 @@ def mamba_refusal(torch, dev, ops) -> str:
 def mamba_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, launch_counts,
                 reset_launch_counts):
     """Phase 14: (a) the scan kernel at jamba's width (scan_rows,
-    scan_bits); (b) jamba kernel-q3 at full depth (mamba_build): generate 4
+    scan_bits); (b) jamba kernel-q3 at MAMBA_DEPTH (mamba_build): generate 4
     x 256 + 32 with exact launches, three prefills bit for bit, timed and
     profiled, the scan's share of busy; kernel #1 at its specs and rows;
     (c) the engine on the same weights (engine_path: chunks across the
@@ -2624,7 +2686,7 @@ def mamba_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, laun
     from repro_torch.kernels import _build
     ptxas = scan_ptxas(_build.build_log)
     torch.cuda.empty_cache()
-    # (b) the model at full depth
+    # (b) the model at MAMBA_DEPTH layers
     cfg, params, built = mamba_build(torch, dev, lm, get_config)
     sites = sum(site_specs(lm, cfg).values()) * cfg.n_groups
     mamba_layers = sum(k == "mamba" for k, _ in cfg.full_pattern) * cfg.n_groups
@@ -3115,6 +3177,268 @@ def mesh_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, launc
                   seconds=seconds)
     log(f"[mesh] phase 16 {seconds:.1f} s (plan run subprocess {cli_s:.1f} s)")
     return rows, report
+
+
+# -- phase 17: training on a mesh ---------------------------------------------------
+class _ShapeRecorder:
+    """Stands in for a kernel wrapper ``fn`` under its module's name: each
+    call appends (r's (B, S, H, K), its dtype) to ``seen`` and calls
+    ``fn``; ``launches`` reads and writes ``fn``'s, so the wrapper's own
+    count (which it bumps through that name) is unchanged."""
+
+    def __init__(self, fn):
+        self.fn, self.seen = fn, []
+
+    def __call__(self, r, *args, **kw):
+        self.seen.append((tuple(r.shape), str(r.dtype).replace("torch.", "")))
+        return self.fn(r, *args, **kw)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+
+def wkv_launch_shapes(run) -> tuple:
+    """Runs ``run()`` with the WKV wrappers' names in ``kernels.wkv6``
+    (those the autograd function calls) standing in by ``_ShapeRecorder``s.
+    Returns (what ``run()`` returned, {kernel: the (shape, dtype) of each
+    call})."""
+    from repro_torch.kernels import wkv6 as mod
+    names = {WKV: "wkv6_chunked", WKV_BWD: "wkv6_chunked_bwd"}
+    recorders = {k: _ShapeRecorder(getattr(mod, n)) for k, n in names.items()}
+    try:
+        for k, n in names.items():
+            setattr(mod, n, recorders[k])
+        result = run()
+    finally:
+        for k, n in names.items():
+            setattr(mod, n, recorders[k].fn)
+    return result, {k: rec.seen for k, rec in recorders.items()}
+
+
+def mesh_train_phase(torch, dev, lm, get_config, launch_counts, reset_launch_counts,
+                     train_report, train_rows) -> tuple:
+    """Phase 17: training on a (1, 1) NCCL mesh.  (a) phase 13 (c)'s model
+    and batch laid out by ``init_state(mesh=)``: the warm-up step against
+    phase 13's checksums, then MESH_TRAIN_STEPS steps through
+    ``train_loop`` (counted, timed, peak); (b) ``mesh_train_restart``;
+    (c) ``mesh_train_cli``.  Returns (the kernel rows of (a)'s steps,
+    report)."""
+    import gc
+    from repro_torch.core.layers import Sharded
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.common import set_mesh
+    from repro_torch.train import loop, optimizer
+    from repro_torch.train.data import SyntheticData
+    from repro_torch.train.tree import leaves
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT)
+    opt, tcfg = optimizer.AdamWConfig(), loop.TrainConfig(checkpoint_every=10 ** 9, log_every=1)
+    data = SyntheticData(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
+    per_step = {WKV: 2 * cfg.n_layers, WKV_BWD: cfg.n_layers}
+    what = f"{TRAIN_ARCH} {TRAIN_VARIANT} on the (1, 1) mesh"
+    one = train_report["run"]
+    try:
+        mesh = tmesh.make_host_mesh(1, 1, dev)
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError(f"the card's mesh runs over "
+                                 f"{torch.distributed.get_backend()}, not NCCL")
+        set_mesh(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = loop.init_state(torch.Generator(device=dev).manual_seed(SEED), cfg, opt, tcfg,
+                                dev, mesh=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        laid = sum(isinstance(t, Sharded) for t in leaves(state))
+        split = sum(isinstance(t, Sharded) and t.is_split() for t in leaves(state))
+        if not laid or split:
+            raise AssertionError(f"{what}: {laid} leaves laid out, {split} split")
+        batch0 = {k: v.to(dev) for k, v in data.batch(0).items()}
+        t0 = time.perf_counter()
+        state, loss0, gsum0, ssum0, gn0 = train_first_step(
+            torch, loop, leaves, cfg, opt, state, batch0, launch_counts, reset_launch_counts)
+        warm_s = time.perf_counter() - t0
+        same = dict(loss=loss0 == one["warmup"]["loss"], grads=gsum0 == one["warmup"]["grads"],
+                    state=ssum0 == one["warmup"]["state"], grad_norm=gn0 == one["grad_norm0"])
+        if not all(same.values()):
+            raise AssertionError(f"{what}: the warm-up step differs from phase 13's: {same} "
+                                 f"(loss {loss0} vs {one['warmup']['loss']})")
+        step_fn = loop.make_train_step(cfg, opt, tcfg)
+        reset_launch_counts()
+        (state, hist), shapes = wkv_launch_shapes(lambda: loop.train_loop(
+            state, step_fn, data, 1 + MESH_TRAIN_STEPS, train_cfg=tcfg,
+            log=lambda line: log(f"[mesh-train] {line}")))
+        counts = launch_counts()
+        expect = {k: v * MESH_TRAIN_STEPS for k, v in per_step.items()}
+        if counts != {k: expect.get(k, 0) for k in counts}:
+            raise AssertionError(f"{what}: {MESH_TRAIN_STEPS} steps launched {counts}, "
+                                 f"expected {expect}")
+        # the rows below reuse phase 13's per-launch times: every launch of
+        # this run must have the shape and dtype phase 13 timed
+        train_path = f"{TRAIN_ARCH} {TRAIN_VARIANT} train"
+        timed = {r["kernel"]: ((r["B"], r["S"], r["H"], r["K"]), r["dtype"])
+                 for r in train_rows if r["count"] and r["path"] == train_path}
+        for k, seen in shapes.items():
+            if len(seen) != counts[k] or set(seen) != {timed.get(k)}:
+                raise AssertionError(f"{what}: {k}'s {counts[k]} launches had shapes "
+                                     f"{sorted(set(seen))} ({len(seen)} recorded), phase 13 "
+                                     f"timed {timed.get(k)}")
+        if len(hist["loss"]) != MESH_TRAIN_STEPS or not all(
+                math.isfinite(x) and x > 0 for x in hist["loss"]):
+            raise AssertionError(f"{what}: losses {hist['loss']}")
+        step_ms = statistics.median(hist["step_time"]) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        del state, batch0
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[mesh-train] {what} ({tmesh.describe(mesh)}), {TRAIN_BATCH}x{TRAIN_SEQ}: {laid} "
+            f"state leaves laid out, none split; init {init_s:.1f} s, warm-up step {warm_s:.1f} "
+            f"s: loss {loss0:.6f}, {len(gsum0)} gradient leaves, the new state's "
+            f"{len(ssum0)} leaves and the grad norm {gn0:.6f} bit for bit equal to phase 13's "
+            f"warm-up step; {MESH_TRAIN_STEPS} steps through train_loop: median "
+            f"{step_ms:.1f} ms (runs {', '.join(f'{x * 1e3:.1f}' for x in hist['step_time'])}; "
+            f"phase 13 {one['step_ms_median']:.1f}), losses "
+            f"{', '.join(f'{x:.4f}' for x in hist['loss'])}, launches {counts}, each at "
+            f"phase 13's timed shape ({timed}); peak "
+            f"{peak / 2**30:.2f} GiB (phase 13 {one['peak_bytes'] / 2**30:.2f}); {card_line()}")
+        # (c) the CLI's two processes (most of their time is start-up on the
+        # host) run one after the other beside (b)
+        import threading
+        cli = {}
+
+        def run_cli():
+            try:
+                cli.update(mesh_train_cli())
+            except BaseException as e:          # raised below, in this thread
+                cli["error"] = f"launch.train under torchrun: {e!r}"
+        cli_thread = threading.Thread(target=run_cli)
+        cli_thread.start()
+        try:
+            restart = mesh_train_restart(torch, dev, get_config, loop, optimizer, SyntheticData,
+                                         leaves, mesh)
+        finally:
+            cli_thread.join()
+    finally:
+        tmesh.destroy_world()
+    if torch.distributed.is_initialized():
+        raise AssertionError("the phase left its process group up")
+    for steps, out in zip(MESH_CLI_STEPS, cli.get("stdout", [])):
+        for line in out.splitlines():
+            log(f"[mesh-train-cli] --steps {steps}: {line}")
+    if cli.get("error") or "seconds" not in cli:
+        raise AssertionError(cli.get("error", "launch.train under torchrun did not report"))
+    rows = [dict(r, path=MESH_TRAIN_PATH, count=per_step[r["kernel"]] * MESH_TRAIN_STEPS,
+                 timing="phase 13's per-launch times at the shape each launch had")
+            for r in train_rows if r["count"] and r["path"] == train_path]
+    if sorted(r["kernel"] for r in rows) != sorted(per_step):
+        raise AssertionError(f"phase 13's counted rows are {[r['kernel'] for r in rows]}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[mesh-train] phase 17 {seconds:.1f} s (CLI runs {cli['seconds']:.1f} s beside the "
+        f"restart's {restart['seconds']:.1f} s)")
+    return rows, dict(init_s=init_s, warmup_s=warm_s, loss0=loss0, grad_norm0=gn0,
+                      leaves_laid=laid, equal_to_phase_13=same, losses=hist["loss"],
+                      step_ms=[x * 1e3 for x in hist["step_time"]], step_ms_median=step_ms,
+                      step_ms_median_phase_13=one["step_ms_median"], peak_bytes=peak,
+                      peak_bytes_phase_13=one["peak_bytes"], launches=counts,
+                      restart=restart, cli=cli, seconds=seconds)
+
+
+def mesh_train_restart(torch, dev, get_config, loop, optimizer, SyntheticData, leaves,
+                       mesh) -> dict:
+    """Phase 17 (b): phase 13 (d) on the mesh.  rwkv6-7b folded-q3 at
+    CPU_LAYERS layers laid out on ``mesh``: steps 0-1 with an async
+    checkpoint at step 2, steps 2-3 on; the checkpoint restored with
+    ``shardings=loop.state_specs`` into a fresh state on the mesh, and
+    into a fresh state on one card with no mesh: each takes steps 2-3 to
+    the straight run's losses and final state bit for bit."""
+    import shutil
+    from repro_torch.core.layers import unshard
+    t_start = time.perf_counter()
+    from repro_torch.models.common import set_mesh
+    from repro_torch.train.checkpoint import CheckpointManager
+    cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT, n_layers=CPU_LAYERS)
+    opt, tcfg = optimizer.AdamWConfig(), loop.TrainConfig(checkpoint_every=2, log_every=10)
+    data = SyntheticData(cfg.vocab, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, seed=SEED)
+    step_fn = loop.make_train_step(cfg, opt, tcfg)
+    directory = ROOT / "build" / "train_mesh_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    ckpt = CheckpointManager(str(directory), keep=1)
+    quiet = lambda *a: None
+    whole = lambda st: _checksum(torch, [unshard(t) for t in leaves(st)])
+    fresh = lambda m: loop.init_state(torch.Generator(device=dev).manual_seed(SEED + 1), cfg,
+                                      opt, tcfg, dev, mesh=m)
+    state = loop.init_state(torch.Generator(device=dev).manual_seed(SEED), cfg, opt, tcfg, dev,
+                            mesh=mesh)
+    t0 = time.perf_counter()
+    state, first = loop.train_loop(state, step_fn, data, 2, ckpt=ckpt, train_cfg=tcfg, log=quiet)
+    save_s = time.perf_counter() - t0
+    state, rest = loop.train_loop(state, step_fn, data, 4, train_cfg=tcfg, log=quiet)
+    straight = whole(state)
+    del state
+    torch.cuda.empty_cache()
+    out = {}
+    for label, m in (("mesh 1,1", mesh), ("one card, no mesh", None)):
+        set_mesh(m)
+        target = fresh(m)
+        t0 = time.perf_counter()
+        step, restored = ckpt.restore(target, shardings=None if m is None
+                                      else loop.state_specs(cfg, target))
+        restore_s = time.perf_counter() - t0
+        del target
+        restored, again = loop.train_loop(restored, step_fn, data, 4, train_cfg=tcfg, log=quiet)
+        if step != 2 or again["loss"] != rest["loss"] or whole(restored) != straight:
+            raise AssertionError(f"{TRAIN_ARCH}: the run restored at step {step} on {label} "
+                                 f"differs: losses {again['loss']} vs {rest['loss']}")
+        out[label] = dict(restore_s=restore_s, losses=again["loss"])
+        del restored
+        torch.cuda.empty_cache()
+    set_mesh(mesh)
+    ckpt_bytes = sum(p.stat().st_size for p in directory.rglob("*") if p.is_file())
+    shutil.rmtree(directory, ignore_errors=True)
+    log(f"[mesh-train-restart] {TRAIN_ARCH} {TRAIN_VARIANT} {CPU_LAYERS} layers on the mesh, "
+        f"{TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}: async checkpoint at step 2 ({ckpt_bytes / 2**30:.2f} "
+        f"GiB; steps 0-1 and the write {save_s:.1f} s), restored with shardings= on the mesh "
+        f"({out['mesh 1,1']['restore_s']:.1f} s) and on one card with no mesh "
+        f"({out['one card, no mesh']['restore_s']:.1f} s): steps 2-3 losses "
+        f"{', '.join(f'{x:.6f}' for x in rest['loss'])} and the final state bit for bit "
+        f"the straight mesh run's, both")
+    return dict(losses=first["loss"] + rest["loss"], checkpoint_bytes=ckpt_bytes,
+                save_s=save_s, restored=out, seconds=time.perf_counter() - t_start)
+
+
+def mesh_train_cli() -> dict:
+    """Phase 17 (c): ``launch.train`` under ``torchrun --standalone
+    --nproc-per-node 1`` (NCCL) at the rwkv6-7b smoke config, folded-q3:
+    MESH_CLI_STEPS[0] steps with a checkpoint directory, which prints the
+    mesh it ran and ``done``; then MESH_CLI_STEPS[1], which restores the
+    checkpoint of step MESH_CLI_STEPS[0] (one every max(10, steps // 5)).
+    Returns (seconds, each run's stdout, and what failed, if anything);
+    it logs nothing, for it runs beside (b)."""
+    import shutil
+    directory = ROOT / "build" / "train_cli_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    outs = []
+    for steps in MESH_CLI_STEPS:
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             "1", "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke", "--epitome",
+             TRAIN_VARIANT, "--steps", str(steps), "--ckpt-dir", str(directory)],
+            capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        outs.append(run.stdout)
+        if run.returncode != 0:
+            return dict(seconds=time.perf_counter() - t0, stdout=outs, error=(
+                f"launch.train --steps {steps} under torchrun (rc {run.returncode}): "
+                f"{run.stdout[-2000:]} {run.stderr[-4000:]}"))
+    shutil.rmtree(directory, ignore_errors=True)
+    mesh_line = "[train] mesh: {'data': 1, 'model': 1} over 1 rank(s) (nccl, cuda)"
+    want = f"[train] restored checkpoint at step {MESH_CLI_STEPS[0]}"
+    error = None
+    if not all(mesh_line in o and "[train] done" in o for o in outs) or want not in outs[1]:
+        error = f"launch.train under torchrun: no mesh line, done line or '{want}'"
+    return dict(seconds=time.perf_counter() - t0, stdout=outs, error=error)
 
 
 def _in_turns(torch, dev, lm, cfg, trees, rounds: int) -> dict:

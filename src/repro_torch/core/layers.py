@@ -183,6 +183,11 @@ def axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
+# the mesh axes a batch's rows are split over when training (models.common
+# re-exports them); every other axis ('model') computes the same rows
+BATCH_AXES = ("pod", "data")
+
+
 class Sharded:
     """A tensor laid out on a mesh: ``local`` is this rank's block of the
     whole ``shape``, split along each dim over the mesh axes that ``spec``
@@ -190,41 +195,107 @@ class Sharded:
     the first axis major).  ``full()`` gathers the blocks back with
     ``all_gather`` over each named axis's group, so a layer computes on the
     very tensor one card would hold; a dim whose axes all have size 1 is
-    whole already and costs no copy (a (1, 1) mesh gathers nothing)."""
+    whole already and costs no copy (a (1, 1) mesh gathers nothing).
+
+    The gather has a gradient (``_Gather``): ``local`` is what trains.
+    Over a batch axis, where each rank computed other rows (inside
+    ``models.common.split_rows``), the whole gradient is summed and this
+    rank keeps its block (``reduce_scatter``); over 'model', whose ranks
+    computed the same rows on the same whole weight, and over a batch axis
+    outside ``split_rows`` (every rank computed every row), it keeps its
+    block and sums nothing.  The sum over a batch axis the spec does not
+    name is the caller's (``train.loop``)."""
 
     __slots__ = ("local", "spec", "shape", "mesh")
 
     def __init__(self, local: torch.Tensor, spec: Tuple, shape, mesh):
         self.local, self.spec, self.shape, self.mesh = local, tuple(spec), torch.Size(shape), mesh
 
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
     def is_split(self) -> bool:
         """True when this rank holds less than the whole."""
         return self.local.shape != self.shape
 
+    def like(self, local: torch.Tensor) -> "Sharded":
+        """Another tensor laid out as this one (``local`` its block)."""
+        return Sharded(local, self.spec, self.shape, self.mesh)
+
+    def split_axes(self) -> Tuple[str, ...]:
+        """The mesh axes (of size > 1) this tensor is split over."""
+        sizes = axis_sizes(self.mesh)
+        return tuple(a for e in self.spec for a in mesh_axes(e) if sizes[a] > 1)
+
+    def _steps(self):
+        """(dim, axis) of each gather in order: the innermost axis of a dim
+        first, its blocks being adjacent in the dim."""
+        sizes = axis_sizes(self.mesh)
+        return [(dim, a) for dim, entry in enumerate(self.spec)
+                for a in reversed(mesh_axes(entry)) if sizes[a] > 1]
+
     def full(self) -> torch.Tensor:
-        import torch.distributed as dist
         if not self.is_split():
             return self.local
-        t, sizes = self.local, axis_sizes(self.mesh)
-        for dim, entry in enumerate(self.spec):
-            # the innermost axis first: its blocks are adjacent in the dim
-            for a in reversed(_axes(entry)):
-                if sizes[a] == 1:
-                    continue
-                parts = [torch.empty_like(t) for _ in range(sizes[a])]
-                dist.all_gather(parts, t.contiguous(), group=self.mesh.get_group(a))
-                t = torch.cat(parts, dim)
-        if t.shape != self.shape:
-            raise RuntimeError(f"gathered {tuple(t.shape)}, expected {tuple(self.shape)} "
-                               f"(spec {self.spec})")
-        return t
+        return _Gather.apply(self.local, self)
 
     def __repr__(self) -> str:
         return (f"Sharded(shape={tuple(self.shape)}, spec={self.spec}, "
                 f"local={tuple(self.local.shape)}, dtype={self.local.dtype})")
 
 
-def _axes(entry) -> Tuple[str, ...]:
+class _Gather(torch.autograd.Function):
+    """``Sharded.full`` as autograd sees it: forward ``all_gather`` over
+    each axis of the spec; backward, in the reverse order, a
+    ``reduce_scatter`` (a sum) over a batch axis when the forward ran with
+    the rows split (``models.common.split_rows``: each rank's gradient is
+    its rows' part), and this rank's block of the gradient over any other
+    axis, or over a batch axis with every row on every rank (each rank
+    then holds the whole gradient already)."""
+
+    @staticmethod
+    def forward(ctx, local: torch.Tensor, sh: Sharded) -> torch.Tensor:
+        import torch.distributed as dist
+        from ..models.common import rows_split
+        ctx.sh, ctx.rows_split = sh, rows_split()
+        t = local
+        for dim, a in sh._steps():
+            parts = [torch.empty_like(t) for _ in range(axis_sizes(sh.mesh)[a])]
+            dist.all_gather(parts, t.contiguous(), group=sh.mesh.get_group(a))
+            t = torch.cat(parts, dim)
+        if t.shape != sh.shape:
+            raise RuntimeError(f"gathered {tuple(t.shape)}, expected {tuple(sh.shape)} "
+                               f"(spec {sh.spec})")
+        return t
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        import torch.distributed as dist
+        sh = ctx.sh
+        for dim, a in reversed(sh._steps()):
+            n, group = axis_sizes(sh.mesh)[a], sh.mesh.get_group(a)
+            if a in BATCH_AXES and ctx.rows_split:
+                parts = [c.contiguous() for c in g.chunk(n, dim)]
+                out = torch.empty_like(parts[0])
+                dist.reduce_scatter(out, parts, group=group)
+                g = out
+            else:
+                g = g.narrow(dim, sh.mesh.get_local_rank(a) * (g.shape[dim] // n),
+                             g.shape[dim] // n)
+        return g, None
+
+
+def mesh_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes one spec entry names (None: none)."""
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
@@ -235,6 +306,12 @@ def unshard(x):
     return x.full() if isinstance(x, Sharded) else x
 
 
+def local_of(x):
+    """This rank's block of a ``Sharded`` (the tensor that trains), anything
+    else as is."""
+    return x.local if isinstance(x, Sharded) else x
+
+
 def distribute(t: torch.Tensor, spec: Tuple, mesh) -> Sharded:
     """The layout step: this rank's block of ``t`` under ``spec`` (as
     ``constrained_sharding`` returns it: every named axis divides its dim).
@@ -242,7 +319,7 @@ def distribute(t: torch.Tensor, spec: Tuple, mesh) -> Sharded:
     freed; a whole block is ``t`` itself."""
     sizes, local = axis_sizes(mesh), t
     for dim, entry in enumerate(spec):
-        axes = _axes(entry)
+        axes = mesh_axes(entry)
         n = math.prod(sizes[a] for a in axes)
         if n == 1:
             continue
@@ -300,7 +377,7 @@ def constrained_sharding(mesh, pspec, shape) -> Tuple:
     sizes = axis_sizes(mesh)
     fixed = []
     for i, entry in enumerate(pspec):
-        axes = tuple(a for a in _axes(entry) if a in sizes)
+        axes = tuple(a for a in mesh_axes(entry) if a in sizes)
         ok = axes and shape[i] % math.prod(sizes[a] for a in axes) == 0
         fixed.append((axes if len(axes) > 1 else axes[0]) if ok else None)
     return tuple(fixed)

@@ -14,7 +14,7 @@
 //     lo = tf32(v - hi) (cvt.rna, 10 mantissa bits), and x_lo E_hi, x_hi E_lo
 //     and x_hi E_hi go into one float32 accumulator, in that order; x_lo E_lo
 //     is dropped.  What the three miss is about 2^-21 of each product, where
-//     one TF32 pass misses the 2e-4 gate (tests/test_torch_mma_numerics.py
+//     one TF32 pass misses the 2e-4 gate (tests/mma_models.py
 //     models both).  Shared memory holds one float32 copy of each tile.
 //   bf16: one m16n8k16 pass; bf16 x bf16 products are exact in float32.
 //

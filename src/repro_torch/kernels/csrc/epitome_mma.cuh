@@ -32,7 +32,7 @@
 // the largest of 5 seeds); fp16 lo leaves it at 21 %.  A third bf16 pass
 // (lo2) did as well, at 24 %, but made the loop 17 % slower, and kernel
 // #1's fp32 sum over a searched ResNet-50 plan slower than cuBLAS's.
-// (tests/test_torch_mma_numerics.py models each split on the CPU.)
+// (tests/mma_models.py models each split on the CPU.)
 //
 // Prefill rows (T above the cut-over the wrapper picks, 32): a 128 x BN
 // block tile (BN = 128, or 64 where bn < 128) of 8 warps, each warp a
@@ -76,7 +76,7 @@
 // repeats bit for bit, and it is one launch.  Summed one after another,
 // the splits are most of the distance from the float64 product at kernel
 // #5's M = 14336 (112 splits), which chip_smoke.py gates no further than
-// cuBLAS's (tests/test_torch_mma_numerics.py models both orders).
+// cuBLAS's (tests/mma_models.py models both orders).
 //
 // Ragged edges are masked in every mode: rows t >= T, contraction rows
 // k >= m and columns c >= bn are staged as zero and not stored, so no caller

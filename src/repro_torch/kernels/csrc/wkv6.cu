@@ -56,7 +56,7 @@
 // Each operand splits at fragment load into hi and lo, TF32 by truncation,
 // and lo hi, hi lo and hi hi go into the accumulator (3xTF32, as kernel #3's
 // float32 entry): one TF32 pass misses the 1e-3 gate in each of the four
-// products (tests/test_torch_mma_numerics.py models both).  A bf16 value is
+// products (tests/mma_models.py models both).  A bf16 value is
 // exact in TF32, so with bf16 v the two products on v take two passes.  Row
 // pitches (r, k and v: fp32 68, bf16 72 elements; S 72) keep the fragment
 // loads free of bank conflicts.  Exponentials are __expf (dexp).

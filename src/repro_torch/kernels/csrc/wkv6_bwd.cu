@@ -60,7 +60,7 @@
 // Each operand splits into hi and lo, TF32 by truncation, and lo hi, hi lo
 // and hi hi go into the float32 accumulator (3xTF32, as kernel #4); a bf16
 // operand is exact in TF32 and skips its lo pass.  One TF32 pass misses
-// the 1e-3 gate (tests/test_torch_mma_numerics.py models the arithmetic).
+// the 1e-3 gate (tests/mma_models.py models the arithmetic).
 // Every sum runs in a fixed order and du, a sum over batch, goes through a
 // second kernel that adds the blocks' partial sums in batch order: no
 // atomics, so the kernel repeats bit for bit.

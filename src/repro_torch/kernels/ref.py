@@ -27,14 +27,28 @@ def epitome_matmul_blocks_ref(x_folded: torch.Tensor, E: torch.Tensor,
     return torch.cat(cols, dim=-1).to(x_folded.dtype)
 
 
+# rows a product of the plain kernel #1 takes at once: every call runs
+# products of this one shape, so a row's bits do not depend on the row count
+ROW_BLOCK = 64
+
+
 def quant_epitome_matmul_blocks_ref(x_folded: torch.Tensor, q: torch.Tensor,
                                     scales: torch.Tensor, zeros: torch.Tensor,
                                     col_blocks, bk: int, bn: int) -> torch.Tensor:
     """Dequantize the whole int8 epitome per (bk x bn) block, then the same
-    column-block-indirected matmul as the fp version."""
+    column-block-indirected matmul as the fp version, ROW_BLOCK rows at a
+    time (the rows zero-padded to a multiple of it).  A float32 matmul's
+    summation order follows its shape, and a library picks another order
+    for another row count; products of one fixed shape sum every row alike,
+    so a row's result is the same in a call of any length (a rank of a
+    data-parallel split computes its rows as one card does)."""
     E = dequantize_packed(q, scales, zeros, (bk, bn))
-    return epitome_matmul_blocks_ref(x_folded.to(torch.float32), E,
-                                     col_blocks, bn).to(x_folded.dtype)
+    x = x_folded.to(torch.float32)
+    T = x.shape[0]
+    xp = F.pad(x, (0, 0, 0, -T % ROW_BLOCK))
+    blocks = [epitome_matmul_blocks_ref(xp[i:i + ROW_BLOCK], E, col_blocks, bn)
+              for i in range(0, xp.shape[0], ROW_BLOCK)]
+    return torch.cat(blocks)[:T].to(x_folded.dtype)
 
 
 def quant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,

@@ -15,9 +15,17 @@ and gloo on ``cpu``; a ``cuda`` mesh over a gloo group is refused.
     PYTHONPATH=src python -m repro_torch.launch.plan run --plan q.json \\
         --mesh 1,1                                     # one card, NCCL
 
-Every rank computes every row (``core.layers.Sharded`` gathers a weight's
-blocks at the layer that reads it), so a rank's tokens are the whole
-batch's; only rank 0 prints (``is_main``).
+A weight laid out on the mesh (``core.layers.Sharded``) is gathered at the
+layer that reads it.  Serving, every rank computes every row, so a rank's
+tokens are the whole batch's.  Training (``train.loop``), a batch's rows
+are split over the batch axes (``models.common.BATCH_AXES``: 'data', and
+'pod' where a mesh has it; ``models.common.batch_size`` / ``batch_rank``)
+while the ranks of a 'model' group compute the same rows, so 'model' saves
+memory, not compute.  Only rank 0 prints (``is_main``).
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \
+        -m repro_torch.launch.train --arch rwkv6-7b --smoke \
+        --epitome folded-q3 --device cpu              # (8, 1), gloo
 """
 from __future__ import annotations
 

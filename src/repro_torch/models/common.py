@@ -2,18 +2,21 @@
 (counterpart of ``repro.models.common``)."""
 from __future__ import annotations
 
+import contextlib
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
-from ..core.layers import axis_sizes, exact_dot, lay_out
+from ..core.layers import BATCH_AXES, axis_sizes, exact_dot, lay_out
 
 # Logical mesh axes (launch/mesh.py): batch -> ('pod', 'data'), tensor -> 'model'
-BATCH_AXES = ("pod", "data")
 TENSOR_AXIS = "model"
 
 _CURRENT_MESH = None
+# True while a batch's rows are split over the batch axes (training)
+_ROWS_SPLIT = False
 
 
 def set_mesh(mesh) -> None:
@@ -26,6 +29,62 @@ def set_mesh(mesh) -> None:
 
 def get_mesh():
     return _CURRENT_MESH
+
+
+@contextlib.contextmanager
+def split_rows():
+    """While inside, each rank of the installed mesh holds its own rows of
+    the batch (its block over the batch axes), as in training: the loss
+    divides by the whole batch's token count and the MoE dispatch takes and
+    returns this rank's rows.  Outside (serving), every rank holds every
+    row."""
+    global _ROWS_SPLIT
+    before, _ROWS_SPLIT = _ROWS_SPLIT, True
+    try:
+        yield
+    finally:
+        _ROWS_SPLIT = before
+
+
+def rows_split() -> bool:
+    """True inside ``split_rows`` with a mesh installed."""
+    return _ROWS_SPLIT and _CURRENT_MESH is not None
+
+
+def batch_axes(mesh=None) -> tuple:
+    """The batch axes of ``mesh`` (default: the installed one) of size > 1,
+    the first major."""
+    mesh = _CURRENT_MESH if mesh is None else mesh
+    if mesh is None:
+        return ()
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in BATCH_AXES if sizes.get(a, 1) > 1)
+
+
+def batch_size(mesh=None) -> int:
+    """Ranks a batch's rows are split over: the product of the batch axes'
+    sizes (1 with no mesh)."""
+    mesh = _CURRENT_MESH if mesh is None else mesh
+    return math.prod(axis_sizes(mesh)[a] for a in batch_axes(mesh)) if mesh is not None else 1
+
+
+def batch_rank(mesh=None) -> int:
+    """This rank's index over the batch axes, the first axis major (0 with
+    no mesh): it holds rows [r B / n, (r + 1) B / n) of a batch of B."""
+    mesh = _CURRENT_MESH if mesh is None else mesh
+    r = 0
+    for a in batch_axes(mesh):
+        r = r * axis_sizes(mesh)[a] + mesh.get_local_rank(a)
+    return r
+
+
+def all_reduce_batch(t: torch.Tensor, axes=None) -> torch.Tensor:
+    """``t`` summed in place over the installed mesh's batch axes of size > 1
+    (or ``axes``); with none, ``t`` as is."""
+    import torch.distributed as dist
+    for a in (batch_axes() if axes is None else axes):
+        dist.all_reduce(t, group=_CURRENT_MESH.get_group(a))
+    return t
 
 
 def clean_spec(*spec) -> tuple:
@@ -49,8 +108,8 @@ def shard(x: torch.Tensor, *spec):
     none, the identity.  The
     reference's ``shard`` is a sharding constraint inside a traced
     program; eager PyTorch has none, so the port calls this where a tensor
-    is laid out (parameters, decode state), never on activations, which
-    every rank holds whole."""
+    is laid out (parameters, decode state), never on activations: serving,
+    every rank holds them whole; training, each its own rows."""
     mesh = _CURRENT_MESH
     if mesh is None:
         return x

@@ -15,6 +15,14 @@ holds its blocks (``core.layers.Sharded``).  A layer gathers its blocks
 where it reads them and every rank computes every row, so the sharded
 model's logits are the one-card model's bit for bit.  The specs are the
 reference's with its leading group axis dropped (the port has none).
+
+Training on a mesh (``train.loop.init_state(mesh=)``) lays the parameters
+out by the training specs (``shard_params(serving=False)``: fan-in over
+'data', fan-out over 'model') and splits each batch's rows over the batch
+axes (``common.split_rows``): ``loss_fn`` divides by the whole batch's
+token count, so the ranks' gradients sum to the whole batch's.  A layer
+gathers its weights inside its remat group, so they live whole only while
+the group computes, and the recompute gathers them again.
 """
 from __future__ import annotations
 
@@ -31,8 +39,8 @@ from ..core.layers import (EpLayerConfig, Sharded, lay_out, lay_out_as, placemen
 from ..train.tree import leaves, tree_map
 from .attention import kv_cache_spec
 from .blocks import apply_group, decode_group, init_group, init_group_state, prefill_group
-from .common import (BATCH_AXES, TENSOR_AXIS, embed_lookup, init_rms_norm, rms_norm,
-                     unembed)
+from .common import (BATCH_AXES, TENSOR_AXIS, all_reduce_batch, embed_lookup,
+                     init_rms_norm, rms_norm, rows_split, unembed)
 from .config import ModelConfig
 from .ssm import last_real
 
@@ -181,13 +189,15 @@ def param_specs(cfg: ModelConfig, params: Dict[str, Any], *,
             for k, v in params.items()}
 
 
-def shard_params(params: Dict[str, Any], cfg: ModelConfig, mesh) -> Dict[str, Any]:
-    """Lay a (possibly prepacked) parameter tree out on ``mesh`` for
-    serving: plan placements where the config carries them, the serving
-    defaults elsewhere; axes that do not divide their dim degrade to
-    replicated.  Leaves already laid out (``prepack_params(mesh=)``) stay
-    as they are; a replicated leaf stays a plain tensor."""
-    specs = param_specs(cfg, params, serving=True)
+def shard_params(params: Dict[str, Any], cfg: ModelConfig, mesh, *,
+                 serving: bool = True) -> Dict[str, Any]:
+    """Lay a (possibly prepacked) parameter tree out on ``mesh``: plan
+    placements where the config carries them, elsewhere the serving
+    defaults or (``serving=False``) the training specs; axes that do not
+    divide their dim degrade to replicated.  Leaves already laid out
+    (``prepack_params(mesh=)``) stay as they are; a replicated leaf stays a
+    plain tensor."""
+    specs = param_specs(cfg, params, serving=serving)
     return tree_map(lambda t, sp: t if isinstance(t, Sharded) else lay_out(t, sp, mesh),
                     params, specs, tuples=False)
 
@@ -254,7 +264,10 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     """Next-token cross entropy, the mean over the tokens of ``mask``.
     batch: tokens (B, S) (or embeds (B, S, d)), labels (B, S), optional
     mask (B, S).  Logits in float32; the label's log-likelihood by gather,
-    the same numbers as the reference's one-hot select."""
+    the same numbers as the reference's one-hot select.  With the rows
+    split over the batch axes (``common.split_rows``), ``batch`` is this
+    rank's rows and the mean is over the whole batch's tokens: the sum of
+    the ranks' losses (and gradients) is the whole batch's."""
     inputs = batch["embeds"] if "embeds" in batch else batch["tokens"]
     logits = forward(params, inputs, cfg).to(torch.float32)
     labels = batch["labels"]
@@ -264,7 +277,10 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
     nll = (logz - ll) * mask
-    return nll.sum() / mask.sum().clamp_min(1.0)
+    count = mask.sum()
+    if rows_split():
+        count = all_reduce_batch(count.detach().clone())
+    return nll.sum() / count.clamp_min(1.0)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

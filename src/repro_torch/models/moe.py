@@ -2,17 +2,26 @@
 
 Two paths, chosen by ``moe_ffn`` as the reference chooses:
 
-1. ``moe_dispatch`` (a mesh installed, prefill): each data rank routes its
-   rows of the batch, packs them into per-destination capacity buffers
-   (``_local_pack``: rank within the expert by a cumsum, no sort), swaps
-   them with ``all_to_all_single`` over the data ranks, runs its expert
-   slot on what it received (its ``d_ff / model`` columns; the ff-partial
-   outputs summed over 'model' by ``all_reduce``), swaps them back and
-   combines in float32 (``_local_unpack``); the rows are then gathered
-   over 'data', so every rank holds the whole batch again.  Capacity
-   C = ceil(T_local * top_k * capacity_factor / n_dest); overflow is
-   dropped (GShard).  Forward only: its gradient comes with training on a
-   mesh.
+1. ``moe_dispatch`` (a mesh installed, prefill or training): each data
+   rank routes its rows of the batch, packs them into per-destination
+   capacity buffers (``_local_pack``: rank within the expert by a cumsum,
+   no sort), swaps them with ``all_to_all_single`` over the data ranks,
+   runs its expert slot on what it received (its ``d_ff / model``
+   columns; the ff-partial outputs summed over 'model' by
+   ``all_reduce``), swaps them back and combines in float32
+   (``_local_unpack``).  Serving, every rank holds the whole batch: it
+   takes its rows, and the rows are gathered over 'data' at the end (by
+   a plain ``all_gather``: this form refuses autograd).  Training
+   (``common.split_rows``), a rank holds only its rows, and takes and
+   returns them.  Capacity C = ceil(T_local * top_k *
+   capacity_factor / n_dest); overflow is dropped (GShard).  The
+   gradient: each ``all_to_all`` transposes to the same ``all_to_all``
+   back, the 'model' sum to the identity (and the slot's input gathers
+   its gradient over 'model'), and a slot's weight gradient lands on the
+   whole (E, d, ff) leaf, its replicas summed over the data ranks (the
+   reference's ``jnp.repeat`` transpose): by the gather's
+   ``reduce_scatter`` for a laid-out leaf, by the train loop's sum over
+   the batch axes for a replicated one, as for the router.
 2. ``moe_dense`` (no mesh, decode, small batches): every expert on every
    token, then the masked combine.
 
@@ -29,8 +38,8 @@ from typing import Tuple
 
 import torch
 
-from ..core.layers import axis_sizes
-from .common import BATCH_AXES, TENSOR_AXIS, act_fn, get_mesh
+from ..core.layers import axis_sizes, local_of, unshard
+from .common import BATCH_AXES, TENSOR_AXIS, act_fn, batch_size, get_mesh, rows_split
 from .config import ModelConfig
 
 
@@ -82,6 +91,7 @@ def moe_dense(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     both input weights into that layout on every call.)"""
     B, S, d = x.shape
     act = act_fn(cfg.act)
+    params = {k: unshard(v) for k, v in params.items()}
     x2 = x.reshape(-1, d)
     weights, experts = _route(x2, params["router"], cfg)               # (T, k)
     comb = torch.zeros((x2.shape[0], cfg.n_experts), dtype=torch.float32,
@@ -140,29 +150,72 @@ def _local_unpack(recv_y: torch.Tensor, info, T: int, d: int) -> torch.Tensor:
     return y_tok.reshape(T, -1, d).sum(1)
 
 
-def _dp_size(mesh) -> int:
-    sizes = axis_sizes(mesh)
-    return math.prod(sizes[a] for a in BATCH_AXES if a in sizes)
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal blocks over a group; its transpose is
+    the same exchange, so the backward swaps the gradients back."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+        ctx.group = group
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _AllToAll.apply(g, ctx.group), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The 'model' ranks' partial outputs summed (``all_reduce``).  Every
+    rank of the group goes on with the same sum, so the gradient of each
+    partial is the sum's own: the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+class _FromModel(torch.autograd.Function):
+    """The input of a 'model'-split product: the identity forward; the
+    backward sums the ranks' gradients, each rank's columns having
+    contributed their part of it (``all_reduce``)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        import torch.distributed as dist
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def moe_dispatch(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Expert parallelism over the data ranks (see the module docstring):
-    x (B, S, d), whole on every rank -> (B, S, d) in x's dtype, whole on
-    every rank."""
-    import torch.distributed as dist
+    x (B, S, d) -> (B, S, d) in x's dtype; serving, x is the whole batch on
+    every rank and so is the result; training (``common.split_rows``),
+    both are this rank's rows."""
     mesh = get_mesh()
     if mesh is None:
         raise RuntimeError("moe_dispatch needs a mesh (models.common.set_mesh)")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for t in params.values())):
-        raise NotImplementedError("moe_dispatch is forward only: its gradient comes with "
-                                  "training on a mesh (ROADMAP.md item 16b)")
     names = mesh.mesh_dim_names
     dp_axes = tuple(a for a in BATCH_AXES if a in names)
     if len(dp_axes) != 1:
         raise ValueError(f"moe_dispatch runs over one batch axis, the mesh has {dp_axes}")
     dp_group, dp_rank = mesh.get_group(dp_axes[0]), mesh.get_local_rank(dp_axes[0])
-    n_dest = _dp_size(mesh)
+    n_dest = batch_size(mesh)
     tp = axis_sizes(mesh).get(TENSOR_AXIS, 1)
     tp_rank = mesh.get_local_rank(TENSOR_AXIS) if tp > 1 else 0
     E = cfg.n_experts
@@ -172,29 +225,40 @@ def moe_dispatch(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     if cfg.d_ff % tp:
         raise ValueError(f"d_ff {cfg.d_ff} does not split over {tp} model ranks")
     act = act_fn(cfg.act)
+    whole = not rows_split()
+    if whole and torch.is_grad_enabled() and (
+            x.requires_grad or any(local_of(p).requires_grad for p in params.values())):
+        # the whole batch comes back through a plain all_gather, which
+        # autograd cannot see: train inside common.split_rows
+        raise NotImplementedError("moe_dispatch has a gradient only with the rows "
+                                  "split (models.common.split_rows)")
     B, S, d = x.shape
-    Bl = B // n_dest
+    Bl = B // n_dest if whole else B
     T_local = Bl * S
     cap = max(1, math.ceil(T_local * cfg.top_k * cfg.capacity_factor / n_dest))
 
-    x2 = x[dp_rank * Bl:(dp_rank + 1) * Bl].reshape(-1, d)
-    weights, experts = _route(x2, params["router"], cfg)
+    x2 = (x[dp_rank * Bl:(dp_rank + 1) * Bl] if whole else x).reshape(-1, d)
+    weights, experts = _route(x2, unshard(params["router"]), cfg)
     buf, info = _local_pack(x2, weights, experts, n_dest, cap, repl, E)
-    recv = torch.empty_like(buf)
-    dist.all_to_all_single(recv, buf, group=dp_group)
+    recv = _AllToAll.apply(buf, dp_group)
     # this rank's expert slot (slot s holds expert s // repl) and its ff columns
     e, f = dp_rank // repl, cfg.d_ff // tp
     cols = slice(tp_rank * f, (tp_rank + 1) * f)
     tok = recv.reshape(-1, d)                                     # (n_dest cap, d)
-    g = tok @ params["w_gate"][e][:, cols].to(x.dtype)
-    u = tok @ params["w_up"][e][:, cols].to(x.dtype)
-    y = (act(g) * u) @ params["w_down"][e][cols].to(x.dtype)      # partial over ff
     if tp > 1:
-        dist.all_reduce(y, group=mesh.get_group(TENSOR_AXIS))
-    back = torch.empty_like(y)
-    dist.all_to_all_single(back, y, group=dp_group)
+        tok = _FromModel.apply(tok, mesh.get_group(TENSOR_AXIS))
+    w_gate, w_up, w_down = (unshard(params[k]) for k in ("w_gate", "w_up", "w_down"))
+    g = tok @ w_gate[e][:, cols].to(x.dtype)
+    u = tok @ w_up[e][:, cols].to(x.dtype)
+    y = (act(g) * u) @ w_down[e][cols].to(x.dtype)                # partial over ff
+    if tp > 1:
+        y = _SumOverModel.apply(y, mesh.get_group(TENSOR_AXIS))
+    back = _AllToAll.apply(y, dp_group)
     out = _local_unpack(back.reshape(n_dest, cap, d), info, T_local, d)
     out = out.reshape(Bl, S, d).to(x.dtype)
+    if not whole:
+        return out
+    import torch.distributed as dist
     parts = [torch.empty_like(out) for _ in range(n_dest)]
     dist.all_gather(parts, out, group=dp_group)
     return torch.cat(parts, 0)
@@ -205,12 +269,17 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """Entry point: the reference's choice of path.  Dispatch needs a
     mesh, the batch divisible over the data ranks, an integer replica count
     and (unless ``cfg.moe_decode_dispatch``) at least one local token per
-    expert; otherwise (no mesh, decode, tiny batches) the dense path."""
+    expert; otherwise (no mesh, decode, tiny batches) the dense path.  The
+    choice is made on the whole batch, as the reference sees it: training
+    (``common.split_rows``), x is this rank's rows of a batch n_dp times
+    as long."""
     mesh = get_mesh()
     if mesh is None or force_dense:
         return moe_dense(params, x, cfg)
-    n_dp = _dp_size(mesh)
+    n_dp = batch_size(mesh)
     B, S, _ = x.shape
+    if rows_split():
+        B *= n_dp
     if B % n_dp != 0 or n_dp % cfg.n_experts != 0:
         return moe_dense(params, x, cfg)
     if (B // n_dp) * S < cfg.n_experts and not cfg.moe_decode_dispatch:

@@ -12,7 +12,15 @@ reference's.
 A tree is nested dicts, lists and tuples of tensors (``train.tree``);
 bfloat16 leaves are stored as their 16 bits, with each leaf's dtype and
 shape in tree.json.  ``restore`` puts each leaf on the device of the
-target's leaf.  The port runs on one device, so nothing is resharded.
+target's leaf.
+
+On a mesh a leaf may be laid out (``core.layers.Sharded``).  ``save`` is
+then a collective: every rank gathers every leaf whole, on the calling
+thread, and rank 0 alone hands the host copies to the writer, so the files
+are one device's (a checkpoint saved on one card restores on a mesh and
+the other way round).  ``restore(shardings=)`` lays each whole leaf out by
+a spec tree on the current mesh, which may differ from the one that saved
+it: the elastic restart.
 """
 from __future__ import annotations
 
@@ -26,7 +34,13 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.layers import Sharded, distribute, lay_out, unshard
 from .tree import leaves, unflatten
+
+
+def _is_main() -> bool:
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -37,7 +51,9 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, copy=True))
+    """A leaf as ``np.load`` reads it from the file: an array of its own,
+    so the tensor shares its memory (no second copy of a 7 GB state)."""
+    t = torch.from_numpy(a)
     return t.view(torch.bfloat16) if dtype == "bfloat16" else t
 
 
@@ -57,18 +73,35 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
         """Copy ``tree``'s leaves to the host (a copy even of CPU leaves, which
         the train loop goes on updating in place) and write them, in the
-        background unless ``blocking``."""
+        background unless ``blocking``.  A laid-out leaf is gathered whole
+        first, by every rank (call it on every rank at the same step); only
+        rank 0 keeps the copies and writes."""
         if self._err is not None:
             raise RuntimeError("checkpoint writer died") from self._err
-        host = [t.detach().to("cpu", copy=True) for t in leaves(tree)]
+        main = _is_main()
+        host = []
+        with torch.no_grad():
+            for t in leaves(tree):
+                whole = unshard(t).detach()
+                if main:
+                    host.append(whole.to("cpu", copy=True))
+        if not main:
+            return
         if self._thread is None or blocking:
             self._write(step, host)
         else:
             self._q.put((step, host))
 
-    def restore(self, target: Any, step: Optional[int] = None) -> Tuple[int, Any]:
+    def restore(self, target: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Tuple[int, Any]:
         """Load ``step`` (default: the latest complete one) into a tree shaped
-        as ``target``, each leaf on the device of ``target``'s leaf."""
+        as ``target``, each leaf on the device of ``target``'s leaf.
+
+        ``shardings``: a spec tree matching ``target`` (a spec is a tuple,
+        so an int8 moment's pair of specs is a list; ``loop.state_specs``)
+        on the installed mesh (``models.common.set_mesh``); each whole leaf
+        is laid out by its spec there.  Without it, a leaf is laid out as
+        the target's leaf is, or left whole."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no complete checkpoint in {self.dir}")
@@ -79,13 +112,30 @@ class CheckpointManager:
         if meta["n_leaves"] != len(like):
             raise ValueError(f"checkpoint {path} holds {meta['n_leaves']} leaves, the "
                              f"target {len(like)}")
-        out: List[torch.Tensor] = []
+        specs = [None] * len(like)
+        if shardings is not None:
+            from ..models.common import get_mesh
+            mesh = get_mesh()
+            if mesh is None:
+                raise RuntimeError("restore(shardings=) needs the mesh installed "
+                                   "(models.common.set_mesh)")
+            specs = leaves(shardings, tuples=False)
+            if len(specs) != len(like):
+                raise ValueError(f"shardings hold {len(specs)} specs, the target "
+                                 f"{len(like)} leaves")
+        out: List[Any] = []
         with np.load(os.path.join(path, "arrays.npz")) as z:
-            for i, (t, dtype, shape) in enumerate(zip(like, meta["dtypes"], meta["shapes"])):
+            for i, (t, spec, dtype, shape) in enumerate(zip(like, specs, meta["dtypes"],
+                                                            meta["shapes"])):
                 if tuple(shape) != tuple(t.shape) or dtype != str(t.dtype).replace("torch.", ""):
                     raise ValueError(f"checkpoint leaf {i} is {dtype} {shape}, the target's "
                                      f"{t.dtype} {tuple(t.shape)}")
-                out.append(_from_numpy(z[f"a{i}"], dtype).to(t.device))
+                whole = _from_numpy(z[f"a{i}"], dtype).to(t.device)
+                if spec is not None:
+                    whole = lay_out(whole, spec, mesh)
+                elif isinstance(t, Sharded):
+                    whole = distribute(whole, t.spec, t.mesh)
+                out.append(whole)
         return step, unflatten(target, out)
 
     def latest_step(self) -> Optional[int]:

@@ -51,9 +51,28 @@ class SyntheticData:
             out["embeds"] = torch.randn((B, S, self.embed_dim), generator=gen) * 0.02
         return out
 
-    def host_batch(self, step: int, host_id: int, n_hosts: int) -> Dict[str, torch.Tensor]:
-        """The slice of the global batch that host ``host_id`` of
-        ``n_hosts`` feeds."""
-        per = self.global_batch // n_hosts
-        lo = host_id * per
-        return {k: v[lo:lo + per] for k, v in self.batch(step).items()}
+    def host_batch(self, step: int, host_id: int, n_hosts: int,
+                   accum: int = 1) -> Dict[str, torch.Tensor]:
+        """The rows of the global batch that host (or data rank) ``host_id``
+        of ``n_hosts`` feeds (``host_rows``)."""
+        return host_rows(self.batch(step), host_id, n_hosts, accum)
+
+
+def host_rows(batch: Dict[str, torch.Tensor], host_id: int, n_hosts: int,
+              accum: int = 1) -> Dict[str, torch.Tensor]:
+    """Host ``host_id``'s rows of a global batch of B rows, as a train step
+    with ``accum`` microbatches cuts them: microbatch i is rows [i B/accum,
+    (i + 1) B/accum) of the whole, and the host takes its ``host_id``-th
+    part of each, in order, so that its own i-th microbatch is its part of
+    the whole's.  With ``accum`` 1, the contiguous rows [h B/n, (h + 1)
+    B/n)."""
+    out = {}
+    for k, v in batch.items():
+        B = v.shape[0]
+        if B % (n_hosts * accum):
+            raise ValueError(f"a batch of {B} rows does not split into {accum} "
+                             f"microbatch(es) over {n_hosts} host(s)")
+        per = B // (n_hosts * accum)
+        parts = v.reshape(accum, n_hosts, per, *v.shape[1:])[:, host_id]
+        out[k] = parts.reshape(accum * per, *v.shape[1:])
+    return out

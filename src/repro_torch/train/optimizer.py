@@ -18,6 +18,15 @@ copy of the state would not fit beside the first.  The optimizer state is
 ``{"step": int32 0-d tensor, "m": tree, "v": tree[, "master": tree]}``, each
 tree shaped as the parameters, an int8 moment's leaf a (codes, scales)
 pair.
+
+On a mesh the parameters are ``core.layers.Sharded`` and so is their state:
+masters, moments and codes are laid out as their parameter, the gradients
+are this rank's blocks.  The arithmetic is elementwise on the blocks, and
+what spans blocks is made the whole array's: the global norm sums each
+element once (a split leaf's squares summed over its axes, a replicated
+leaf counted once), and an int8 block of 256 that spans ranks takes the
+largest magnitude across them, so the codes and scales are the whole
+array's, as under the reference's GSPMD.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.layers import Sharded, axis_sizes, local_of, mesh_axes
 from .tree import leaves, tree_map
 
 _BLOCK = 256   # quantization block for int8 moments
@@ -80,49 +90,117 @@ def _dq8(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     return x.reshape(shape)
 
 
-def _encode_moment(x: torch.Tensor, dtype: str, role: str = "m"):
+def _last_split(like: Sharded) -> Tuple[Tuple[str, ...], int]:
+    """(the axes that split ``like``'s last dim, this rank's first element
+    along it)."""
+    sizes = axis_sizes(like.mesh)
+    axes = tuple(a for a in mesh_axes(like.spec[-1]) if sizes[a] > 1) if like.spec else ()
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + like.mesh.get_local_rank(a)
+    return axes, idx * (like.shape[-1] // math.prod(sizes[a] for a in axes) if axes else 0)
+
+
+def _block_index(x: torch.Tensor, like: Sharded) -> torch.Tensor:
+    """The whole array's int8 block of each element along this block's
+    last dim."""
+    _, off = _last_split(like)
+    return torch.div(torch.arange(x.shape[-1], device=x.device) + off, _BLOCK,
+                     rounding_mode="floor")
+
+
+def _q8_laid(x: torch.Tensor, like: Sharded) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_q8`` of the whole array ``like`` lays out, for this rank's block
+    ``x`` of it: the codes of the block and the whole last dim's scales of
+    its rows.  A block of 256 that spans the ranks splitting the last dim
+    takes its largest magnitude across them (``all_reduce`` MAX): the same
+    scales, and so the same codes, bit for bit."""
+    import torch.distributed as dist
+    axes, _ = _last_split(like)
+    if not axes:
+        return _q8(x)
+    blk = _block_index(x, like)
+    nb = -(-like.shape[-1] // _BLOCK)
+    amax = torch.zeros(*x.shape[:-1], nb, dtype=x.dtype, device=x.device)
+    amax.index_reduce_(-1, blk, x.abs(), "amax")
+    for a in axes:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=like.mesh.get_group(a))
+    scale = amax / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / scale[..., blk]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def _dq8_laid(q: torch.Tensor, scale: torch.Tensor, like: Sharded) -> torch.Tensor:
+    if not _last_split(like)[0]:
+        return _dq8(q, scale, q.shape)
+    return q.to(torch.float32) * scale[..., _block_index(q, like)]
+
+
+def _encode_moment(x: torch.Tensor, dtype: str, role: str = "m", like=None):
+    """A float32 moment encoded in ``dtype``; ``like`` (a ``Sharded``
+    parameter) when ``x`` is this rank's block of it."""
     if dtype == "int8":
+        q8 = _q8 if not isinstance(like, Sharded) else (lambda t: _q8_laid(t, like))
         if role == "v":
             # second moment in the sqrt domain: linear int8 on v zeroes small
             # entries and the Adam denominator explodes
-            return _q8(torch.sqrt(torch.clamp(x, min=0.0)))
-        return _q8(x)
+            return q8(torch.sqrt(torch.clamp(x, min=0.0)))
+        return q8(x)
     return x.to(getattr(torch, dtype))
 
 
-def _decode_moment(m, shape, dtype: str, role: str = "m") -> torch.Tensor:
+def _decode_moment(m, shape, dtype: str, role: str = "m", like=None) -> torch.Tensor:
     if dtype == "int8":
-        q, s = m
-        u = _dq8(q, s, shape)
+        q, s = (local_of(t) for t in m)
+        if isinstance(like, Sharded):
+            dq = lambda codes: _dq8_laid(codes, s, like)
+        else:
+            dq = lambda codes: _dq8(codes, s, shape)
+        u = dq(q)
         if role == "v":
             # floor by one quantization step: bounds the update of entries
             # whose sqrt(v) rounded to zero
-            u = torch.maximum(u, _dq8(torch.ones_like(q), s, shape))
+            u = torch.maximum(u, dq(torch.ones_like(q)))
             return u * u
         return u
-    return m.to(torch.float32)
+    return local_of(m).to(torch.float32)
 
 
 def _store(dst, new) -> None:
     """Write an encoded moment (a tensor or a (codes, scales) pair) in place."""
     for d, n in zip(dst if isinstance(dst, tuple) else (dst,),
                     new if isinstance(new, tuple) else (new,)):
-        d.copy_(n)
+        local_of(d).copy_(n)
+
+
+def _laid_like(p, enc):
+    """An encoded moment of ``p``'s block laid out as ``p``: its codes as
+    the parameter, the scales of an int8 pair with the last dim whole."""
+    if not isinstance(p, Sharded):
+        return enc
+    if not isinstance(enc, tuple):
+        return p.like(enc)
+    q, s = enc
+    return (p.like(q), Sharded(s, p.spec[:-1] + (None,),
+                               tuple(p.shape[:-1]) + (-(-p.shape[-1] // _BLOCK),), p.mesh))
 
 
 # -- init / update ------------------------------------------------------------
 def adamw_init(params: Any, cfg: AdamWConfig) -> Dict[str, Any]:
+    """Zero moments and (where a parameter is narrower than
+    ``master_dtype``) float32 masters, each laid out as its parameter."""
     def moment(role):
-        return tree_map(lambda p: _encode_moment(
-            torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-            cfg.moments_dtype, role), params)
+        return tree_map(lambda p: _laid_like(p, _encode_moment(
+            torch.zeros(local_of(p).shape, dtype=torch.float32, device=p.device),
+            cfg.moments_dtype, role, like=p)), params)
 
     device = leaves(params)[0].device
     state: Dict[str, Any] = {"step": torch.zeros((), dtype=torch.int32, device=device),
                              "m": moment("m"), "v": moment("v")}
     master = getattr(torch, cfg.master_dtype) if cfg.master_dtype else None
     if master is not None and any(p.dtype != master for p in leaves(params)):
-        state["master"] = tree_map(lambda p: p.detach().to(master, copy=True), params)
+        state["master"] = tree_map(lambda p: _laid_like(
+            p, local_of(p).detach().to(master, copy=True)), params)
     return state
 
 
@@ -135,9 +213,26 @@ def _stacked_ndims(tree: Any, extra: int = 0) -> list:
     return [tree.ndim + extra]
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+def global_norm(tree: Any, like: Any = None) -> torch.Tensor:
+    """The L2 norm of every element of ``tree``.  With ``like`` (the
+    parameters ``tree``'s leaves are the blocks of), a leaf laid out split
+    has its sum of squares summed over the axes that split it, and any
+    other leaf, whole on every rank, counts once: each element once."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)]
+    if like is not None:
+        import torch.distributed as dist
+        laid = leaves(like)
+        groups: Dict[Tuple[str, ...], list] = {}
+        for i, p in enumerate(laid):
+            if isinstance(p, Sharded) and p.split_axes():
+                groups.setdefault(p.split_axes(), []).append(i)
+        for axes, idx in groups.items():
+            part = torch.stack([sq[i] for i in idx])
+            for a in axes:
+                dist.all_reduce(part, group=laid[idx[0]].mesh.get_group(a))
+            for j, i in enumerate(idx):
+                sq[i] = part[j]
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
@@ -149,7 +244,7 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
     state["step"] += 1
     step = state["step"].to(torch.float32)
     lr = schedule(cfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads, params)
     clip = (torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0) if cfg.grad_clip > 0
             else 1.0)
     b1c = 1.0 - torch.pow(cfg.b1, step)
@@ -162,16 +257,17 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
                                              leaves(grads), m_leaves, v_leaves):
         decay = cfg.weight_decay if ndim >= 2 else 0.0   # no decay on norms
         g32 = g.to(torch.float32) * clip
-        m = _decode_moment(m_enc, p.shape, cfg.moments_dtype, "m")
-        v = _decode_moment(v_enc, p.shape, cfg.moments_dtype, "v")
+        shape = local_of(p).shape
+        m = _decode_moment(m_enc, shape, cfg.moments_dtype, "m", like=p)
+        v = _decode_moment(v_enc, shape, cfg.moments_dtype, "v", like=p)
         m = cfg.b1 * m + (1 - cfg.b1) * g32
         v = cfg.b2 * v + (1 - cfg.b2) * g32 * g32
         upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        w = mst.to(torch.float32)
+        w = local_of(mst).to(torch.float32)
         w = w - lr * (upd + decay * w)
         if mst is not p:
-            mst.copy_(w)
-        p.copy_(w)
-        _store(m_enc, _encode_moment(m, cfg.moments_dtype, "m"))
-        _store(v_enc, _encode_moment(v, cfg.moments_dtype, "v"))
+            local_of(mst).copy_(w)
+        local_of(p).copy_(w)
+        _store(m_enc, _encode_moment(m, cfg.moments_dtype, "m", like=p))
+        _store(v_enc, _encode_moment(v, cfg.moments_dtype, "v", like=p))
     return params, state, {"grad_norm": gn, "lr": lr}

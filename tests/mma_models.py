@@ -1,4 +1,4 @@
-"""The arithmetic of the tensor-core kernels (csrc/epitome_mma.cuh,
+"""Shared CPU models of the arithmetic of the tensor-core kernels (csrc/epitome_mma.cuh,
 csrc/epitome_fp_mma.cuh and csrc/wkv6.cu), modelled in plain torch on the CPU.
 
 The int8 kernels take (s, z) out of the product: per pack block b and output
@@ -29,12 +29,13 @@ pairwise tree over the states whatever the lanes a channel is split over;
 the model reads the kernel's log2(e) from its source, bounds the exponent
 path against float64 and holds itself to ``ref.mamba_scan_ref`` at the fp32
 gate.  Inputs are drawn with numpy from a seed; nothing here
-needs a card."""
+needs a card.  The tests are ``tests/test_torch_mma_*.py``, a file a
+kernel (and, where one would outlast a quarter of the suite's time, a
+file a part of it)."""
 import re
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 import torch.nn.functional as F
 
@@ -101,79 +102,6 @@ def _over(y, r, tol):
     return bool(((y - r).abs() > tol + tol * r.abs()).any())
 
 
-@pytest.mark.parametrize("args,T", CASES)
-def test_hi_lo_passes_hold_the_fp32_gate(args, T):
-    spec, x, p, cb = _case(args, T)
-    y = mma_model(_hi_fp16_lo(x), p.q, p.scales, p.zeros, cb, p.bk, p.bn)
-    r = ref.quant_epitome_matmul_blocks_ref(x, p.q, p.scales, p.zeros, cb, p.bk, p.bn)
-    torch.testing.assert_close(y, r, rtol=FP32, atol=FP32)
-
-
-@pytest.mark.parametrize("args,T", CASES)
-def test_bf16_activation_is_one_exact_pass(args, T):
-    """A bf16 activation is exact in bf16: one pass, within the fp32 gate of
-    the float32 product of the same values, and within the bf16 gate once
-    both round to bf16."""
-    spec, x, p, cb = _case(args, T)
-    xb = x.bfloat16()
-    y = mma_model([xb.float()], p.q, p.scales, p.zeros, cb, p.bk, p.bn)
-    r32 = ref.quant_epitome_matmul_blocks_ref(xb.float(), p.q, p.scales, p.zeros, cb,
-                                              p.bk, p.bn)
-    torch.testing.assert_close(y, r32, rtol=FP32, atol=FP32)
-    rb = ref.quant_epitome_matmul_blocks_ref(xb, p.q, p.scales, p.zeros, cb, p.bk, p.bn)
-    torch.testing.assert_close(y.bfloat16().float(), rb.float(), rtol=BF16, atol=BF16)
-
-
-@pytest.mark.parametrize("args,T", CASES)
-def test_fp16_lo_split_near_float32_against_float64(args, T):
-    """The float32 entries' split leaves under 2^-20 |x| of x out, so their
-    sum is about as close to the float64 one as the plain float32 version
-    (within 2.5x; 1.0-1.8x at these shapes), where hi + lo in two bf16
-    (2^-17 |x|) is over 5x away at every shape: its error grows through
-    ResNet-50's 53 layers to most of chip_smoke.py's card-vs-CPU logits
-    gate."""
-    spec, x, p, cb = _case(args, T)
-    args_ = (p.q, p.scales, p.zeros, cb, p.bk, p.bn)
-    y64 = mma_model([x], *args_, dtype=torch.float64)
-    err = lambda y: float(((y.double() - y64).abs() / (1 + y64.abs())).max())
-    plain = err(ref.quant_epitome_matmul_blocks_ref(x, *args_))
-    assert err(mma_model(_hi_fp16_lo(x), *args_)) <= 2.5 * plain
-    assert err(mma_model(_hi_lo(x), *args_)) > 5 * plain
-
-
-def test_one_bf16_pass_misses_the_fp32_gate():
-    """Why a float32 activation takes more than one pass: rounded once to
-    bf16 it falls outside 2e-4 at the LM's and ResNet's shapes, where the
-    hi + lo split holds."""
-    missed = []
-    for args, T in CASES:
-        spec, x, p, cb = _case(args, T)
-        r = ref.quant_epitome_matmul_blocks_ref(x, p.q, p.scales, p.zeros, cb, p.bk, p.bn)
-        one = mma_model([x.bfloat16().float()], p.q, p.scales, p.zeros, cb, p.bk, p.bn)
-        missed.append(_over(one, r, FP32))
-    assert any(missed), "one bf16 pass held the fp32 gate everywhere"
-
-
-@pytest.mark.parametrize("bits", [3, 8])
-@pytest.mark.parametrize("bk", [8, 16, 32, 64, 128, 256])
-def test_every_pack_block_and_a_ragged_m(bk, bits):
-    """Every pack bk that pack_blocks makes, with a prime m (a ragged last
-    pack block) and 8-bit codes, through the factored sum of the kernels'
-    hi + lo split."""
-    args = (512, 512, 251, 256, 128, 256)
-    spec = EpitomeSpec(*args)
-    rng = np.random.default_rng(bk + bits)
-    E = torch.from_numpy((rng.standard_normal((spec.m, spec.n)) / np.sqrt(spec.M))
-                         .astype(np.float32))
-    x = torch.from_numpy(rng.standard_normal((9, spec.m)).astype(np.float32))
-    p = ops.pack_epitome(E, spec, QuantConfig(bits=bits), blocks=(8, bk, spec.bn))
-    assert p.bk == bk
-    cb = torch.as_tensor(ops.kernel_col_blocks(spec, p.bn))
-    y = mma_model(_hi_fp16_lo(x), p.q, p.scales, p.zeros, cb, p.bk, p.bn)
-    r = ref.quant_epitome_matmul_blocks_ref(x, p.q, p.scales, p.zeros, cb, p.bk, p.bn)
-    torch.testing.assert_close(y, r, rtol=FP32, atol=FP32)
-
-
 def table_fold(x, spec):
     """Kernel #2's fold: each epitome row starts at +0 and adds, in the
     table's ascending order, the virtual rows that sample it; a padded entry
@@ -185,77 +113,6 @@ def table_fold(x, spec):
         folded = folded + xp[:, table[:, c]]
     return folded
 
-
-@pytest.mark.parametrize("args", RESNET_SPECS + [
-    (2304, 256, 256, 256, 128, 256),    # 17 virtual rows into one epitome row
-    (4200, 128, 64, 128, 4, 128),       # gm = 1050 row blocks
-    (512, 512, 251, 256, 128, 256),     # prime m
-])
-def test_table_fold_equals_fold_blocks_ref_bit_for_bit(args):
-    spec = EpitomeSpec(*args)
-    x = torch.from_numpy(np.random.default_rng(1).standard_normal((7, spec.M))
-                         .astype(np.float32))
-    assert torch.equal(table_fold(x, spec),
-                       ref.fold_blocks_ref(x, spec.row_offsets(), spec.bm, spec.m))
-
-
-def test_fold_table_on_device_is_the_kernels_layout():
-    """SpecTables.fold, what the wrapper hands kernel #2, is the (m, c)
-    inverse table column by column: entry c*m + k is row k's c-th virtual
-    row."""
-    spec = EpitomeSpec(1152, 128, 288, 128, 256, 128)
-    flat = ops.spec_tables(spec, spec.bn, torch.device("cpu")).fold
-    table = ops.fold_table(spec)
-    assert flat.dtype == torch.int64 and flat.numel() == table.size
-    np.testing.assert_array_equal(flat.reshape(-1, spec.m).T.numpy(), table)
-
-
-@pytest.mark.parametrize("args,T,rows", [
-    ((1024, 16, 256), 4, 64),       # rwkv6-7b (1024, 4096): 128-row splits give 256 < 264 blocks
-    ((1024, 56, 256), 4, 128),      # (1024, 14336): 8 splits x 112 tiles
-    ((3584, 16, 256), 4, 128),      # (3584, 4096): 28 splits x 32 tiles
-    ((2000, 4, 256), 32, 128),      # ResNet-50 fc at batch 32: T > 8 takes 128 rows
-    ((1024, 16, 256), 33, 512),     # past the cut-over: tensor cores, 32 tiles, 2 splits
-    ((1024, 16, 256), 1024, 0),     # prefill rows: 256 tiles fill the card
-    ((2304, 2, 256), 1568, 576),    # ResNet-50 layer4 3x3: 52 tiles, 4 splits of 18 steps
-    ((576, 1, 256), 6272, 0),       # 98 tiles but 18 steps: too short to split
-])
-def test_split_rows_picks(args, T, rows):
-    """The wrapper's split-K picks (kernel #1): the decode loop takes two
-    waves of 132 SMs where it can; the tensor-core loop splits only few
-    tiles with a long contraction."""
-    from repro_torch.kernels.quant_epitome_matmul import DECODE_ROWS, split_rows
-    m, gn, bn = args
-    got = split_rows(T, m, gn, bn)
-    assert got == rows
-    if T <= DECODE_ROWS:
-        assert got in (64, 128)
-        if got == 64:
-            assert -(-m // 128) * gn * -(-bn // 128) < 2 * 132
-    elif got:
-        assert got % 32 == 0 and got // 32 >= 16
-    assert split_rows(T, m, gn, bn, decode=False) % 32 == 0
-
-
-
-@pytest.mark.parametrize("args,T,rows", [
-    ((2000, 4, 256), 32, 128),      # ResNet-50 fc at batch 32: 8 tiles, 16 splits of 4 steps
-    ((1024, 16, 256), 4, 256),      # rwkv6-7b (1024, 4096): 32 tiles, 4 splits
-    ((3584, 16, 256), 4, 896),      # (3584, 4096): 32 tiles, 4 splits of 28 steps
-    ((1024, 56, 256), 4, 0),        # (1024, 14336): 112 tiles, a wave already
-    ((2000, 4, 256), 33, 672),      # past the cut-over: 3 splits of 21 steps (16 at least)
-])
-def test_split_rows_of_the_tensor_core_loop_at_decode_rows(args, T, rows):
-    """Kernels #2 and #3 run the tensor-core loop at every T; at T <= 32
-    their one row tile is mostly masked, so they split into one wave of
-    blocks however short each split (measured on the card against 2-4
-    splits of 16 steps: ResNet-50's fc 0.053 -> 0.019 ms)."""
-    from repro_torch.kernels.quant_epitome_matmul import split_rows
-    m, gn, bn = args
-    got = split_rows(T, m, gn, bn, decode=False)
-    assert got == rows
-    if got:
-        assert got % 32 == 0 and -(-m // got) * gn * -(-bn // 128) <= 132
 
 # -- kernel #3: 3xTF32 -----------------------------------------------------------
 # ResNet-50's 16 CR-4 kernel shapes (M, N, m, n, bm, bn)
@@ -302,45 +159,6 @@ def _fp_case(args, T=64):
                          .astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((T, spec.M)).astype(np.float32))
     return spec, E, ops.fold_rows(x, spec), torch.as_tensor(ops.kernel_col_blocks(spec, spec.bn))
-
-
-def test_resnet_cr4_shapes_are_the_paths():
-    from repro_torch.configs import get_resnet
-    r50 = get_resnet("resnet50", "kernel")
-    shapes = []
-    for spec in r50.specs:
-        if spec is not None and (spec.M, spec.N, spec.m, spec.n, spec.bm, spec.bn) not in shapes:
-            shapes.append((spec.M, spec.N, spec.m, spec.n, spec.bm, spec.bn))
-    assert shapes == RESNET_CR4
-
-
-@pytest.mark.parametrize("args", RESNET_CR4)
-def test_three_tf32_passes_hold_the_fp32_gate(args):
-    spec, E, folded, cb = _fp_case(args)
-    y = tf32_model(folded, E, cb, spec.bn)
-    torch.testing.assert_close(y, ref.epitome_matmul_blocks_ref(folded, E, cb, spec.bn),
-                               rtol=FP32, atol=FP32)
-
-
-def test_one_tf32_pass_misses_the_fp32_gate():
-    """Why kernel #3's float32 entry takes three TF32 products: one TF32
-    pass (10-bit operands) falls outside 2e-4 at every CR-4 shape."""
-    for args in RESNET_CR4:
-        spec, E, folded, cb = _fp_case(args, T=16)
-        r = ref.epitome_matmul_blocks_ref(folded, E, cb, spec.bn)
-        assert _over(tf32_model(folded, E, cb, spec.bn, passes=1), r, FP32), args
-
-
-@pytest.mark.parametrize("args", RESNET_CR4)
-def test_three_tf32_near_float32_against_float64(args):
-    """What 3xTF32 drops (x_lo E_lo, and lo's own rounding: about 2^-21 of
-    each product) keeps it within 2.5x of the plain float32 product's
-    distance from float64 (0.5-1.8x at these shapes)."""
-    spec, E, folded, cb = _fp_case(args)
-    r64 = ref.epitome_matmul_blocks_ref(folded.double(), E.double(), cb, spec.bn)
-    err = lambda y: float(((y.double() - r64).abs() / (1 + r64.abs())).max())
-    plain = err(ref.epitome_matmul_blocks_ref(folded, E, cb, spec.bn))
-    assert err(tf32_model(folded, E, cb, spec.bn)) <= 2.5 * plain
 
 
 # -- kernel #5: kernel #1's loop with no column table -----------------------------
@@ -406,31 +224,6 @@ def decode_model(x, q, s, z, rows=128, pairwise=True):
 def _gate(y, y64):
     """The reference tolerance against float64: |y - y64| <= 2e-4 + 2e-4 |y64|."""
     return bool(((y.double() - y64).abs() <= FP32 + FP32 * y64.abs()).all())
-
-
-@pytest.mark.parametrize("M,N", [(14336, 512), (4096, 1024)])
-def test_quant_matmul_prefill_sum_against_float64(M, N):
-    """Kernel #5 at prefill rows: x as bf16 hi + fp16 lo on the codes, one
-    (s, z) flush per crossbar tile, within the reference tolerance of the
-    float64 product at rwkv6-7b's longest contraction."""
-    x, q, s, z, y64 = _qm_case(M, N, 48)
-    cb = torch.arange(N // 256)
-    y = mma_model(_hi_fp16_lo(x), q, s, z, cb, 256, 256)
-    assert _gate(y, y64)
-    assert _gate(ref.quant_matmul_ref(x, q, s, z), y64)
-
-
-@pytest.mark.parametrize("M,N", [(14336, 512), (4096, 1024)])
-def test_quant_matmul_decode_sum_against_float64(M, N):
-    """Kernel #5 at decode rows (T = 4): the split-K loop's sum within the
-    reference tolerance of the float64 product, the pairwise lanes and
-    splits closer to it than sums in order (112 splits at M = 14336)."""
-    x, q, s, z, y64 = _qm_case(M, N, 4, seed=1)
-    pair = decode_model(x, q, s, z)
-    chain = decode_model(x, q, s, z, pairwise=False)
-    assert _gate(pair, y64) and _gate(chain, y64)
-    rms = lambda y: float((y - y64).pow(2).mean().sqrt())
-    assert rms(pair) < rms(chain)
 
 
 # -- kernel #4: the chunked WKV on TF32 tensor cores ------------------------------
@@ -536,42 +329,6 @@ def _wkv_case(B, S, H, K, bf16=False, logw=None, seed=0):
 
 def _within(y, ref, tol=WKV):
     return bool(torch.isfinite(y).all()) and not _over(y, ref, tol)
-
-
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("B,S,H,K,chunk", WKV_CASES)
-def test_wkv6_tensor_core_model_holds_the_gate(B, S, H, K, chunk, bf16):
-    """The sub-chunk factored decays and three TF32 passes, from a state,
-    within the WKV gate of the plain version and of the JAX reference's
-    ``ssm.rwkv_chunked``."""
-    import jax.numpy as jnp
-    from repro.models import ssm as jssm
-    args = _wkv_case(B, S, H, K, bf16)
-    o, hT = wkv6_mma_model(*args, chunk=chunk)
-    o_ref, h_ref = ref.wkv6_chunked_ref(*args, chunk=chunk)
-    jo, jh = jssm.rwkv_chunked(*(jnp.asarray(t.numpy()) for t in args), chunk=chunk)
-    for y, r in ((o, o_ref), (hT, h_ref), (o, torch.from_numpy(np.array(jo))),
-                 (hT, torch.from_numpy(np.array(jh)))):
-        assert _within(y, r)
-
-
-def test_wkv6_model_under_strong_decay_stays_finite_and_within_the_gate():
-    """log w = -20: a factor exp(c - cs) over up to 63 tokens underflows
-    (exp(-1260)), and drops only terms below 1e-38."""
-    args = _wkv_case(1, 128, 2, 64, logw=-20.0)
-    o, hT = wkv6_mma_model(*args)
-    o_ref, h_ref = ref.wkv6_chunked_ref(*args)
-    assert _within(o, o_ref) and _within(hT, h_ref)
-
-
-def test_one_tf32_pass_misses_the_wkv_gate():
-    """Why each of kernel #4's products takes three TF32 passes (two with
-    bf16 v, whose lo is 0): one pass (hi hi alone) falls outside 1e-3 at
-    rwkv6-7b's head, whether r, k, v are float32 or bf16."""
-    for bf16 in (False, True):
-        args = _wkv_case(1, 256, 2, 64, bf16)
-        o, _ = wkv6_mma_model(*args, passes=1)
-        assert _over(o, ref.wkv6_chunked_ref(*args)[0], WKV)
 
 
 # -- kernel #4's gradient: the chunked WKV backward (csrc/wkv6_bwd.cu) -----------
@@ -767,42 +524,6 @@ def _jax_wkv_grads(r, k, v, lw, u, h0, do, dhT, chunk):
     return [torch.from_numpy(np.array(g)) for g in grads]
 
 
-@pytest.mark.parametrize("state", [True, False])
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("B,S,H,K,chunk", WKV_CASES)
-def test_wkv6_bwd_tensor_core_model_holds_the_gate(B, S, H, K, chunk, bf16, state):
-    """The backward kernel's chunked arithmetic (64-token chunks, factored
-    decays, three TF32 passes, dlogw by one scan), with h0 and dhT or
-    neither, within the WKV gate of the plain token-form gradient and of
-    jax.grad of the reference's ``ssm.rwkv_chunked``."""
-    args = _wkv_bwd_case(B, S, H, K, bf16, state)
-    got = wkv6_bwd_mma_model(*args)
-    for want in (ref.wkv6_chunked_bwd_ref(*args), _jax_wkv_grads(*args, chunk=chunk)):
-        for name, y, r in zip(("dr", "dk", "dv", "dlogw", "du", "dh0"), got, want):
-            assert y.shape == r.shape and _within(y, r), name
-
-
-@pytest.mark.parametrize("bf16", [False, True])
-def test_wkv6_bwd_model_under_strong_decay_stays_finite_and_within_the_gate(bf16):
-    """log w = -20: every factor the model takes is exp of a non-positive
-    exponent, so nothing overflows; the factors that underflow drop terms
-    below 1e-38."""
-    args = _wkv_bwd_case(1, 128, 2, 64, bf16, logw=-20.0)
-    for y, r in zip(wkv6_bwd_mma_model(*args), ref.wkv6_chunked_bwd_ref(*args)):
-        assert _within(y, r)
-
-
-def test_one_tf32_pass_misses_the_wkv_gate_backward():
-    """As for kernel #4: one TF32 pass (hi hi alone) in the backward's
-    products falls outside 1e-3 at rwkv6-7b's head (7-38x the gate,
-    dlogw the furthest), float32 or bf16 r, k, v."""
-    for bf16 in (False, True):
-        args = _wkv_bwd_case(1, 256, 2, 64, bf16)
-        got = wkv6_bwd_mma_model(*args, passes=1)
-        want = ref.wkv6_chunked_bwd_ref(*args)
-        assert all(_over(y, r, WKV) for y, r in zip(got[:4], want[:4]))
-
-
 # -- Mamba's selective scan (csrc/mamba_scan.cu) ---------------------------------
 SCAN_SRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/mamba_scan.cu"
 # log2(e) as the kernel rounds it to float32, read from its source
@@ -875,53 +596,3 @@ def _scan_case(B, S, di, ds, state=True, seed=0):
     A = -torch.exp(f(di, ds) * 0.5)
     return (dt, f(B, S, di), f(B, S, ds).bfloat16().float(), f(B, S, ds).bfloat16().float(),
             A, f(di), f(B, di, ds) if state else None)
-
-
-def test_scan_exponent_path_is_one_at_dt0_and_near_exp():
-    """2^(dt fl(A log2 e)) is exactly 1 at dt = +-0 (the identity the
-    engine's pads rely on) and, over dt and A of the LM's ranges (dt to
-    20, |A| to 30, exponents down to -600), within SCAN_EX2_ERR plus the
-    one rounding of A2 (|dt A| 2^-24) and of dt A2 (2^-24 |dt A|) of
-    float64's exp(dt A)."""
-    rng = np.random.default_rng(3)
-    A = torch.from_numpy(-np.exp(rng.uniform(-4.0, np.log(30.0), 4096)).astype(np.float32))
-    dt = torch.from_numpy(np.exp(rng.uniform(-12.0, np.log(20.0), 4096)).astype(np.float32))
-    A2 = A * SCAN_LOG2E
-    for zero in (0.0, -0.0):
-        assert bool((scan_exp2(torch.full_like(A2, zero) * A2) == 1.0).all())
-    got = scan_exp2(dt * A2).double()
-    z = dt.double() * A.double()
-    want = torch.exp(z)
-    normal = want > 2.0 ** -125
-    tol = SCAN_EX2_ERR + 2 * z.abs() * 2.0 ** -24 + 2.0 ** -24
-    assert bool(((got - want).abs() <= tol * want)[normal].all())
-    assert bool((got[~normal] <= 2.0 ** -124).all())
-
-
-def test_scan_model_tree_gives_the_same_bits_on_1_2_and_4_lanes():
-    """The pairwise tree over the 16 states, split over 1, 2 or 4 lanes,
-    is one tree: the same y and hT bits."""
-    args = _scan_case(2, 24, 40, 16)
-    y1, h1 = mamba_scan_model(*args, lanes=1)
-    for lanes in (2, 4):
-        y, h = mamba_scan_model(*args, lanes=lanes)
-        assert torch.equal(y, y1) and torch.equal(h, h1)
-
-
-@pytest.mark.parametrize("B,S,di,ds,state", [(2, 40, 300, 16, True), (3, 33, 100, 4, True),
-                                             (2, 20, 64, 16, False), (1, 7, 1000, 4, False)])
-def test_scan_model_holds_the_gate_and_dt0_is_the_identity(B, S, di, ds, state):
-    """Within KERNEL_TOL (2e-4 + 2e-4 |ref|) of ``ref.mamba_scan_ref`` (y
-    and hT), with and without a state, ragged di, ds 4 and 16; and dt = 0
-    on the last 5 tokens leaves hT at the state before them, bit for
-    bit."""
-    args = _scan_case(B, S, di, ds, state)
-    got, want = mamba_scan_model(*args), ref.mamba_scan_ref(*args)
-    for a, b in zip(got, want):
-        assert a.shape == b.shape and _within(a, b, FP32)
-    dt, x, Bm, Cm, A, D, h0 = args
-    tail = dt.clone()
-    tail[:, -5:] = 0.0
-    _, h_tail = mamba_scan_model(tail, x, Bm, Cm, A, D, h0)
-    _, h_before = mamba_scan_model(*(t[:, :-5] for t in (tail, x, Bm, Cm)), A, D, h0)
-    assert torch.equal(h_tail, h_before)

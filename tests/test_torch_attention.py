@@ -22,6 +22,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import common
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -30,6 +30,8 @@ from repro_torch.kernels import autotune, ops
 from repro_torch.pim import plan as tplan
 from repro_torch.pim.evo import EvoConfig
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 SPEC = EpitomeSpec(M=128, N=128, m=64, n=128, bm=32, bn=64)   # aligned
 CPU = torch.device("cpu")
 TINY = "tiny-resnet"

@@ -32,6 +32,8 @@ from repro_torch.pim.plan import (auto_plan, inventory_for, legalize_plan, legal
                                   search_plan, simulator_for, validate_plan_dict)
 from repro_torch.pim.tables import TINY_CALIBRATION
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 ARCH = "tiny-resnet"
 EVO = EvoConfig(population=8, iterations=3, seed=0)
 

@@ -21,6 +21,8 @@ from repro_torch.kernels.quant_epitome_matmul import (
     quant_epitome_matmul_blocks, quant_epitome_matmul_fused_fold)
 from repro_torch.kernels.wkv6 import wkv6_chunked
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=2e-4, atol=2e-4)        # fp32, tests/test_kernels.py:17-18
@@ -1197,3 +1199,92 @@ def test_moe_dispatch_over_nccl_matches_dense(cuda_device):
     finally:
         tmesh.destroy_world()
     assert float((y_disp - y_dense).abs().max()) <= 1e-4 * float(y_dense.abs().max())
+
+
+# -- training on a (1, 1) NCCL mesh ----------------------------------------------------
+def _mesh_train_setup():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import loop, optimizer
+    from repro_torch.train.data import SyntheticData
+    cfg = get_smoke_config("rwkv6-7b", "folded-q3")
+    opt = optimizer.AdamWConfig(lr=1e-2, warmup_steps=0, moments_dtype="int8")
+    tc = loop.TrainConfig(grad_accum=2, compress_grads=True)
+    return cfg, opt, tc, SyntheticData(cfg.vocab, 80, 4, seed=1)
+
+
+def test_smoke_train_step_on_a_one_card_mesh_bit_identical(cuda_device):
+    """A train step of the rwkv6-7b smoke config (folded-q3, bf16, int8
+    moments, compressed gradients, 2 microbatches) on a (1, 1) NCCL mesh,
+    the state laid out by ``init_state(mesh=)``: the loss, every gradient
+    and the new state bit for bit against no mesh, with as many launches of
+    kernels #4 and #4b."""
+    from repro_torch.core.layers import Sharded, unshard
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.common import set_mesh
+    from repro_torch.train import loop
+    from repro_torch.train.tree import leaves
+    cfg, opt, tc, data = _mesh_train_setup()
+    batch = {k: v.to(cuda_device) for k, v in data.batch(0).items()}
+
+    def step(mesh=None):
+        st = loop.init_state(torch.Generator(cuda_device).manual_seed(0), cfg, opt, tc,
+                             cuda_device, mesh=mesh)
+        reset_launch_counts()
+        loss, grads = loop.loss_and_grads(st["params"], batch, cfg, tc)
+        counts = dict(launch_counts())
+        loop.apply_grads(st, grads, opt, tc)
+        return loss, leaves(grads), [unshard(t) for t in leaves(st)], counts, st
+
+    ref = step()
+    try:
+        mesh = tmesh.make_host_mesh(1, 1, cuda_device)
+        assert torch.distributed.get_backend() == "nccl"
+        set_mesh(mesh)
+        got = step(mesh)
+        assert isinstance(got[4]["params"]["embed"], Sharded)
+    finally:
+        tmesh.destroy_world()
+    assert torch.equal(ref[0], got[0])
+    assert all(torch.equal(a, b) for a, b in zip(ref[1], got[1]))
+    assert all(torch.equal(a, b) for a, b in zip(ref[2], got[2]))
+    assert got[3] == ref[3] and ref[3]["wkv6_chunked"] == 2 * 2 * cfg.n_layers
+    assert ref[3]["wkv6_chunked_bwd"] == 2 * cfg.n_layers
+
+
+def test_restore_with_shardings_on_a_one_card_mesh(cuda_device, tmp_path):
+    """A mesh run's checkpoint (async, step 2) restored with
+    ``shardings=loop.state_specs`` into a fresh state on the (1, 1) NCCL
+    mesh, and into one with no mesh: both take steps 2-3 to the straight
+    run's state bit for bit."""
+    from repro_torch.core.layers import unshard
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.common import set_mesh
+    from repro_torch.train import loop
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.tree import leaves
+    cfg, opt, tc, data = _mesh_train_setup()
+    tc = loop.TrainConfig(grad_accum=2, compress_grads=True, checkpoint_every=2)
+    step = loop.make_train_step(cfg, opt, tc)
+    quiet = lambda *a: None
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"), keep=1)
+    fresh = lambda mesh: loop.init_state(torch.Generator(cuda_device).manual_seed(1), cfg,
+                                         opt, tc, cuda_device, mesh=mesh)
+    try:
+        mesh = tmesh.make_host_mesh(1, 1, cuda_device)
+        set_mesh(mesh)
+        st = loop.init_state(torch.Generator(cuda_device).manual_seed(0), cfg, opt, tc,
+                             cuda_device, mesh=mesh)
+        st, _ = loop.train_loop(st, step, data, 2, ckpt=ckpt, train_cfg=tc, log=quiet)
+        st, rest = loop.train_loop(st, step, data, 4, train_cfg=tc, log=quiet)
+        straight = [unshard(t).clone() for t in leaves(st)]
+        target = fresh(mesh)
+        at, restored = ckpt.restore(target, shardings=loop.state_specs(cfg, target))
+        restored, again = loop.train_loop(restored, step, data, 4, train_cfg=tc, log=quiet)
+        on_mesh = [unshard(t) for t in leaves(restored)]
+    finally:
+        tmesh.destroy_world()
+    _, one = ckpt.restore(fresh(None))
+    one, again_one = loop.train_loop(one, step, data, 4, train_cfg=tc, log=quiet)
+    assert at == 2 and again["loss"] == rest["loss"] == again_one["loss"]
+    assert all(torch.equal(a, b) for a, b in zip(straight, on_mesh))
+    assert all(torch.equal(a, b) for a, b in zip(straight, leaves(one)))

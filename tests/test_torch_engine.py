@@ -35,6 +35,8 @@ from repro_torch.launch.engine import (Completion, EngineConfig, EpimEngine, Req
                                        RequestHandle)
 from repro_torch.models import lm
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 F32_TOL = 1e-4          # tests/test_torch_lm.py: float32 logits against the reference
 # per arch: (KV rows of a slot, prefill chunk, requests (prompt length,
 # max_new_tokens, temperature)); rwkv6-7b's chunk is its 64-token window, so

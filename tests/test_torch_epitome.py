@@ -15,6 +15,8 @@ from repro_torch.core import epitome as tep
 from repro_torch.pim import plan as tplan
 from repro_torch.pim import workloads as twl
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 # (M, N, m, n, bm, bn): aligned, wrapped, ragged virtual edges, ragged and
 # prime m, spread (overlapping) offsets on both axes
 SPECS = [

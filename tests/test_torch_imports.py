@@ -6,6 +6,8 @@ from pathlib import Path
 
 import pytest
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}

@@ -20,6 +20,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.models import lm
 from repro_torch.models.kv_pool import (PageSpec, SlotStatePool, gather_slot,
                                         paged_leaf_paths)
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
 
 # phi3.5-moe: attention with the MoE FFN, whose layers carry no state but K/V;
 # jamba: Mamba layers (dense conv and h rows) beside one attention layer a

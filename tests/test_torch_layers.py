@@ -14,6 +14,8 @@ from repro_torch.core import layers as tl
 from repro_torch.core.epitome import EpitomeSpec as TSpec
 from repro_torch.core.quant import QuantConfig as TQ
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 KH, KW, CIN, COUT = 3, 3, 16, 32

@@ -36,6 +36,8 @@ from repro_torch.models.config import EpitomeSettings
 from repro_torch.pim import plan as tplan
 from repro_torch.pim import workloads as tworkloads
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 # float32: the reference's fp32 kernel tolerance (tests/test_kernels.py:17-18)
 # taken relative to the logits' scale; measured ~3e-6 on logits of ~2.5.
 F32_TOL = 1e-4

@@ -37,6 +37,8 @@ from repro_torch.pim.workloads import lm_layers
 from repro_torch.train import loop
 from repro_torch.train.tree import leaves
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 ARCH = "jamba-1.5-large-398b"
 F32_TOL = 1e-4              # tests/test_torch_lm.py
 BF16_TOL = 5e-2             # tests/test_torch_lm.py

@@ -27,6 +27,8 @@ from jax.sharding import AbstractMesh, PartitionSpec as P  # noqa: E402
 from repro.core import layers as rl  # noqa: E402
 from repro.core.placement import LayerPlacement as RLayerPlacement  # noqa: E402
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 ARCHS = ("rwkv6-7b", "qwen2-72b", "phi3.5-moe-42b-a6.6b")
 
 

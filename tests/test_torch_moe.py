@@ -21,6 +21,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.models import moe
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "grok-1-314b")
 T = 24                       # tokens: 2 rows of 12
 

@@ -23,6 +23,8 @@ from repro_torch.kernels.epitome_matmul import epitome_matmul_blocks
 from repro_torch.kernels.quant_epitome_matmul import (
     quant_epitome_matmul_blocks, quant_epitome_matmul_fused_fold)
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 FP32 = dict(rtol=2e-4, atol=2e-4)       # tests/test_kernels.py:17-18
 BLOCK = dict(rtol=1e-4, atol=1e-4)      # the block contract, tests/test_kernels.py:182
 
@@ -269,3 +271,28 @@ def test_build_reads_back_the_nvcc_log_of_a_built_library(tmp_path, monkeypatch)
     paths = _build.build_all()
     assert paths == {name: _build._target(name) for name in _build.LIBRARIES}
     assert _build.build_log == {name: f"ptxas info    : {name}\n" for name in _build.LIBRARIES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_kernel_1_rows_do_not_depend_on_the_row_count(dtype):
+    """At rwkv6-7b's (4096, 4096) -> (2048, 4096) spec, rows 0..T-1 of a
+    64-row call of the plain kernel #1 equal a T-row call bit for bit, and
+    so do a rank's T rows from anywhere in the 64 (a data-parallel row
+    split): the plain version sums every row in one fixed order
+    (``ref.ROW_BLOCK``), where one float32 matmul of T rows picked another
+    order for each T (up to 1.7e-6 apart in float32, one bf16 ulp)."""
+    spec = tep.EpitomeSpec(4096, 4096, 2048, 4096, 256, 256)
+    rng = np.random.default_rng(0)
+    E = torch.from_numpy((rng.standard_normal((spec.m, spec.n)) / np.sqrt(spec.M))
+                         .astype(np.float32))
+    p = tops.pack_epitome(E, spec, tq.QuantConfig(bits=3))
+    cb = torch.as_tensor(tops.kernel_col_blocks(spec, p.bn))
+    x = torch.from_numpy(rng.standard_normal((64, spec.m)).astype(np.float32)).to(dtype)
+    run = lambda rows: tref.quant_epitome_matmul_blocks_ref(rows, p.q, p.scales, p.zeros, cb,
+                                                            p.bk, p.bn)
+    whole = run(x)
+    assert whole.dtype == dtype and whole.shape == (64, spec.n)
+    for T in (1, 4, 16, 32, 64):
+        assert torch.equal(run(x[:T]), whole[:T]), T
+        lo = 64 - T - (7 if T < 57 else 0)
+        assert torch.equal(run(x[lo:lo + T]), whole[lo:lo + T]), (T, lo)

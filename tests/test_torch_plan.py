@@ -42,6 +42,8 @@ from repro_torch.pim.costmodel import MeasuredCost, cost_model_for
 from repro_torch.pim.evo import EvoConfig as TEvo
 from repro_torch.pim.simulator import default_calibrated_simulator as tdefault_sim
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 
 @pytest.fixture
 def pallas_compat(monkeypatch):

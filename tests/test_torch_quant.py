@@ -16,6 +16,8 @@ from repro_torch.core import epitome as tep
 from repro_torch.core import quant as tq
 from repro_torch.kernels import ops as tops
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 SPECS = {
     "aligned": (512, 512, 256, 512, 128, 256),
     "wrapped": (512, 768, 256, 256, 128, 256),

@@ -18,6 +18,8 @@ from repro_torch.core.epitome import EpitomeSpec
 from repro_torch.core.quant import QuantConfig, dequantize, quantize_epitome
 from repro_torch.kernels import launch_counts, ops, ref
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 DTYPES = {"float32": (torch.float32, jnp.float32, dict(rtol=2e-4, atol=2e-4)),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, dict(rtol=2e-2, atol=2e-2))}
 

@@ -18,6 +18,8 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import launch_counts
 from repro_torch.models.resnet import module_key
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 
 @pytest.fixture
 def pallas_compat(monkeypatch):

@@ -26,6 +26,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 8
 

@@ -28,6 +28,8 @@ from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import SyntheticData
 from repro_torch.train.tree import leaves, tree_map
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 # float32: the LM parity tolerance (tests/test_torch_lm.py), taken relative
 # to each gradient leaf's own scale; measured 4e-6 of it on these configs
 F32_TOL = 1e-4

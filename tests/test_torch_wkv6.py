@@ -15,6 +15,8 @@ from repro.models import ssm as jssm
 from repro_torch.kernels import launch_counts, ops as tops, ref as tref
 from repro_torch.kernels.wkv6 import wkv6_chunked
 
+from torch_threads import torch_threads  # noqa: F401  (autouse: torch's threads a worker)
+
 TOL = dict(rtol=1e-3, atol=1e-3)
 
 # the reference's own cases (tests/test_kernels.py:67-72), ragged S=50 included
