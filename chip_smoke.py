@@ -6,6 +6,8 @@
     python3 chip_smoke.py --time-mamba-scan TREE   # the selective scan of checkout TREE alone
     python3 chip_smoke.py --time-jamba-engine TREE   # jamba's engine on checkout TREE's port
     python3 chip_smoke.py --time-mesh   # rwkv6-7b, no mesh against a (1, 1) mesh, in turns
+    python3 chip_smoke.py --time-decode TREE   # kernel #1's decode rows of checkout TREE alone
+    python3 chip_smoke.py --time-lm-host TREE   # phase 5's decode steps on checkout TREE's port
 
 Ten main paths, each at the full width of its model:
 
@@ -282,6 +284,23 @@ Phases:
              repro_torch.launch.train`` (NCCL) for 10 steps with a
              checkpoint, then for 14, which restores step 10: two
              processes, run one after the other beside (b).
+18. dry run — (a) kernel #1 through ``ops.quant_epitome_matmul`` at
+             rwkv6-7b's 3 and qwen2-72b's 4 projection specs in bf16: each
+             row of a T-row call against the same row of a 1-row call, bit
+             for bit, for T = 1, 2, 4, 8, 9, 16, 32, 33, 64 (every T <= 32,
+             the decode loop, must match; past it the tensor-core loop's
+             rows are reported), each shape then against its plain version
+             and timed (counted launches); (b) ``launch/dryrun.py``, run in
+             a subprocess on the host from the end of phase 1 (its tensors
+             fake, its world of one), on phase 13's training step and phase
+             5's prefill and decode step: its kernels' launches a step equal
+             those the phases counted, its argument bytes are within 1 % of
+             what the card allocated for the step's inputs, its roofline's
+             bound and three terms (H100 data-sheet constants) are at most
+             the step's measured device-busy time, its useful ratio is at
+             most 1 and its roofline fraction at most 1.05, and its 1- and
+             2-group probes extrapolate to the full trace's counts within
+             0.1 %; the predicted peak beside the measured one.
 
 Any failure exits nonzero.  The line before the last is a JSON object
 listing the kernels; the last line is ``{"ok": true, "device": ...}``.
@@ -306,20 +325,13 @@ from pathlib import Path
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 ROOT = Path(__file__).resolve().parent
 BATCH, IMAGE, SEED = 32, 224, 0
-FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
-BF16_TC_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
-TF32_TC_FLOPS = 495e12      # H100 SXM TF32 tensor cores, dense
 SFU_EXP_S = 132 * 16 * 1.98e9   # H100 SXM exponentials a second: 16 a clock an SM at boost
-# kernels whose operands are int8 codes, exact in bf16: their bound is at the
-# bf16 tensor-core rate (beside the fp32 one, kept for earlier rows); kernel
-# #3 runs fp32 E as 3xTF32 (three TF32 products for each) and bf16 E as one
-# bf16 pass (tc_seconds); kernel #4 (the WKV) runs its four chunk products
-# as 3xTF32 and the rest (exponentials, cumsum, bonus) at the fp32 rate
-TC_KERNELS = ("quant_epitome_matmul_blocks", "quant_epitome_matmul_fused_fold", "quant_matmul")
+# every kernel's bytes and operations, the H100's data-sheet rates and the
+# bound a launch could reach on them are repro_torch.kernels.cost's
+# (``_cost()``): the dry run counts the same work
 FP_KERNEL = "epitome_matmul_blocks"
 WKV = "wkv6_chunked"
 L2_COLD_BYTES = 64 << 20    # code buffers rotated past the 50 MB L2 for cold timings
-HBM_BYTES_S = 3.35e12       # H100 SXM HBM3
 KERNEL_TOL = 2e-4           # |y - ref| <= tol + tol*|ref|, fp32 (tests/test_kernels.py:17-18)
 BF16_TOL = 2e-2             # the same in bf16 (tests/test_kernels.py:17-18)
 WKV_TOL = 1e-3              # the WKV, fp32 (tests/test_kernels.py:85)
@@ -429,6 +441,26 @@ MESH_AB_ROUNDS = 20     # --time-mesh
 MESH_TRAIN_STEPS = 3
 MESH_TRAIN_PATH = f"{TRAIN_ARCH} {TRAIN_VARIANT} train mesh 1,1"
 MESH_CLI_STEPS = (10, 14)
+# phase 18, the dry run held to the card: (a) kernel #1's rows at rwkv6-7b's
+# and qwen2-72b's specs (M, N, m, n, bm, bn; tests/test_torch_cuda.py's
+# LM_SHAPES and QWEN2_SHAPES), bf16, a row of a T-row call against the same
+# row of a 1-row call for each T of ROW_T; (b) launch/dryrun.py's trace of
+# phase 13's step and phase 5's prefill and decode step on a fake world of
+# one, started in a subprocess beside phase 2 (DRYRUN_TIMEOUT seconds)
+ROW_T = (1, 2, 4, 8, 9, 16, 32, 33, 64)
+ROW_SPECS = (("rwkv6-7b", (4096, 4096, 1024, 4096, 256, 256)),
+             ("rwkv6-7b", (4096, 14336, 1024, 14336, 256, 256)),
+             ("rwkv6-7b", (14336, 4096, 3584, 4096, 256, 256)),
+             ("qwen2-72b", (8192, 8192, 2048, 8192, 256, 256)),
+             ("qwen2-72b", (8192, 1024, 8192, 256, 256, 256)),
+             ("qwen2-72b", (8192, 29568, 8192, 256, 256, 256)),
+             ("qwen2-72b", (29568, 8192, 7392, 8192, 256, 256)))
+DECODE_TIMED_T = (1, 4, 8, 16, 32)      # --time-decode
+DRYRUN_TIMEOUT = 900
+ARG_TOL = 0.01          # the dry run's argument bytes against the card's allocation
+PROBE_TOL = 1e-3        # the dry run's probes against its full trace
+SHARE_MAX = 1.05        # a roofline fraction past this is an impossible reading
+LM_HOST_STEPS = 20      # --time-lm-host: decode steps timed a run
 KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "quant_epitome_matmul_blocks": (
         "src/repro_torch/kernels/csrc/quant_epitome_matmul.cu",
@@ -468,6 +500,14 @@ def log(*a):
     line = " ".join(str(x) for x in a)
     tag = next((t for t in _RETAG if line.startswith(t)), None)
     print(line if tag is None else _RETAG[tag] + line[len(tag):], flush=True)
+
+
+def _cost():
+    """``repro_torch.kernels.cost`` (the port's ``src`` is on the path by
+    the time a phase runs): each kernel's bytes and operations, the card's
+    data-sheet rates and the bounds on them."""
+    from repro_torch.kernels import cost
+    return cost
 
 
 def card_line() -> str:
@@ -591,6 +631,9 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 report["ptxas"].append(f"{name}: {line.strip()}")
                 log(f"[build] {name}: {line.strip()}")
+
+    # the dry run of phase 18 (b), on the host beside the card's phases
+    dry = start_dryrun()
 
     # -- the ResNet path's kernel shapes -----------------------------------
     r50 = get_resnet("resnet50", "kernel-q3")
@@ -776,6 +819,14 @@ def main() -> int:
     launches[WKV] += mtrain_report["launches"][WKV]
     launches[WKV_BWD] += mtrain_report["launches"][WKV_BWD]
 
+    # -- 18. the dry run against phases 5 and 13; kernel #1's rows against T ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_rows, dry_report = dryrun_phase(torch, dev, gen, ops, ref, WRAPPERS, launch_counts,
+                                        reset_launch_counts, dry, lm_run, train_report["run"])
+    rows += dry_rows
+    launches[QUANT] += dry_report["row_check"]["launches"]
+
     # -- 11. times per kernel, summed over the main paths' launches -----------
     summary = []
     for name in KERNELS:
@@ -840,7 +891,7 @@ def main() -> int:
                   engine_card_vs_cpu=engine_cpu, fold_probe=fold, plan=plan_run["plan"],
                   quant_matmul_vs_f64=qm_f64, moe=moe_report, train=train_report,
                   mamba=mamba_report, tuning=tune_report, mesh=mesh_report,
-                  mesh_train=mtrain_report,
+                  mesh_train=mtrain_report, dryrun=dry_report,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -853,7 +904,8 @@ def main() -> int:
         + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items())
         + f", MoE {moe_report['seconds']:.1f}, training {train_report['seconds']:.1f}, "
         f"Mamba {mamba_report['seconds']:.1f}, tuning {tune_report['seconds']:.1f}, "
-        f"mesh {mesh_report['seconds']:.1f}, mesh training {mtrain_report['seconds']:.1f})")
+        f"mesh {mesh_report['seconds']:.1f}, mesh training {mtrain_report['seconds']:.1f}, "
+        f"dry run {dry_report['seconds']:.1f})")
     log(report["card_end"])
     # the kernels line holds measured numbers and bound_ms only: the fp32-rate
     # and tensor-core bounds stay in the log lines and in build/chip_smoke.json
@@ -1017,10 +1069,9 @@ def quant_lm_rows(torch, dev, gen, ops, ref, wrappers, lm, cfg, path, runs,
                     raise AssertionError(f"{QUANT}: {dtype} in, {y.dtype} out")
                 dname = str(dtype).replace("torch.", "")
                 err = max_err(torch, y, plain(), tol, f"{path} {QUANT} {dname} {spec} T={T}")
-                esz = folded.element_size()
-                nbytes = (esz * folded.numel() + p.q.numel() + 8.0 * p.scales.numel()
-                          + 4.0 * gn + esz * T * gn * bn)
-                flops = 2.0 * T * spec.m * distinct_blocks(cb) * bn
+                nbytes, flops = _cost().quant_epitome_work(
+                    T, spec.m, p.q.shape[1], gn, bn, distinct_blocks(cb), p.scales.numel(),
+                    folded.element_size())
                 row = timed_row(torch, QUANT, kernel, plain, library, nbytes, flops)
                 row.update(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bn=bn, T=T,
                            pack_bk=p.bk, dtype=dname, max_abs_err=err, path=path,
@@ -1081,7 +1132,7 @@ def wkv_rows(torch, dev, gen, ref, wrappers, cfg, path, B, S, launches) -> list:
     f = lambda *s: torch.randn(s, device=dev, generator=gen)
     r32, k32, v32 = f(B, S, H, K), f(B, S, H, K), f(B, S, H, K)
     lw, u, h0 = -torch.exp(f(B, S, H, K) * 0.5), f(H, K) * 0.1, f(B, H, K, K) * 0.5
-    flops, products = wkv6_ops(B, S, H, K, L)
+    flops, products = _cost().wkv6_ops(B, S, H, K, L)
     rows = []
     for dtype in (cfg.cdtype, torch.float32):
         r, k_, v = (t.to(dtype) for t in (r32, k32, v32))
@@ -1095,10 +1146,7 @@ def wkv_rows(torch, dev, gen, ref, wrappers, cfg, path, B, S, launches) -> list:
         o_s, h_s = wrappers[WKV](r, k_, v, torch.full_like(lw, -20.0), u, h0, chunk=L)
         if not (torch.isfinite(o_s).all() and torch.isfinite(h_s).all()):
             raise AssertionError(f"{WKV} {dname}: not finite under log w = -20")
-        # r, k, v read in their dtype; logw read, o written, in float32; u;
-        # h0 read and hT written
-        nbytes = (3.0 * r.element_size() * r.numel() + 4.0 * (2 * B * S * H * K + H * K)
-                  + 4.0 * 2 * B * H * K * K)
+        nbytes = _cost().wkv6_bytes(B, S, H, K, r.element_size(), h0 is not None)
         row = timed_row(torch, WKV, kernel, plain, None, nbytes, flops, dname, products)
         row.update(B=B, S=S, H=H, K=K, chunk=L, dtype=dname, max_abs_err=err,
                    path=path, count=launches if dtype == cfg.cdtype else 0)
@@ -1143,9 +1191,9 @@ def lm_fp_kernels(torch, dev, gen, ops, ref, wrappers, lm, cfg) -> list:
             if y.dtype != torch.bfloat16:
                 raise AssertionError(f"{FP_KERNEL}: bfloat16 in, {y.dtype} out")
             err = max_err(torch, y, plain(), BF16_TOL, f"{FP_KERNEL} bfloat16 {spec} T={T}")
-            nbytes = 2.0 * (folded.numel() + Eb.numel() + T * gn * bn) + 4.0 * gn
-            row = timed_row(torch, FP_KERNEL, kernel, plain, library, nbytes,
-                            2.0 * T * spec.m * distinct_blocks(cb) * bn, "bfloat16")
+            row = timed_row(torch, FP_KERNEL, kernel, plain, library,
+                            *_cost().epitome_work(T, spec.m, spec.n, gn, bn, distinct_blocks(cb),
+                                                  2), "bfloat16")
             row.update(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bn=bn, T=T, dtype="bfloat16",
                        max_abs_err=err, path=f"{LM_ARCH} kernel", count=count,
                        library_bf16_ms=row["library_ms"], cast_ms=cast_ms)
@@ -1200,37 +1248,15 @@ def distinct_blocks(cb) -> int:
     return len(set(cb.tolist()))
 
 
-def tc_seconds(name, flops, dtype, products=None):
-    """The tensor-core time of a kernel's FLOPs: the int8-code kernels at
-    the bf16 rate, kernel #3 at 3 x FLOPs over the TF32 rate for float32
-    (3xTF32) or at the bf16 rate for bf16, and the WKV's four chunk
-    ``products`` at 3 x FLOPs over the TF32 rate or the rest of its FLOPs at
-    the fp32 rate, whichever is longer.  For the WKV's gradient ``products``
-    is its chunked form's (all, products), taken the same way; ``flops``,
-    the token form's count, sets its fp32-rate bound.  The Mamba scan has
-    no products: all its operations at the fp32 rate."""
-    if name in TC_KERNELS or (name == FP_KERNEL and dtype == "bfloat16"):
-        return flops / BF16_TC_FLOPS
-    if name == FP_KERNEL:
-        return 3 * flops / TF32_TC_FLOPS
-    if name == WKV:
-        return max(3 * products / TF32_TC_FLOPS, (flops - products) / FP32_FLOPS)
-    if name == WKV_BWD:      # its chunked form's (all, products): wkv_bwd_chunked_ops
-        chunked, products = products
-        return max(3 * products / TF32_TC_FLOPS, (chunked - products) / FP32_FLOPS)
-    if name == MAMBA:        # elementwise float32 work, exponentials counted one each
-        return flops / FP32_FLOPS
-    raise ValueError(f"no tensor-core bound for {name}")
-
-
 def bounds(name, nbytes, flops, dtype="float32", products=None) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the peak of their type, the tensor
-    cores for every kernel (tc_seconds); the fp32-rate bound (all FLOPs at
+    cores for every kernel (``cost.tc_seconds``); the fp32-rate bound (all FLOPs at
     67 TFLOP/s) is kept beside it."""
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_fp32 = flops / FP32_FLOPS * 1e3
-    t_tc = tc_seconds(name, flops, dtype, products) * 1e3
+    c = _cost()
+    t_bytes = nbytes / c.HBM_BW * 1e3
+    t_fp32 = flops / c.FP32_FLOPS * 1e3
+    t_tc = c.tc_seconds(name, flops, dtype, products) * 1e3
     return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_tc),
                 bound_by="bytes" if t_bytes > t_tc else "operations",
                 bound_fp32_ms=max(t_bytes, t_fp32), bound_tc_ms=max(t_bytes, t_tc))
@@ -1245,23 +1271,6 @@ def timed_row(torch, name, kernel, plain, library, nbytes, flops, dtype="float32
                 library_ms=None if library is None else graph_ms(torch, library),
                 library_ms_eager=None if library is None else time_ms(torch, library),
                 **bounds(name, nbytes, flops, dtype, products))
-
-
-def wkv6_ops(B, S, H, K, L) -> tuple:
-    """Operations of the reference's chunked WKV (whatever the kernel
-    implements), per (batch, head, chunk of L tokens): the cumsum and
-    cs_prev (2LK), the decayed r (2LK), the inter-chunk product (2LK^2), the
-    strictly causal scores (L(L-1)/2 pairs of K terms: subtract, exp, two
-    multiplies, add), their product with v (2 pairs K), the bonus (5LK), the
-    decayed k (3LK) and the state (2LK^2 + 2K^2).  Returns (all, products):
-    the four chunk products are the inter-chunk, the scores' multiply-add
-    (2 pairs K), scores @ v and the state's 2LK^2."""
-    pairs = L * (L - 1) // 2
-    per = (4 * L * K + 2 * L * K * K + 5 * pairs * K + 2 * pairs * K + 8 * L * K
-           + 2 * L * K * K + 2 * K * K)
-    products = 2 * L * K * K + 2 * pairs * K + 2 * pairs * K + 2 * L * K * K
-    n = B * H * -(-S // L)
-    return float(n * per), float(n * products)
 
 
 def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_launch_counts,
@@ -1279,11 +1288,14 @@ def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_la
     name = cfg.name
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    params_alloc = None     # what the parameters took, for phase 18's dry run
     if built is None:
+        alloc0 = torch.cuda.memory_allocated()
         params = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
         params = lm.prepack_params(params, cfg)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
+        params_alloc = torch.cuda.memory_allocated() - alloc0
     else:
         params, setup_s = built
     prompts = torch.randint(0, cfg.vocab, (requests, prompt), device=dev,
@@ -1301,8 +1313,12 @@ def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_la
             or int(toks.max()) >= cfg.vocab:
         raise AssertionError(f"{name}: tokens {tuple(toks.shape)} out of the vocab")
     with torch.no_grad():
+        alloc0 = torch.cuda.memory_allocated()
         state0 = lm.init_decode_state(cfg, requests, max_len, dev)
+        torch.cuda.synchronize()
+        state_alloc = torch.cuda.memory_allocated() - alloc0
         pre, pre_host, outs = [], [], []
+        reset_launch_counts()
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1311,6 +1327,7 @@ def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_la
             torch.cuda.synchronize()
             pre.append(1e3 * (time.perf_counter() - t0))
             outs.append(logits[:, -1].float())
+        prefill_launches = {k: v // 3 for k, v in launch_counts().items() if v}
         finite(torch, logits, f"{name} prefill logits")
         # three identical prefills must repeat bit for bit (no atomics on the
         # path); and how close the first request's top two logits lie, what
@@ -1328,7 +1345,9 @@ def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_la
         if keep is not None:
             keep.update(tokens=toks, logits=outs[0])
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        reset_launch_counts()
         logits, state = lm.decode_step(params, state, tok, prompt, cfg)   # warm-up
+        decode_launches = {k: v for k, v in launch_counts().items() if v}
         dec, dec_host = [], []
         for i in range(5):
             tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
@@ -1359,7 +1378,10 @@ def lm_path(torch, dev, lm, serve, cfg, variant, expect, launch_counts, reset_la
                decode_kernels_per_step=sum(n for _, _, n in prof_dec),
                prefill_kernels=sum(n for _, _, n in prof_pre),
                prefill_repeat_max_abs_diff=repeat_diff,
-               first_token_top2=[float(t) for t in top2], fingerprint=fingerprint)
+               first_token_top2=[float(t) for t in top2], fingerprint=fingerprint,
+               params_alloc_bytes=params_alloc, state_alloc_bytes=state_alloc,
+               prefill_launches=prefill_launches, decode_launches=decode_launches,
+               max_len=max_len)
     log(f"[lm] {name} {variant} {str(cfg.cdtype).replace('torch.', '')} {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, vocab {cfg.vocab}: init+prepack {setup_s:.1f} s; generate "
         f"{requests}x{prompt}+{new} in {generate_s:.2f} s with "
@@ -2019,34 +2041,6 @@ def moe_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, launch
 
 
 # -- phase 13: training ------------------------------------------------------------
-def wkv_bwd_ops(B, S, H, K) -> float:
-    """Operations of the WKV's gradient as the token recurrence computes it
-    (kernels/ref.py, wkv6_chunked_bwd_ref), per (batch, token, head): the
-    state forward (S w, k v, their sum: 3 K^2), dr's, dk's and dv's products
-    with a state (2 K^2 each), dlogw's (2 K^2) and dS's update (3 K^2), plus
-    the per-channel terms (do . v, the bonus, u k dov, r u dov, du, w's
-    product and the sums: 18 K).  Its fp32-rate bound."""
-    return float(B * S * H * (14 * K * K + 18 * K))
-
-
-def wkv_bwd_chunked_ops(B, S, H, K, L=64) -> tuple:
-    """Operations of the WKV's gradient in the chunked form the kernel
-    computes (csrc/wkv6_bwd.cu), per (batch, head, chunk of L tokens), with
-    P = L(L-1)/2 causal pairs: ten products, the five over pairs (the
-    scores, dA = do v^T, A^T do, dr's and dk's through dA: 2 P K each) and
-    the five with a state (do S0^T, v dS^T, the decayed k's dS, dS0's r^T
-    do, sweep 1's state update: 2 L K^2 each); the rest, the pairs' decays
-    (subtract, exp and three multiplies: 5 P K), the two cumsums (2 L K),
-    the decayed operands of the state products (5 L K + 4 K^2), the bonus
-    terms, do . v, du, P, Q and the dlogw scan (20 L K) and C (2 K^2).
-    Returns (all, products)."""
-    pairs = L * (L - 1) // 2
-    products = 5 * 2 * pairs * K + 5 * 2 * L * K * K
-    rest = 5 * pairs * K + 27 * L * K + 6 * K * K
-    n = B * H * -(-S // L)
-    return float(n * (products + rest)), float(n * products)
-
-
 def ptxas_of(log_text: str) -> dict:
     """{entry: (registers, spill store bytes, spill load bytes)} from an nvcc
     -Xptxas -v log."""
@@ -2105,13 +2099,11 @@ def wkv_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
                        for a, b, n in zip(outs[0], grads, names))
         del ins, state, o, hT, out, grads, outs
         esz = r.element_size()
-        n = B * seq * H * K
-        nbytes = (3.0 * esz * n + 4.0 * 2 * n + 4.0 * H * K
-                  + 4.0 * B * H * K * K * ((h0 is not None) + dh)       # h0, dhT read
-                  + 4.0 * 4 * n + 4.0 * H * K + 4.0 * B * H * K * K)    # dr dk dv dlogw du dh0
+        nbytes = _cost().wkv_bwd_bytes(B, seq, H, K, esz, h0 is not None, dh)
         scratch = 4.0 * B * H * -(-seq // 64) * 4096     # a 64 x 64 state a chunk
-        chunked = wkv_bwd_chunked_ops(B, seq, H, K)
-        row = timed_row(torch, WKV_BWD, kernel, plain, None, nbytes, wkv_bwd_ops(B, seq, H, K),
+        chunked = _cost().wkv_bwd_chunked_ops(B, seq, H, K)
+        row = timed_row(torch, WKV_BWD, kernel, plain, None, nbytes,
+                        _cost().wkv_bwd_ops(B, seq, H, K),
                         products=chunked)
         regs, st, ld = next((v for e, v in ptxas.items()
                              if "wkv6_bwd_kernel" in e and ("bfloat16" in e) == (esz == 2)),
@@ -2297,9 +2289,11 @@ def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leave
     what = f"{TRAIN_ARCH} {TRAIN_VARIANT}"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    alloc0 = torch.cuda.memory_allocated()
     state = loop.init_state(torch.Generator(device=dev).manual_seed(SEED), cfg, opt, tcfg, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    state_alloc = torch.cuda.memory_allocated() - alloc0     # phase 18's dry run
     n_params = sum(p.numel() for p in leaves(state["params"]))
     state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
     batch0 = {k: v.to(dev) for k, v in data.batch(0).items()}
@@ -2372,7 +2366,8 @@ def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leave
     tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
     run = dict(arch=TRAIN_ARCH, variant=TRAIN_VARIANT, n_layers=cfg.n_layers,
                d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab, params=n_params,
-               state_bytes=state_bytes, batch=[TRAIN_BATCH, TRAIN_SEQ], init_s=init_s,
+               state_bytes=state_bytes, state_alloc_bytes=state_alloc,
+               batch=[TRAIN_BATCH, TRAIN_SEQ], init_s=init_s,
                warmup_s=warm_s, losses=hist["loss"], grad_norms=norms,
                step_ms=[t * 1e3 for t in hist["step_time"]], step_ms_median=step_ms,
                tokens_s=tokens_s, peak_bytes=peak, launches=counts, launches_per_step=per_step,
@@ -2484,20 +2479,6 @@ def train_phase(torch, dev, gen, ref, wrappers, lm, get_config, launch_counts,
 
 
 # -- phase 14: Mamba ---------------------------------------------------------------
-def scan_ops(B, S, di, ds) -> float:
-    """Operations of the selective scan, per (batch, token, channel): per
-    state dt A, its exponential, (dt x) B, the state's multiply-add and the
-    C contraction's (7 ds), and dt x, D x and its add (3)."""
-    return float(B * S * di * (7 * ds + 3))
-
-
-def scan_bytes(B, S, di, ds, esz, h0=True) -> float:
-    """dt and x read in their dtype (esz bytes), B and C too, A and D, h0
-    read (if given) and hT written, y written in float32."""
-    return (2.0 * esz * B * S * di + 2.0 * esz * B * S * ds + 4.0 * (di * ds + di)
-            + 4.0 * B * di * ds * (2 if h0 else 1) + 4.0 * B * S * di)
-
-
 def scan_inputs(torch, dev, gen, B, S, di, ds, h0="random"):
     f = lambda *s: torch.randn(s, device=dev, generator=gen)
     dt = torch.nn.functional.softplus(f(B, S, di) - 1.0)
@@ -2524,8 +2505,9 @@ def scan_rows(torch, dev, gen, ref, wrappers, cfg, path, cases) -> list:
         what = f"{path} {MAMBA} {dname} B={B} S={S} h0 {h0_kind}"
         err = max(max_err(torch, y, y_ref, KERNEL_TOL, f"{what} y"),
                   max_err(torch, hT, h_ref, KERNEL_TOL, f"{what} hT"))
-        nbytes = scan_bytes(B, S, di, ds, dt.element_size(), h0 is not None)
-        row = timed_row(torch, MAMBA, kernel, plain, None, nbytes, scan_ops(B, S, di, ds), dname)
+        nbytes = _cost().scan_bytes(B, S, di, ds, dt.element_size(), h0 is not None)
+        row = timed_row(torch, MAMBA, kernel, plain, None, nbytes,
+                        _cost().scan_ops(B, S, di, ds), dname)
         row.update(B=B, S=S, di=di, ds=ds, dtype=dname, h0=h0_kind, max_abs_err=err, path=path,
                    count=count, sfu_ms=B * S * di * ds / SFU_EXP_S * 1e3)
         rows.append(row)
@@ -2808,12 +2790,11 @@ def quant_matmul_phase(torch, dev, gen, ops, ref, wrappers, launch_counts,
                       f"quant_matmul {dname} ({M},{N}) x{tuple(x.shape)}")
         xp = x.reshape(-1, M).contiguous()     # what ops hands the kernel
         xf = xp.float()
-        esz = x.element_size()
-        nbytes = esz * T * M + M * N + 8.0 * s.numel() + esz * T * N
         row = timed_row(torch, "quant_matmul",
                         lambda: wrappers["quant_matmul"](xp, q, s, z),
                         lambda: ref.quant_matmul_ref(xp, q, s, z),
-                        lambda: torch.matmul(xf, W), nbytes, 2.0 * T * M * N)
+                        lambda: torch.matmul(xf, W),
+                        *_cost().quant_matmul_work(T, M, N, s.numel(), x.element_size()))
         row.update(M=M, N=N, T=T, x_shape=list(x.shape), dtype=dname, max_abs_err=err,
                    path="quant_matmul", count=1)
         if dtype == torch.bfloat16:   # the bf16 yardstick: bf16 x, bf16 weight
@@ -3004,13 +2985,12 @@ def check_and_time(torch, dev, gen, ops, ref, wrappers, spec, T, names=None):
     }
     # the bound: each input read once and the output written once, against
     # the FMAs of the contraction (the fused fold adds one add per input)
-    flops = 2.0 * T * q.shape[0] * distinct_blocks(cb) * bn
-    out_b = 4.0 * T * gn * bn
-    code_b = q.numel() + 8.0 * p.scales.numel() + 4.0 * gn
-    work = {"quant_epitome_matmul_blocks": (4.0 * folded.numel() + code_b + out_b, flops),
-            "quant_epitome_matmul_fused_fold": (4.0 * x.numel() + code_b + 4.0 * len(ro) + out_b,
-                                                flops + T * spec.M),
-            "epitome_matmul_blocks": (4.0 * (ffold.numel() + fE.numel() + gn) + out_b, flops)}
+    c, (m, n), d = _cost(), q.shape, distinct_blocks(cb)
+    work = {"quant_epitome_matmul_blocks": c.quant_epitome_work(
+                T, m, n, gn, bn, d, p.scales.numel(), 4),
+            "quant_epitome_matmul_fused_fold": c.fused_fold_work(
+                T, spec.M, m, n, gn, bn, d, p.scales.numel(), len(ro)),
+            "epitome_matmul_blocks": c.epitome_work(T, ffold.shape[1], fE.shape[1], gn, bn, d, 4)}
     rows = []
     for name, (kernel, plain, library) in calls.items():
         if names is not None and name not in names:
@@ -3537,6 +3517,289 @@ def _named_leaves(tree, prefix=""):
 
 
 
+# -- phase 18: the dry run against the card ------------------------------------------
+_CHILDREN = []          # processes this script started, ended at exit
+
+
+def _end_children():
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_calls() -> list:
+    """Phase 18 (b)'s cells, ``launch/dryrun.py``'s ``run_cell`` keywords:
+    phase 13's training step (its config, AdamW and TrainConfig, TRAIN_BATCH
+    x TRAIN_SEQ) and phase 5's prefill (LM_REQUESTS x LM_PROMPT) and decode
+    step (against its state of prompt + new + 1 rows), each on a fake
+    (1, 1) world, the full-depth trace and the 1- and 2-group probes."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.train.loop import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    one = dict(mesh_shape=[1, 1])
+    return [dryrun.encode_call(arch=TRAIN_ARCH, epitome=TRAIN_VARIANT, opt_cfg=AdamWConfig(),
+                               train_cfg=TrainConfig(checkpoint_every=10 ** 9, log_every=1),
+                               shape=ShapeCell("phase13_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                               **one),
+            dryrun.encode_call(arch=LM_ARCH, epitome="kernel-q3",
+                               shape=ShapeCell("phase5_prefill", LM_PROMPT, LM_REQUESTS,
+                                               "prefill"), **one),
+            dryrun.encode_call(arch=LM_ARCH, epitome="kernel-q3",
+                               shape=ShapeCell("phase5_decode", LM_PROMPT + LM_NEW + 1,
+                                               LM_REQUESTS, "decode"), **one)]
+
+
+def start_dryrun():
+    """Start phase 18 (b)'s dry run in a subprocess on the host (one thread,
+    at a lower priority, beside the card's phases); returns (process, start
+    time).  It reads no device: its tensors are fake."""
+    from repro_torch.launch import dryrun
+    env = dict(os.environ, PYTHONPATH=dryrun.src_path(), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(dryrun.subprocess_command(dryrun_calls()), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            preexec_fn=lambda: os.nice(10))
+    _CHILDREN.append(proc)
+    return proc, time.perf_counter()
+
+
+def row_check(torch, dev, gen, ops, ref, wrappers, launch_counts, reset_launch_counts):
+    """Phase 18 (a): kernel #1 through ``ops.quant_epitome_matmul`` at each
+    of ROW_SPECS, bf16: every row of a T-row call against the same row of
+    a 1-row call, bit for bit, for each T of ROW_T.  The decode loop (T <=
+    DECODE_ROWS) must sum a row as at one row; past it the tensor-core loop
+    sums in another order, by design, and its differing rows are reported.
+    Each shape's launches are then checked against the plain version and
+    timed (their kernels rows).  Returns (rows, report)."""
+    from repro_torch.core.epitome import EpitomeSpec
+    from repro_torch.core.quant import QuantConfig, dequantize_packed
+    from repro_torch.kernels.quant_epitome_matmul import DECODE_ROWS
+    rows, differ, launches = [], {}, 0
+    n_max = max(ROW_T)
+    for arch, args in ROW_SPECS:
+        spec = EpitomeSpec(*args)
+        E = torch.randn(spec.m, spec.n, device=dev, generator=gen) / math.sqrt(spec.M)
+        p = ops.pack_epitome(E, spec, QuantConfig(bits=3))
+        x = torch.randn(n_max, spec.M, device=dev, generator=gen).bfloat16()
+        reset_launch_counts()
+        ones = torch.cat([ops.quant_epitome_matmul(x[i:i + 1], None, spec, packed=p)
+                          for i in range(n_max)])
+        key = f"{arch} ({spec.M},{spec.N})->({spec.m},{spec.n})"
+        differ[key] = {}
+        for T in ROW_T:
+            y = ops.quant_epitome_matmul(x[:T], None, spec, packed=p)
+            bad = int((y != ones[:T]).any(-1).sum())
+            if bad:
+                differ[key][T] = bad
+        torch.cuda.synchronize()
+        got = launch_counts()[QUANT]
+        if got != n_max + len(ROW_T):
+            raise AssertionError(f"[row-check] {key}: {got} launches of {QUANT}, expected "
+                                 f"{n_max + len(ROW_T)}")
+        launches += got
+        log(f"[row-check] {key} bf16: rows of T-row calls against 1-row calls differ at "
+            f"T = {dict(differ[key]) or 'none'} (rows differing)")
+        # the launches' shapes, each against its plain version and timed
+        cb = ops.spec_tables(spec, p.bn, dev).col_blocks
+        gn = len(cb)
+        cols = torch.cat([torch.arange(c * p.bn, (c + 1) * p.bn, device=dev)
+                          for c in ops.kernel_col_blocks(spec, p.bn).tolist()])
+        W = dequantize_packed(p.q, p.scales, p.zeros, (p.bk, p.bn))[:, cols].contiguous()
+        for T in ROW_T:
+            folded = ops.fold_rows(x[:T], spec)
+            f32 = folded.float()
+            kernel = lambda: wrappers[QUANT](folded, p.q, p.scales, p.zeros, cb, bk=p.bk, bn=p.bn)
+            plain = lambda: ref.quant_epitome_matmul_blocks_ref(folded, p.q, p.scales, p.zeros,
+                                                                 cb, p.bk, p.bn)
+            err = max_err(torch, kernel(), plain(), BF16_TOL, f"[row-check] {key} T={T}")
+            row = timed_row(torch, QUANT, kernel, plain, lambda: torch.matmul(f32, W),
+                            *_cost().quant_epitome_work(T, spec.m, spec.n, gn, p.bn,
+                                                        distinct_blocks(cb),
+                                                        p.scales.numel(), 2))
+            row.update(M=spec.M, N=spec.N, m=spec.m, n=spec.n, bn=p.bn, T=T, pack_bk=p.bk,
+                       dtype="bfloat16", max_abs_err=err, path="row check",
+                       count=1 + (n_max if T == 1 else 0))
+            rows.append(row)
+        del E, p, x, ones, W
+        torch.cuda.empty_cache()
+    late = {k: {T: n for T, n in v.items() if T <= DECODE_ROWS} for k, v in differ.items()}
+    if any(late.values()):
+        raise AssertionError(f"[row-check] kernel #1's decode loop sums a row by the row "
+                             f"count: {late}")
+    log(f"[row-check] every row at T <= {DECODE_ROWS} equals its 1-row call bit for bit "
+        f"({launches} launches); past it the tensor-core loop's rows differ by design at "
+        + "; ".join(f"{k}: T = {sorted(v)}" for k, v in differ.items() if v))
+    return rows, dict(differ=differ, launches=launches)
+
+
+def dryrun_phase(torch, dev, gen, ops, ref, wrappers, launch_counts, reset_launch_counts,
+                 dry, lm_run, train_run) -> tuple:
+    """Phase 18.  (a) ``row_check``.  (b) The dry run started after the
+    build (``start_dryrun``): for phase 13's step and phase 5's prefill and
+    decode step, its kernels' launches a step equal the launches the phase
+    counted, exactly; its argument bytes are within ARG_TOL of how much
+    ``torch.cuda.memory_allocated`` grew while the phase built what the
+    step takes in (phase 13's training state; phase 5's prepacked
+    parameters, plus the decode state for the decode step); its roofline's
+    bound and each of its three terms are at most the step's device-busy
+    time (``torch.profiler``): a bound above a measurement is a count that
+    is wrong; its useful ratio is at most 1 and its roofline fraction at
+    most SHARE_MAX (a share past either is an impossible reading); its
+    probes' counts are within PROBE_TOL of the full trace's.  Printed, not
+    gated: the predicted peak against the measured one, busy over the
+    bound, the reference's MODEL_FLOPS over the counted FLOPs, the dry
+    run's seconds.  Returns (kernel rows, report)."""
+    t_phase = time.perf_counter()
+    rows, checked = row_check(torch, dev, gen, ops, ref, wrappers, launch_counts,
+                              reset_launch_counts)
+    proc, t_start = dry
+    out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"[dryrun] the dry run failed ({proc.returncode}): "
+                             f"{err[-3000:]}")
+    results = [json.loads(line) for line in out.strip().splitlines()]
+    per_step = {k: v // TRAIN_STEPS for k, v in train_run["launches"].items() if v}
+    real = (("phase 13 train step", train_run["state_alloc_bytes"], per_step,
+             train_run["device_busy_ms"], train_run["peak_bytes"]),
+            ("phase 5 prefill", lm_run["params_alloc_bytes"], lm_run["prefill_launches"],
+             lm_run["prefill_busy_ms"], lm_run["peak_bytes"]),
+            ("phase 5 decode step", lm_run["params_alloc_bytes"] + lm_run["state_alloc_bytes"],
+             lm_run["decode_launches"], lm_run["decode_busy_ms"], lm_run["peak_bytes"]))
+    report = dict(row_check=checked, cells=[])
+    for r, (what, alloc, launched, busy_ms, peak) in zip(results, real):
+        predicted = {k: v["launches"] for k, v in r["kernels"].items()}
+        args = r["per_device"]["argument_bytes"]
+        rl = r["roofline"]
+        terms = {k: rl[k] for k in ("bound_s", "t_compute_s", "t_memory_s", "t_collective_s")}
+        dense_ratio = rl["model_flops"] / (r["per_device"]["flops"] * r["n_chips"])
+        probes = r["probe_vs_trace"]
+        cell = dict(what=what, launches_predicted=predicted, launches_measured=launched,
+                    argument_bytes=args, allocated_bytes=alloc, busy_ms=busy_ms,
+                    peak_predicted=r["per_device"]["peak_bytes"], peak_measured=peak,
+                    trace_s=r["trace_s"], probe_s=r["probe_s"], probe_vs_trace=probes,
+                    model_flops_ratio=dense_ratio, roofline=rl, kernels=r["kernels"])
+        report["cells"].append(cell)
+        log(f"[dryrun] {what}: launches a step {predicted} (counted on the card {launched}); "
+            f"arguments {args / 2**30:.3f} GiB (the card allocated {alloc / 2**30:.3f}); "
+            f"bound {rl['bound_s'] * 1e3:.3f} ms ({rl['dominant']}: compute "
+            f"{rl['t_compute_s'] * 1e3:.3f}, memory {rl['t_memory_s'] * 1e3:.3f}, collective "
+            f"{rl['t_collective_s'] * 1e3:.3f}) against {busy_ms:.3f} ms busy "
+            f"({busy_ms / 1e3 / rl['bound_s']:.1f}x); peak {cell['peak_predicted'] / 2**30:.2f} "
+            f"GiB predicted, {peak / 2**30:.2f} measured; useful {rl['useful_ratio']:.4f} "
+            f"(the reference's MODEL_FLOPS {dense_ratio:.4f}), roofline fraction "
+            f"{rl['roofline_fraction']:.4f}; probes / trace {probes}; traced in "
+            f"{r['trace_s']:.1f} s, probes {sum(r['probe_s']):.1f} s (torch {r['torch']}); "
+            f"{card_line()}")
+        if predicted != launched:
+            raise AssertionError(f"[dryrun] {what}: the dry run counts {predicted} launches a "
+                                 f"step, the card launched {launched}")
+        if abs(args - alloc) > ARG_TOL * alloc:
+            raise AssertionError(f"[dryrun] {what}: {args} argument bytes predicted, the card "
+                                 f"allocated {alloc} (past {ARG_TOL:.0%})")
+        over = {k: v for k, v in terms.items() if v * 1e3 > busy_ms}
+        if over or busy_ms <= 0:
+            raise AssertionError(f"[dryrun] {what}: roofline terms {over} (s) above the "
+                                 f"measured {busy_ms} ms busy")
+        if not (0 < rl["useful_ratio"] <= 1 and 0 < rl["roofline_fraction"] <= SHARE_MAX):
+            raise AssertionError(f"[dryrun] {what}: useful ratio {rl['useful_ratio']} and "
+                                 f"roofline fraction {rl['roofline_fraction']}: a share past "
+                                 f"1 (or {SHARE_MAX}) is an impossible reading")
+        off = {k: v for k, v in probes.items() if v is not None and abs(v - 1) > PROBE_TOL}
+        if off:
+            raise AssertionError(f"[dryrun] {what}: the probes' counts over the full trace's "
+                                 f"{off}, past {PROBE_TOL}")
+    report["dryrun_wall_s"] = time.perf_counter() - t_start
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase 18 {report['seconds']:.1f} s (the dry run's subprocess "
+        f"{report['dryrun_wall_s']:.1f} s from its start after the build; its traces "
+        f"{sum(c['trace_s'] for c in report['cells']):.1f} s)")
+    return rows, report
+
+
+def time_decode(tree: str) -> int:
+    """``python3 chip_smoke.py --time-decode TREE``: kernel #1 of the port
+    in checkout TREE at ROW_SPECS, bf16, T in DECODE_TIMED_T: device ms a
+    launch (graph_ms, three readings) and the split its wrapper picks, as
+    one JSON line.  To compare two checkouts' decode loops, run it for each
+    in turn in one chip call (A, B, B, A)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    from repro_torch.core.epitome import EpitomeSpec
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.quant_epitome_matmul import (quant_epitome_matmul_blocks,
+                                                          split_rows)
+    _build.library("quant_epitome_matmul_bf16")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = dict(tree=tree, card=card_line(), shapes=[])
+    for arch, args in ROW_SPECS:
+        spec = EpitomeSpec(*args)
+        E = torch.randn(spec.m, spec.n, device=dev, generator=gen) / math.sqrt(spec.M)
+        p = ops.pack_epitome(E, spec, QuantConfig(bits=3))
+        cb = ops.spec_tables(spec, p.bn, dev).col_blocks
+        for T in DECODE_TIMED_T:
+            folded = ops.fold_rows(torch.randn(T, spec.M, device=dev, generator=gen).bfloat16(),
+                                   spec)
+            kernel = lambda: quant_epitome_matmul_blocks(folded, p.q, p.scales, p.zeros, cb,
+                                                         bk=p.bk, bn=p.bn)
+            out["shapes"].append(dict(arch=arch, spec=list(args), T=T,
+                                      split=split_rows(T, spec.m, len(cb), p.bn),
+                                      ms=[graph_ms(torch, kernel) for _ in range(3)]))
+        del E, p
+    print(json.dumps(out))
+    return 0
+
+
+def time_lm_host(tree: str) -> int:
+    """``python3 chip_smoke.py --time-lm-host TREE``: phase 5's rwkv6-7b at
+    kernel-q3 from the port in checkout TREE, one prefill of LM_REQUESTS x
+    LM_PROMPT, then a warm-up decode step and LM_HOST_STEPS timed ones:
+    each step's host ms (until ``lm.decode_step`` returns) and wall ms
+    (until the card is done), as one JSON line.  To compare two checkouts'
+    host paths, run it for each in turn in one chip call (A, B, B, A)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH, "kernel-q3")
+    params = lm.prepack_params(
+        lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev), cfg)
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    host, wall = [], []
+    with torch.no_grad():
+        state = lm.init_decode_state(cfg, LM_REQUESTS, LM_PROMPT + LM_HOST_STEPS + 2, dev)
+        logits, state = lm.prefill(params, prompts, state, cfg)
+        for i in range(LM_HOST_STEPS + 1):
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = lm.decode_step(params, state, tok, LM_PROMPT + i, cfg)
+            t_host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if i:                                   # step 0 warms up
+                host.append(1e3 * t_host)
+                wall.append(1e3 * (time.perf_counter() - t0))
+        finite(torch, logits, f"{LM_ARCH} decode logits")
+    print(json.dumps(dict(tree=tree, card=card_line(), steps=LM_HOST_STEPS,
+                          host_ms=host, wall_ms=wall, host_ms_median=statistics.median(host),
+                          wall_ms_median=statistics.median(wall))))
+    return 0
+
+
 # -- phase 15: tuning and measured cost --------------------------------------------
 FUSED = "quant_epitome_matmul_fused_fold"
 TUNE_EVO = dict(population=16, iterations=8, seed=0)
@@ -3830,7 +4093,8 @@ def time_mamba_scan(tree: str) -> int:
                    for a, r in zip(kernel(), ref.mamba_scan_ref(dt, x, Bm, Cm, A, D, h0)))
         time_ms(torch, kernel, 200.0)       # the card's clocks up before the readings
         row = dict(h0=h0_kind, ms=[graph_ms(torch, kernel) for _ in range(3)], over_gate=over,
-                   bound_ms=scan_bytes(B, S, di, ds, 2, h0 is not None) / HBM_BYTES_S * 1e3,
+                   bound_ms=(_cost().scan_bytes(B, S, di, ds, 2, h0 is not None)
+                             / _cost().HBM_BW * 1e3),
                    sfu_ms=B * S * di * ds / SFU_EXP_S * 1e3)
         if S == 1:
             pairs = [(A.clone(), h0.clone())
@@ -3909,6 +4173,12 @@ def time_jamba_engine(tree: str) -> int:
 
 
 if __name__ == "__main__":
+    import atexit
+    atexit.register(_end_children)
+    if sys.argv[1:2] == ["--time-decode"]:
+        sys.exit(time_decode(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--time-lm-host"]:
+        sys.exit(time_lm_host(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--time-wkv-bwd"]:
         sys.exit(time_wkv_bwd(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--time-mamba-scan"]:

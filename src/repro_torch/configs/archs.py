@@ -122,3 +122,7 @@ BUILDERS = {
     "musicgen-large": musicgen_large,
     "internvl2-76b": internvl2_76b,
 }
+
+# archs able to run the 500k-token decode cell (sub-quadratic / O(1)-state
+# sequence mixing), as the reference lists them
+LONG_CONTEXT_OK = {"rwkv6-7b", "jamba-1.5-large-398b", "gemma2-2b"}

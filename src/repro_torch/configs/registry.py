@@ -1,15 +1,35 @@
-"""Named epitome variants and the model registry (counterpart of
-``repro.configs.registry``): ``get_resnet`` for the paper's ResNets,
-``get_config``/``get_smoke_config`` for the ten LM architectures."""
+"""Named epitome variants, the model registry and the input-shape cells
+(counterpart of ``repro.configs.registry``): ``get_resnet`` for the paper's
+ResNets, ``get_config``/``get_smoke_config`` for the ten LM architectures,
+``SHAPES``/``input_specs`` for the dry run (``launch.dryrun``)."""
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Dict
+
+import torch
 
 from ..models.config import EpitomeSettings, ModelConfig
-from .archs import BUILDERS
+from .archs import BUILDERS, LONG_CONTEXT_OK
 
 ARCHS = tuple(BUILDERS)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
 
 
 def epitome_settings(variant: str) -> EpitomeSettings:
@@ -167,3 +187,35 @@ def get_smoke_config(arch: str, epitome: str = "off",
         mamba_d_state=4, mamba_d_conv=4, mamba_expand=2,
         epitome=ep,
     )
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    """long_500k only for the sub-quadratic archs (``LONG_CONTEXT_OK``)."""
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_OK
+    return True
+
+
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, torch.Tensor]:
+    """Every input of a cell (a ``ShapeCell`` or its name) as a ``meta``
+    tensor of the reference's shape and dtype, the whole batch's:
+
+    train:   {tokens (and embeds where the arch embeds its inputs), labels, mask}
+    prefill: {inputs}: tokens, or embeds
+    decode:  {token, pos}        (the state is built by the launcher)
+    """
+    cell = SHAPES[shape] if isinstance(shape, str) else shape
+    B, S = cell.global_batch, cell.seq_len
+    f = lambda *s, dtype: torch.empty(s, dtype=dtype, device="meta")
+    if cell.kind == "train":
+        batch = {"labels": f(B, S, dtype=torch.int32), "mask": f(B, S, dtype=torch.float32)}
+        if cfg.embed_inputs:
+            batch["embeds"] = f(B, S, cfg.d_model, dtype=torch.bfloat16)
+        batch["tokens"] = f(B, S, dtype=torch.int32)
+        return batch
+    if cell.kind == "prefill":
+        if cfg.embed_inputs:
+            return {"inputs": f(B, S, cfg.d_model, dtype=torch.bfloat16)}
+        return {"inputs": f(B, S, dtype=torch.int32)}
+    # decode: one new token against a cache of length S
+    return {"token": f(B, 1, dtype=torch.int32), "pos": f(dtype=torch.int32)}

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .ref import mamba_scan_ref
 
 MAX_DS = 16                 # states a channel keeps in registers (csrc/mamba_scan.cu)
@@ -36,7 +36,15 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Te
     dtype; A: (di, ds) and D: (di,) float32; h0: (B, di, ds) float32, or
     None for a zero state.  Returns (y (B, S, di), hT (B, di, ds)), both
     float32.  ``chunk`` is the plain version's checkpoint window (the
-    kernel walks every token in one launch)."""
+    kernel walks every token in one launch).  A fake dt takes the
+    shape-only branch (``cost.shape_only``)."""
+    if cost.shape_only(dt):
+        B, S, di = dt.shape
+        ds = Bm.shape[-1]
+        cost.record(cost.SCAN, cost.scan_bytes(B, S, di, ds, dt.element_size(), h0 is not None),
+                    cost.scan_ops(B, S, di, ds), cost.dtype_name(dt))
+        return (dt.new_empty((B, S, di), dtype=torch.float32),
+                dt.new_empty((B, di, ds), dtype=torch.float32))
     if dt.device.type == "cpu":
         return mamba_scan_ref(dt, x, Bm, Cm, A, D, h0, chunk=chunk)
     name = "mamba_scan"
@@ -93,6 +101,8 @@ class MambaScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dhT):
         saved = ctx.saved_tensors
+        if cost.shape_only(saved[0]):
+            return MambaScan._shape_only_backward(ctx, saved)
         if saved[0].device.type != "cpu":
             raise NotImplementedError(
                 f"mamba_scan: the selective scan has no backward kernel on the card yet "
@@ -115,3 +125,16 @@ class MambaScan(torch.autograd.Function):
             if n:
                 grads[i] = next(it)
         return tuple(grads)
+
+    @staticmethod
+    def _shape_only_backward(ctx, saved):
+        """The gradient's shape-only branch: empty gradients of the inputs'
+        shapes and dtypes, and the work a backward kernel would do
+        (``cost.scan_bwd_work``, an estimate) recorded as ``mamba_scan_bwd``,
+        a kernel the card does not have yet (``GRAD_ITEM``)."""
+        dt, x, Bm, Cm, A, D, h0 = saved
+        B, S, di = dt.shape
+        cost.record(cost.SCAN_BWD, *cost.scan_bwd_work(B, S, di, Bm.shape[-1],
+                                                       dt.element_size(), h0 is not None))
+        return tuple(None if t is None or not n else torch.empty_like(t)
+                     for t, n in zip(saved, ctx.needs_input_grad[:7])) + (None,)

@@ -11,7 +11,9 @@ feed plan provenance; the CUDA kernels mask ragged rows and contraction
 edges themselves, so no wrapper pads rows or codes before a launch.
 
 Tensors on the CPU run every kernel's plain version; tensors on a CUDA
-device launch the kernels.
+device launch the kernels; fake tensors (the dry run's) take each kernel's
+shape-only branch (``cost.shape_only``): empty outputs of its shapes and
+dtypes, its work added to the dry run's recorder.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from ..core.epitome import EpitomeSpec, fold_tables, gather_sum, preimage_table
 from ..core.quant import QuantConfig, quantize_epitome_packed
+from . import cost
 from .epitome_matmul import epitome_matmul_blocks
 from .quant_epitome_matmul import (quant_epitome_matmul_blocks,
                                    quant_epitome_matmul_fused_fold)
@@ -94,6 +97,12 @@ def fold_rows(x: torch.Tensor, spec: EpitomeSpec) -> torch.Tensor:
     return gather_sum(x, spec_tables(spec, spec.bn, x.device).fold, spec.m)
 
 
+def _distinct(cb: np.ndarray) -> int:
+    """Column blocks of a product that differ: a block that repeats an
+    epitome block is one product (``cost``'s counts take it once)."""
+    return len(set(cb.tolist()))
+
+
 def epitome_matmul(x: torch.Tensor, E: torch.Tensor, spec: EpitomeSpec, *,
                    bk: Optional[int] = None, bn: Optional[int] = None) -> torch.Tensor:
     """y = x @ W(E) via the epitome-space kernel, in x's dtype: E is cast to
@@ -104,9 +113,18 @@ def epitome_matmul(x: torch.Tensor, E: torch.Tensor, spec: EpitomeSpec, *,
     bk = _pick_bk(spec.m) if bk is None else bk
     bn = spec.bn if bn is None else bn
     folded, E = _pad_contraction(fold_rows(x.reshape(-1, M), spec), E.to(x.dtype), bk)
-    y = epitome_matmul_blocks(folded, E.contiguous(),
-                              spec_tables(spec, bn, x.device).col_blocks, bn=bn)
+    if cost.shape_only(folded):
+        cb = kernel_col_blocks(spec, bn)
+        (T, m), n = folded.shape, E.shape[1]
+        cost.record(cost.FP_KERNEL, *cost.epitome_work(T, m, n, len(cb), bn, _distinct(cb),
+                                                       folded.element_size()),
+                    cost.dtype_name(folded))
+        y = folded.new_empty((T, len(cb) * bn))
+    else:
+        y = epitome_matmul_blocks(folded, E.contiguous(),
+                                  spec_tables(spec, bn, x.device).col_blocks, bn=bn)
     return y[:, :spec.N].reshape(*lead, spec.N)
+
 
 
 _BT_BLOCKS = (256, 128, 64, 32, 16, 8)
@@ -200,7 +218,12 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
     (M, N) int8 codes.  Leading dims of x are free-form and flatten to
     (T, M) rows."""
     *lead, M = x.shape
-    y = _quant_matmul(x.reshape(-1, M).contiguous(), q, scales, zeros)
+    x2 = x.reshape(-1, M).contiguous()
+    if cost.shape_only(x2):
+        cost.record("quant_matmul", *cost.quant_matmul_work(x2.shape[0], M, q.shape[1],
+                                                            scales.numel(), x.element_size()))
+        return x2.new_empty((x2.shape[0], q.shape[1])).reshape(*lead, q.shape[1])
+    y = _quant_matmul(x2, q, scales, zeros)
     return y.reshape(*lead, q.shape[1])
 
 
@@ -267,6 +290,8 @@ def quant_epitome_matmul(x: torch.Tensor, E: Optional[torch.Tensor],
         packed = pack_epitome(E, spec, qcfg)
     *lead, M = x.shape
     x2 = x.reshape(-1, M)
+    if cost.shape_only(x2):
+        return _quant_shape_only(x2, spec, packed, fused_fold).reshape(*lead, spec.N)
     tables = spec_tables(spec, packed.bn, x.device)
     kw = dict(bk=packed.bk, bn=packed.bn)
     if fused_fold:
@@ -278,3 +303,24 @@ def quant_epitome_matmul(x: torch.Tensor, E: Optional[torch.Tensor],
         y = quant_epitome_matmul_blocks(fold_rows(x2, spec).contiguous(), packed.q,
                                         packed.scales, packed.zeros, tables.col_blocks, **kw)
     return y[:, :spec.N].reshape(*lead, spec.N)
+
+
+def _quant_shape_only(x2: torch.Tensor, spec: EpitomeSpec, packed: PackedEpitome,
+                      fused_fold: bool) -> torch.Tensor:
+    """``quant_epitome_matmul``'s shape-only branch: the fold as the path
+    runs it (unless fused), an empty (T, N) result in x's dtype, and the
+    launch's work recorded (kernel #2 where the fold is fused, else #1)."""
+    cb = kernel_col_blocks(spec, packed.bn)
+    (m, n), gn, T = packed.q.shape, len(cb), x2.shape[0]
+    if fused_fold:
+        cost.record("quant_epitome_matmul_fused_fold", *cost.fused_fold_work(
+            T, x2.shape[1], m, n, gn, packed.bn, _distinct(cb), packed.scales.numel(),
+            -(-x2.shape[1] // spec.bm)))
+        y = x2.new_empty((T, gn * packed.bn), dtype=torch.float32).to(x2.dtype)
+    else:
+        folded = fold_rows(x2, spec)
+        cost.record("quant_epitome_matmul_blocks", *cost.quant_epitome_work(
+            T, m, n, gn, packed.bn, _distinct(cb), packed.scales.numel(),
+            folded.element_size()))
+        y = folded.new_empty((T, gn * packed.bn))
+    return y[:, :spec.N]

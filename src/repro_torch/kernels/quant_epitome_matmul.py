@@ -41,8 +41,10 @@ _counters = {}          # (device, stream) -> int32 ticket counters, 0 between l
 def split_rows(T: int, m: int, gn: int, bn: int, decode: bool = True) -> int:
     """Contraction rows per split, 0 for none.  The decode loop (T <=
     DECODE_ROWS, where ``decode``) always splits: 128 rows a block where
-    that still gives two waves of blocks (or where T > 8, as the partials'
-    bytes grow with T), else 64.  The tensor-core loop splits only where its
+    that still gives two waves of blocks, else 64, whatever T, so that a
+    row sums in one order at every T the loop takes (a row of a T-row call
+    is the same row of a 1-row call, bit for bit; at T > DECODE_ROWS the
+    tensor-core loop sums in another order, by design).  The tensor-core loop splits only where its
     output tiles fill less than a wave: for longer T into enough splits for
     two waves with at least 16 steps each (a split writes and reads back a
     float32 partial of its whole tile); at T <= DECODE_ROWS (kernels #2 and
@@ -51,8 +53,6 @@ def split_rows(T: int, m: int, gn: int, bn: int, decode: bool = True) -> int:
     steps)."""
     if decode and T <= DECODE_ROWS:
         tiles = gn * -(-bn // _DECODE_COLS)
-        if T > 8:
-            return DECODE_SPLITS[0]
         return next((r for r in DECODE_SPLITS if -(-m // r) * tiles >= 2 * _SMS),
                     DECODE_SPLITS[-1])
     tiles = gn * -(-bn // (128 if bn >= 128 else 64)) * -(-T // _BM)

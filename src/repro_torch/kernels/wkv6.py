@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .ref import wkv6_chunked_bwd_ref, wkv6_chunked_ref
 
 MAX_K = MAX_CHUNK = 64      # the kernel's shared-memory tiles (csrc/wkv6.cu)
@@ -37,7 +37,15 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r/k/v: (B, S, H, K), float32 or bfloat16, one dtype; logw: (B, S, H,
     K) float32, <= 0; u: (H, K) float32; h0: (B, H, K, K) float32, or None
     for a zero state.  Returns (o (B, S, H, K), hT (B, H, K, K)), both
-    float32; chunks are min(chunk, S) tokens."""
+    float32; chunks are min(chunk, S) tokens.  A fake r takes the
+    shape-only branch (``cost.shape_only``)."""
+    if cost.shape_only(r):
+        B, S, H, K = r.shape
+        flops, products = cost.wkv6_ops(B, S, H, K, max(1, min(chunk, S)))
+        cost.record(cost.WKV, cost.wkv6_bytes(B, S, H, K, r.element_size(), h0 is not None),
+                    flops, cost.dtype_name(r), products)
+        return (r.new_empty(r.shape, dtype=torch.float32),
+                r.new_empty((B, H, K, K), dtype=torch.float32))
     if r.device.type == "cpu":
         return wkv6_chunked_ref(r, k, v, logw, u, h0, chunk=chunk)
     name = "wkv6_chunked"
@@ -92,7 +100,17 @@ def wkv6_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient of o and ``dhT`` (B, H, K, K) float32 that of the final state
     (None: zero).  Returns (dr, dk, dv, dlogw, du, dh0), all float32.  The
     gradient is that of the exact token recurrence (``ref.
-    wkv6_chunked_bwd_ref``), whatever the chunk of the forward."""
+    wkv6_chunked_bwd_ref``), whatever the chunk of the forward.  A fake r
+    takes the shape-only branch (``cost.shape_only``)."""
+    if cost.shape_only(r):
+        B, S, H, K = r.shape
+        cost.record(cost.WKV_BWD, cost.wkv_bwd_bytes(B, S, H, K, r.element_size(),
+                                                     h0 is not None, dhT is not None),
+                    cost.wkv_bwd_ops(B, S, H, K), cost.dtype_name(r),
+                    cost.wkv_bwd_chunked_ops(B, S, H, K))
+        f32 = lambda *s: r.new_empty(s, dtype=torch.float32)
+        return (f32(*r.shape), f32(*r.shape), f32(*r.shape), f32(*r.shape), f32(H, K),
+                f32(B, H, K, K))
     if r.device.type == "cpu":
         return wkv6_chunked_bwd_ref(r, k, v, logw, u, h0, do, dhT)
     name = "wkv6_chunked_bwd"

@@ -1,8 +1,9 @@
-"""Serving meshes (counterpart of ``repro.launch.mesh``).
+"""Meshes (counterpart of ``repro.launch.mesh``).
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` of shape (data, model),
-its dims named ``("data", "model")``, over every rank of the running world:
-one process a card (or, on the CPU, a process a rank).  Under ``torchrun``
+its dims named ``("data", "model")``, or (pod, data, model) with a 'pod'
+axis before them, over every rank of the running world: one process a
+card (or, on the CPU, a process a rank).  Under ``torchrun``
 the mesh joins the world that ``torchrun`` describes (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR`` in the environment); with no process group
 and no such environment it starts a world of one itself, whose rendezvous
@@ -23,12 +24,18 @@ are split over the batch axes (``models.common.BATCH_AXES``: 'data', and
 while the ranks of a 'model' group compute the same rows, so 'model' saves
 memory, not compute.  Only rank 0 prints (``is_main``).
 
+``make_production_mesh`` is the H100 cluster the dry run
+(``launch.dryrun``) lays a cell out on: (data, model) = (32, 8), 256
+cards, or (pod, data, model) = (2, 32, 8), 512, the reference's card
+counts.
+
     PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \
         -m repro_torch.launch.train --arch rwkv6-7b --smoke \
         --epitome folded-q3 --device cpu              # (8, 1), gloo
 """
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import tempfile
@@ -41,6 +48,7 @@ import torch.distributed as dist
 from ..core.layers import axis_sizes
 
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 
 # the rendezvous directory of the world of one this module started, if any
 _OWN_STORE: Optional[str] = None
@@ -92,9 +100,10 @@ def destroy_world() -> None:
         _OWN_STORE = None
 
 
-def make_host_mesh(data: int = 1, model: int = 1, device="cuda"):
+def make_host_mesh(data: int = 1, model: int = 1, device="cuda", pod: int = 1):
     """A (data, model) mesh over the ranks of the running world (started
-    as a world of one when there is none).
+    as a world of one when there is none); with ``pod`` > 1 a (pod, data,
+    model) mesh.
 
     The requested shape is clamped to the world's size, with a warning when
     it degrades, so throughput is attributable to the mesh that actually
@@ -103,15 +112,54 @@ def make_host_mesh(data: int = 1, model: int = 1, device="cuda"):
     from torch.distributed.device_mesh import init_device_mesh
     n = init_world(device)
     want = (data, model)
-    data = max(1, min(data, n))
-    model = max(1, min(model, n // data))
+    data = max(1, min(data, n // pod))
+    model = max(1, min(model, n // (pod * data)))
     if (data, model) != want:
         warnings.warn(f"requested mesh (data, model)={want} clamped to ({data}, {model}): "
                       f"only {n} rank(s) in the world", stacklevel=2)
-    if data * model != n:
-        raise ValueError(f"mesh (data, model)=({data}, {model}) covers {data * model} of "
-                         f"the world's {n} ranks; every rank serves on the mesh")
+    if pod * data * model != n:
+        raise ValueError(f"mesh (pod, data, model)=({pod}, {data}, {model}) covers "
+                         f"{pod * data * model} of the world's {n} ranks; every rank "
+                         f"serves on the mesh")
+    if pod > 1:
+        return _with_batch_group(init_device_mesh(torch.device(device).type, (pod, data, model),
+                                                  mesh_dim_names=POD_AXES))
     return init_device_mesh(torch.device(device).type, (data, model), mesh_dim_names=AXES)
+
+
+def _with_batch_group(mesh):
+    """A (pod, data, model) mesh with its batch axes' group made now
+    (``models.moe.batch_group``, the MoE dispatch's): making a group is a
+    collective of every rank, so it is not left to a layer's forward."""
+    from ..models.moe import batch_group
+    batch_group(mesh)
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The H100 cluster a dry-run cell is laid out on, over the running
+    world, which must have its size (the dry run's is a fake world of
+    that size: ``launch.dryrun``):
+
+    * (data, model) = (32, 8): 256 cards;
+    * (pod, data, model) = (2, 32, 8): 512 cards.
+
+    These are the reference's card counts (its 16 x 16 and 2 x 16 x 16 TPU
+    pods), so the cells compare in size.  'model' is 8 because an HGX
+    H100 node joins its 8 cards over NVLink 4 and NVSwitch
+    (``kernels.cost.NVLINK_BW``), and the 'model' axis gathers a layer's
+    weight at every layer, so it stays inside a node; 'data' and 'pod'
+    cross nodes over InfiniBand (``kernels.cost.IB_BW`` a card), whose
+    collectives run once a step (the gradient sums) or once an MoE layer
+    (the dispatch)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = ((2, 32, 8), POD_AXES) if multi_pod else ((32, 8), AXES)
+    n = dist.get_world_size() if dist.is_initialized() else 0
+    if n != math.prod(shape):
+        raise ValueError(f"the production mesh {dict(zip(axes, shape))} needs a world of "
+                         f"{math.prod(shape)} ranks, the running world has {n}")
+    mesh = init_device_mesh(torch.device(device).type, shape, mesh_dim_names=axes)
+    return _with_batch_group(mesh) if multi_pod else mesh
 
 
 def parse_mesh(flag: str) -> Tuple[int, int]:
@@ -172,15 +220,9 @@ def say(*args, **kw) -> None:
 
 
 def describe(mesh) -> str:
+    """The mesh's axes and sizes ((pod,) data, model), the world's size
+    and backend."""
     if mesh is None:
         return "none (one device, no process group)"
     return (f"{axis_sizes(mesh)} over {dist.get_world_size()} rank(s) "
             f"({dist.get_backend()}, {mesh.device_type})")
-
-
-# Per-card hardware constants for the roofline: an NVIDIA H100 80GB HBM3
-# (SXM5), from its data sheet, the figures chip_smoke.py bounds kernels by
-PEAK_FLOPS_BF16 = 989e12          # FLOP/s, bf16 tensor cores, dense
-HBM_BW = 3.35e12                  # B/s, HBM3
-NVLINK_BW = 900e9                 # B/s, NVLink 4 (18 links, both directions together)
-HBM_BYTES = 80 * 2**30            # capacity

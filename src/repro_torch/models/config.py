@@ -206,6 +206,36 @@ class ModelConfig:
         the reference asks once per trace."""
         return _resolve(self, M, N, name)
 
+    # -- parameter counting (the roofline's MODEL_FLOPS, 6 N D / 6 N_active D) ---
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's count, arithmetic for arithmetic: embedding and
+        head, each layer's mixer and FFN (MoE: ``top_k`` experts when
+        ``active_only``, the router always); the RWKV channel mix and the
+        norms are not counted, as the reference counts neither."""
+        d, ff, hd = self.d_model, self.d_ff, self.hd
+        n = self.vocab * d  # embedding
+        if not self.tie_embeddings:
+            n += d * self.vocab
+        for kind, ffn in self.full_pattern:
+            reps = self.n_groups
+            if kind in (LayerKind.ATTN.value, LayerKind.ATTN_LOCAL.value):
+                n += reps * (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                             + self.n_heads * hd * d)
+            elif kind == LayerKind.MAMBA.value:
+                di, ds = self.mamba_d_inner, self.mamba_d_state
+                n += reps * (d * 2 * di + di * self.mamba_d_conv
+                             + di * (ds * 2 + di // 16 + ds) + di * d)
+            elif kind == LayerKind.RWKV.value:
+                n += reps * (4 * d * d + d * self.rwkv_lora_decay * 2
+                             + 5 * d * self.rwkv_lora_mix * 2)
+            if ffn == "moe":
+                e = self.n_experts if not active_only else self.top_k
+                n += reps * (e * 3 * d * ff + d * self.n_experts)
+            elif ffn == "dense":
+                mult = 3 if self.act in ("silu", "gelu") else 2
+                n += reps * (mult * d * ff)
+        return n
+
 
 @functools.lru_cache(maxsize=None)
 def _resolve(cfg: ModelConfig, M: int, N: int, name: Optional[str]) -> EpLayerConfig:

@@ -2,16 +2,18 @@
 
 Two paths, chosen by ``moe_ffn`` as the reference chooses:
 
-1. ``moe_dispatch`` (a mesh installed, prefill or training): each data
-   rank routes its rows of the batch, packs them into per-destination
-   capacity buffers (``_local_pack``: rank within the expert by a cumsum,
-   no sort), swaps them with ``all_to_all_single`` over the data ranks,
-   runs its expert slot on what it received (its ``d_ff / model``
-   columns; the ff-partial outputs summed over 'model' by
-   ``all_reduce``), swaps them back and combines in float32
+1. ``moe_dispatch`` (a mesh installed, prefill or training): each batch
+   rank (a rank of 'data', and of 'pod' where the mesh has it: the batch
+   axes together, pod-major, ``common.batch_rank``) routes its rows of the
+   batch, packs them into per-destination capacity buffers
+   (``_local_pack``: rank within the expert by a cumsum, no sort), swaps
+   them with ``all_to_all_single`` over the batch ranks (one group over
+   the batch axes, flattened), runs its expert slot on what it received
+   (its ``d_ff / model`` columns; the ff-partial outputs summed over
+   'model' by ``all_reduce``), swaps them back and combines in float32
    (``_local_unpack``).  Serving, every rank holds the whole batch: it
-   takes its rows, and the rows are gathered over 'data' at the end (by
-   a plain ``all_gather``: this form refuses autograd).  Training
+   takes its rows, and the rows are gathered over the batch ranks at the
+   end (by a plain ``all_gather``: this form refuses autograd).  Training
    (``common.split_rows``), a rank holds only its rows, and takes and
    returns them.  Capacity C = ceil(T_local * top_k *
    capacity_factor / n_dest); overflow is dropped (GShard).  The
@@ -20,8 +22,9 @@ Two paths, chosen by ``moe_ffn`` as the reference chooses:
    its gradient over 'model'), and a slot's weight gradient lands on the
    whole (E, d, ff) leaf, its replicas summed over the data ranks (the
    reference's ``jnp.repeat`` transpose): by the gather's
-   ``reduce_scatter`` for a laid-out leaf, by the train loop's sum over
-   the batch axes for a replicated one, as for the router.
+   ``reduce_scatter`` for a laid-out leaf (and the train loop's sum over
+   'pod'), by the train loop's sum over the batch axes for a replicated
+   one, as for the router.
 2. ``moe_dense`` (no mesh, decode, small batches): every expert on every
    token, then the masked combine.
 
@@ -39,7 +42,8 @@ from typing import Tuple
 import torch
 
 from ..core.layers import axis_sizes, local_of, unshard
-from .common import BATCH_AXES, TENSOR_AXIS, act_fn, batch_size, get_mesh, rows_split
+from .common import (BATCH_AXES, TENSOR_AXIS, act_fn, batch_rank, batch_size, get_mesh,
+                     rows_split)
 from .config import ModelConfig
 
 
@@ -108,8 +112,20 @@ def moe_dense(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Dispatch: all_to_all over the data ranks
+# Dispatch: all_to_all over the batch ranks
 # ---------------------------------------------------------------------------
+def batch_group(mesh):
+    """The process group of this rank's batch ranks: its group over the one
+    batch axis the mesh has, or, over ('pod', 'data'), the two axes
+    flattened into one group, pod-major (``DeviceMesh._flatten``, made
+    once a mesh: every rank makes it at its first dispatch).  Its rank
+    order is ``common.batch_rank``'s."""
+    axes = tuple(a for a in BATCH_AXES if a in mesh.mesh_dim_names)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten("_".join(axes)).get_group()
+
+
 def _local_pack(x2: torch.Tensor, weights: torch.Tensor, experts: torch.Tensor,
                 n_dest: int, cap: int, repl: int, n_experts: int):
     """Pack local tokens into (n_dest, cap, d) send buffers.
@@ -203,25 +219,21 @@ class _FromModel(torch.autograd.Function):
 
 
 def moe_dispatch(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Expert parallelism over the data ranks (see the module docstring):
+    """Expert parallelism over the batch ranks (see the module docstring):
     x (B, S, d) -> (B, S, d) in x's dtype; serving, x is the whole batch on
     every rank and so is the result; training (``common.split_rows``),
     both are this rank's rows."""
     mesh = get_mesh()
     if mesh is None:
         raise RuntimeError("moe_dispatch needs a mesh (models.common.set_mesh)")
-    names = mesh.mesh_dim_names
-    dp_axes = tuple(a for a in BATCH_AXES if a in names)
-    if len(dp_axes) != 1:
-        raise ValueError(f"moe_dispatch runs over one batch axis, the mesh has {dp_axes}")
-    dp_group, dp_rank = mesh.get_group(dp_axes[0]), mesh.get_local_rank(dp_axes[0])
+    dp_group, dp_rank = batch_group(mesh), batch_rank(mesh)
     n_dest = batch_size(mesh)
     tp = axis_sizes(mesh).get(TENSOR_AXIS, 1)
     tp_rank = mesh.get_local_rank(TENSOR_AXIS) if tp > 1 else 0
     E = cfg.n_experts
     repl = max(1, n_dest // E)            # replicas per expert
     if E * repl != n_dest:
-        raise ValueError(f"experts {E} not mappable onto {n_dest} data shards")
+        raise ValueError(f"experts {E} not mappable onto {n_dest} batch shards")
     if cfg.d_ff % tp:
         raise ValueError(f"d_ff {cfg.d_ff} does not split over {tp} model ranks")
     act = act_fn(cfg.act)

@@ -80,8 +80,10 @@ def test_mesh_for_plan_warns_on_placement_fallback(world):
 
 
 def test_card_constants_are_the_h100s():
-    assert tmesh.PEAK_FLOPS_BF16 == 989e12 and tmesh.HBM_BW == 3.35e12
-    assert tmesh.HBM_BYTES == 80 * 2**30 and tmesh.NVLINK_BW == 900e9
+    from repro_torch.kernels import cost
+    assert cost.BF16_TC_FLOPS == 989e12 and cost.HBM_BW == 3.35e12
+    assert cost.HBM_BYTES == 80 * 2**30 and cost.NVLINK_BW == 900e9
+    assert cost.IB_BW == 50e9
 
 
 # -- core/layers.py: placement specs and the divisibility snap -------------------------

@@ -77,7 +77,8 @@ def test_every_pack_block_and_a_ragged_m(bk, bits):
     ((1024, 16, 256), 4, 64),       # rwkv6-7b (1024, 4096): 128-row splits give 256 < 264 blocks
     ((1024, 56, 256), 4, 128),      # (1024, 14336): 8 splits x 112 tiles
     ((3584, 16, 256), 4, 128),      # (3584, 4096): 28 splits x 32 tiles
-    ((2000, 4, 256), 32, 128),      # ResNet-50 fc at batch 32: T > 8 takes 128 rows
+    ((2000, 4, 256), 32, 64),       # ResNet-50 fc at batch 32: 16 x 8 blocks of 128 rows
+    ((1024, 16, 256), 16, 64),      # rwkv6-7b (1024, 4096) at 16 rows: as at 4, whatever T
     ((1024, 16, 256), 33, 512),     # past the cut-over: tensor cores, 32 tiles, 2 splits
     ((1024, 16, 256), 1024, 0),     # prefill rows: 256 tiles fill the card
     ((2304, 2, 256), 1568, 576),    # ResNet-50 layer4 3x3: 52 tiles, 4 splits of 18 steps
@@ -85,8 +86,8 @@ def test_every_pack_block_and_a_ragged_m(bk, bits):
 ])
 def test_split_rows_picks(args, T, rows):
     """The wrapper's split-K picks (kernel #1): the decode loop takes two
-    waves of 132 SMs where it can; the tensor-core loop splits only few
-    tiles with a long contraction."""
+    waves of 132 SMs where it can, by (m, gn, bn) alone, never by T; the
+    tensor-core loop splits only few tiles with a long contraction."""
     from repro_torch.kernels.quant_epitome_matmul import DECODE_ROWS, split_rows
     m, gn, bn = args
     got = split_rows(T, m, gn, bn)
@@ -95,6 +96,8 @@ def test_split_rows_picks(args, T, rows):
         assert got in (64, 128)
         if got == 64:
             assert -(-m // 128) * gn * -(-bn // 128) < 2 * 132
+        # one split at every T the decode loop takes: a row sums in one order
+        assert {split_rows(t, m, gn, bn) for t in range(1, DECODE_ROWS + 1)} == {got}
     elif got:
         assert got % 32 == 0 and got // 32 >= 16
     assert split_rows(T, m, gn, bn, decode=False) % 32 == 0

@@ -12,6 +12,13 @@
    ``moe_dense``, as the reference's tests/test_system.py holds its own.
 3. ``moe_ffn`` takes the dispatch path at prefill and the dense path at a
    decode step.
+4. (2, 2, 2) (pod, data, model) mesh, phi3.5-moe smoke in float32 with
+   capacity factor 8: ``moe_dispatch`` swaps rows over the pod and data
+   ranks together (one all_to_all group of 4), and the served prefill
+   logits equal those of the (4, 2) mesh's one-axis dispatch bit for bit
+   and one device's (the dense path) within rel 1e-4, as dispatch and
+   dense are held above: the experts' products run on other row counts,
+   so the dispatch cannot be one device's bits.
 
 The port is held to its own one-rank run, not to the reference's sharded
 run: the cross-rank evidence of the reference comes from fake XLA devices.
@@ -118,6 +125,41 @@ def _check_moe_ffn() -> dict:
     return dict(paths=taken, same_as_the_path=same)
 
 
+def _check_moe_pod() -> dict:
+    """4: phi3.5-moe smoke served on (2, 2, 2), on (4, 2) and on no mesh."""
+    import dataclasses
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models import lm, moe
+    from repro_torch.models.common import set_mesh
+    logits, groups, taken = {}, {}, []
+    dispatch = moe.moe_dispatch
+    moe.moe_dispatch = lambda *a: taken.append(len(taken)) or dispatch(*a)
+    try:
+        for shape in ((2, 2, 2), (4, 2), None):
+            mesh = None if shape is None else make_host_mesh(*shape[-2:], "cpu",
+                                                             pod=shape[0] if len(shape) > 2 else 1)
+            set_mesh(mesh)
+            cfg, params = build_model("phi3.5-moe-42b-a6.6b", "off", True, 0, "cpu", mesh=mesh)
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0, compute_dtype="float32")
+            prompts = torch.randint(0, cfg.vocab, (4, 16),
+                                    generator=torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                out, _ = lm.prefill(params, prompts,
+                                    lm.init_decode_state(cfg, 4, 24, "cpu", mesh=mesh), cfg)
+            tag = "none" if shape is None else "x".join(map(str, shape))
+            logits[tag] = out
+            if mesh is not None:
+                groups[tag] = torch.distributed.get_world_size(moe.batch_group(mesh))
+            set_mesh(None)
+    finally:
+        moe.moe_dispatch = dispatch
+    err = float((logits["2x2x2"] - logits["none"]).abs().max())
+    return dict(pod_equals_one_axis=torch.equal(logits["2x2x2"], logits["4x2"]),
+                rel_to_none=err / float(logits["none"].abs().max()), group_sizes=groups,
+                dispatches=len(taken))
+
+
 def _rank(rank: int, world: int, store: str, plan_path: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     from repro_torch.launch import mesh as tmesh
@@ -127,6 +169,7 @@ def _rank(rank: int, world: int, store: str, plan_path: str, out_dir: str) -> No
         out["rwkv"] = _check_rwkv(plan_path)
         out["moe"] = _check_moe()
         out["moe_ffn"] = _check_moe_ffn()
+        out["moe_pod"] = _check_moe_pod()
     except Exception:
         out["error"] = traceback.format_exc()
         raise
@@ -180,6 +223,18 @@ def test_moe_ffn_dispatches_prefill_and_decodes_dense(ranks):
     for out in ranks:
         assert out["moe_ffn"]["paths"] == ["dispatch", "dense"], out["moe_ffn"]
         assert out["moe_ffn"]["same_as_the_path"]
+
+
+def test_moe_dispatch_over_pod_and_data_serves_as_one_batch_axis(ranks):
+    """The dispatch over ('pod', 'data') runs one all_to_all group of the 4
+    batch ranks, and serves the (4, 2) mesh's logits bit for bit, one
+    device's within the dispatch's tolerance against dense."""
+    for out in ranks:
+        res = out["moe_pod"]
+        assert res["group_sizes"] == {"2x2x2": 4, "4x2": 4}, res
+        assert res["dispatches"] > 0, res
+        assert res["pod_equals_one_axis"], res
+        assert res["rel_to_none"] < 1e-4, res
 
 
 def test_plan_run_mesh_cli(plan_path):

@@ -15,10 +15,13 @@ devices).
    after 3 steps near one rank's; on (4, 2) the split blocks add up to the
    whole.
 3. grok smoke in float32 at capacity factor 8, on (8, 1) (2 replicas an
-   expert) and (4, 2) (each expert's d_ff split over 'model'):
-   ``moe_dispatch`` within rel 1e-4 of ``moe_dense`` forward and every
-   MoE leaf's gradient, the router's too, and the input's within 1e-3 (the
-   reference's ``:58``).
+   expert), (4, 2) (each expert's d_ff split over 'model') and (2, 2, 2)
+   (the dispatch over 'pod' and 'data' together): ``moe_dispatch`` within
+   rel 1e-4 of ``moe_dense`` forward and every MoE leaf's gradient, the
+   router's too, and the input's within 1e-3 (the reference's ``:58``);
+   and phi3.5-moe smoke's whole training step (loss and every gradient,
+   ``grad_accum=2``) on (2, 2, 2) within the float32 tolerance of one
+   device's.
 4. (1, 8), int8 moments and ``compress_grads`` with leaves whose last dim
    splits below 256: residuals, codes and scales equal one rank's bit for
    bit.
@@ -193,7 +196,7 @@ def _check_moe(shape) -> dict:
     xd = x.clone().requires_grad_(True)
     y_dense = moe.moe_dense(dense, xd, cfg)
     *g_dense, dx_dense = torch.autograd.grad((y_dense ** 2).sum(), list(dense.values()) + [xd])
-    mesh = make_host_mesh(*shape, "cpu")
+    mesh = make_host_mesh(*shape[-2:], "cpu", pod=shape[0] if len(shape) == 3 else 1)
     set_mesh(mesh)
     laid = {k: lay_out(v.clone(), moe.moe_param_specs(cfg)[k], mesh) for k, v in params.items()}
     locs = [local_of(v).requires_grad_(True) for v in laid.values()]
@@ -222,6 +225,35 @@ def _check_moe(shape) -> dict:
     return dict(n_experts=cfg.n_experts, rel_y=rel_y, rel_g=rel_g, rel_dx=rel_dx,
                 router_nonzero=bool(g_dense[0].abs().max() > 0), whole_refused=whole_refused,
                 laid=[type(v).__name__ for v in laid.values()])
+
+
+def _check_moe_pod_step() -> dict:
+    """3: phi3.5-moe smoke's training step on (2, 2, 2) against one device:
+    the loss and every gathered gradient, as step 2 holds a data split."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import batch_rank, batch_size, set_mesh
+    from repro_torch.train import loop, optimizer
+    from repro_torch.train.data import host_rows
+    from repro_torch.train.tree import leaves
+    cfg = dataclasses.replace(get_smoke_config("phi3.5-moe-42b-a6.6b"), capacity_factor=8.0,
+                              compute_dtype="float32")
+    opt, tc = optimizer.AdamWConfig(lr=LR), loop.TrainConfig(grad_accum=2)
+    batch = _torch(_batches(cfg.vocab)[0])
+    set_mesh(None)
+    one = loop.init_state(torch.Generator().manual_seed(0), cfg, opt, tc, "cpu")
+    l1, g1 = loop.loss_and_grads(one["params"], batch, cfg, tc)
+    mesh = make_host_mesh(2, 2, "cpu", pod=2)
+    set_mesh(mesh)
+    st = loop.init_state(torch.Generator().manual_seed(0), cfg, opt, tc, "cpu", mesh=mesh)
+    rows = host_rows(batch, batch_rank(), batch_size(), tc.grad_accum)
+    loss, g = loop.loss_and_grads(st["params"], rows, cfg, tc)
+    got = [_whole(p, x) for p, x in zip(leaves(st["params"]), leaves(g))]
+    set_mesh(None)
+    rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for a, b in zip(got, leaves(g1))]
+    return dict(loss=float(loss), loss_one=float(l1), rel_max=max(rel),
+                n_leaves=len(rel))
 
 
 def _check_int8_and_compression() -> dict:
@@ -381,7 +413,8 @@ def _rank(rank: int, world: int, store: str, out_dir: str, data: str) -> None:
     try:
         out["model_axis"] = _check_model_axis()
         out["rows_split"] = _check_rows_split(data, out_dir, rank)
-        out["moe"] = {"x".join(map(str, s)): _check_moe(s) for s in ((8, 1), (4, 2))}
+        out["moe"] = {"x".join(map(str, s)): _check_moe(s) for s in ((8, 1), (4, 2), (2, 2, 2))}
+        out["moe_pod_step"] = _check_moe_pod_step()
         out["int8"] = _check_int8_and_compression()
         out["gather"] = _check_gather_backward()
         out["elastic"] = _check_elastic(os.path.join(out_dir, "elastic"))
@@ -502,7 +535,7 @@ def test_four_by_two_blocks_add_up_to_the_whole(ranks):
     assert res["state_bytes"] < res["whole_state_bytes"] / 2
 
 
-@pytest.mark.parametrize("tag", ["8x1", "4x2"])
+@pytest.mark.parametrize("tag", ["8x1", "4x2", "2x2x2"])
 def test_moe_dispatch_gradients_match_dense(ranks, tag):
     for out in ranks:
         res = out["moe"][tag]
@@ -512,12 +545,22 @@ def test_moe_dispatch_gradients_match_dense(ranks, tag):
         assert all(v < 1e-3 for v in res["rel_g"].values()) and res["rel_dx"] < 1e-3, res
 
 
+def test_moe_step_over_pod_and_data_matches_one_device(ranks):
+    """A whole training step whose MoE dispatch runs over ('pod', 'data'):
+    the loss and every gradient within the float32 tolerance of one
+    device's (its dense path)."""
+    for out in ranks:
+        res = out["moe_pod_step"]
+        assert abs(res["loss"] - res["loss_one"]) <= F32_TOL * res["loss_one"], res
+        assert res["rel_max"] <= F32_TOL, res
+
+
 def test_moe_dispatch_refuses_a_gradient_of_the_whole_batch(ranks):
     """Outside ``split_rows`` the dispatch gathers the whole batch back
     through a plain all_gather: with autograd live it raises rather than
     drop the MoE branch's gradient."""
     for out in ranks:
-        assert all(out["moe"][tag]["whole_refused"] for tag in ("8x1", "4x2")), out["moe"]
+        assert all(out["moe"][tag]["whole_refused"] for tag in ("8x1", "4x2", "2x2x2")), out["moe"]
 
 
 def test_gather_backward_sums_over_data_only_with_the_rows_split(ranks):
