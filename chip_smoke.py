@@ -9,7 +9,7 @@
     python3 chip_smoke.py --time-decode TREE   # kernel #1's decode rows of checkout TREE alone
     python3 chip_smoke.py --time-lm-host TREE   # phase 5's decode steps on checkout TREE's port
 
-Ten main paths, each at the full width of its model:
+Eleven main paths, each at the full width of its model:
 
 * EPIM-ResNet-50 at 3-bit epitome-aware quantization,
   ``get_resnet("resnet50", "kernel-q3")`` -> ``prepack`` -> ``apply``: 45
@@ -56,7 +56,13 @@ Ten main paths, each at the full width of its model:
   ``launch.engine.EpimEngine``: each Mamba layer one launch of the
   selective-scan kernel (``mamba_scan``) a forward, prefill and decode
   alike, and kernel #1 at its 4 projections, the attention's 4 and the
-  dense FFN's 3.
+  dense FFN's 3;
+* training jamba-1.5-large at folded-q3 at published widths, one period of
+  8 layers (``MAMBA_FFN``), ``train.loop.init_state`` -> ``make_train_step``
+  -> ``train_loop``: each Mamba layer a launch of the scan forward, again in
+  the backward's recompute, and one of its gradient kernel
+  (``mamba_scan_bwd``); the attention layer and the dense FFN differentiated
+  by autograd.
 
 Besides, phase 15 tunes the searched ResNet-50 plan's kernel blocks on the
 card and searches a plan by kernel latency measured there, and serves both;
@@ -91,7 +97,7 @@ Phases:
              forward; then the same model at batch 2 on the card against
              the plain versions on the CPU.
    The batch-32 forward is timed and its peak memory recorded; the batch-2
-   check of each path is made again at four more seeds (weights and
+   check of each path is made again at two more seeds (weights and
    images) and its largest reading and margin logged.
 4. LM kernels — the int8 kernel in bf16 and float32 at rwkv6-7b's three
              projection shapes, at prefill rows (4 x 256) and decode rows
@@ -153,7 +159,7 @@ Phases:
              launches exact (kernel #1 256 or 112 a forward, kernel #4 32 a
              prefill or chunk); K = 1 and the reverse order give the same
              tokens bit for bit.  Greedy requests against one-shot generate
-             (all 8; 2 at qwen2-72b): first-token logits in float32 (the
+             (4 of 8 at rwkv6-7b; 2 at qwen2-72b): first-token logits in float32 (the
              same weights) within 1e-4 of their scale (bf16's recorded
              beside the one-shot's own spread between 1 and 4 rows); tokens
              equal, or parting where the engine's own computation of the
@@ -197,7 +203,8 @@ Phases:
              fresh state of the same seed: loss, gradients and new state bit
              for bit; (d) 2 layers: an async checkpoint at step 2 restored
              into a fresh state, whose steps 2-3 equal the straight run's bit
-             for bit.
+             for bit.  The CPU's half of (b) (its loss, gradients and AdamW
+             step) runs in a thread beside (a) and (c); 14 (e) does the same.
 14. Mamba  — after phase 13 has freed the card: (a) the scan kernel at
              jamba's width (d_inner 16384, 16 states): 4 x 256 tokens with
              bf16 and float32 dt, x, B, C, a zero and a random h0, a ragged
@@ -224,7 +231,27 @@ Phases:
              float32 card against CPU: jamba's widths at 2 Mamba layers
              with the dense FFN, 2 x 64 tokens, and the jamba smoke config
              (16 layers: Mamba, attention, MoE) with the router's experts
-             equal; backward() through the scan refuses on the card.
+             equal.  (e) Mamba training, after (d) has freed the card: the
+             scan's gradient kernel at 8 x 256 tokens of jamba's width
+             (bf16 with a zero state, dy and no dhT, counted; float32 with
+             h0, dy and dhT, and with no dy; bf16 at a ragged S = 250)
+             against its plain version and autograd through the plain
+             forward (ddt, dx, dh0 at KERNEL_TOL; dA, dD, dB, dC at
+             GRAD_TOL), three launches bit for bit, split at token 128 and
+             carried through dh bit for bit (dA, dD within GRAD_TOL), timed
+             beside its plain version, its bound, its own bytes and the
+             SFU's time, ptxas' registers and spills, its scratch; the scan
+             forward at that shape; float32 training card against CPU (loss,
+             every gradient leaf, one AdamW step) at jamba's widths with 2
+             Mamba layers and the dense FFN, 2 x 64 tokens, and on the smoke
+             config with the router's experts equal; jamba folded-q3 at one
+             period (8 layers, bf16 compute, float32 AdamW, 8 x 256): a
+             warm-up step with exactly 14 scan and 7 gradient launches, no
+             kernel #1 or #3, non-zero gradients on every Mamba leaf (A_log,
+             D, conv_w, in/x/dt/out_proj), 3 timed steps through train_loop
+             (counted), one profiled (the scan's forward and gradient as
+             shares of busy), peak memory, the warm-up step again bit for
+             bit.
 15. tuning — on phase 8's evo-latency-q3 plan at batch 32 x 224^2, with
              caches of its own under build/tune: (a) ``autotune.tune`` over
              the default grid (iters 5) at the plan's most-launched kernel
@@ -266,8 +293,9 @@ Phases:
              the main paths (the ResNet forwards, one LM generate at each
              variant and of each attention LM and of the MoE LM, the
              quant_matmul calls, the engine's K = 4 runs, the 3 timed
-             training steps, jamba's generate and engine run, phase 17's
-             3 mesh steps); kernel #2 beside kernel #1 plus the fold on
+             training steps, jamba's generate and engine run and its 3
+             timed training steps, phase 17's 3 mesh steps); kernel #2
+             beside kernel #1 plus the fold on
              each ResNet path.  Run last.
 17. mesh training — after phase 16 has ended its process group: (a)
              phase 13 (c)'s rwkv6-7b folded-q3 (32 layers, bf16 compute,
@@ -292,8 +320,9 @@ Phases:
              rows are reported), each shape then against its plain version
              and timed (counted launches); (b) ``launch/dryrun.py``, run in
              a subprocess on the host from the end of phase 1 (its tensors
-             fake, its world of one), on phase 13's training step and phase
-             5's prefill and decode step: its kernels' launches a step equal
+             fake, its world of one), on phase 13's training step, phase
+             5's prefill and decode step and phase 14 (e)'s jamba training
+             step: its kernels' launches a step equal
              those the phases counted, its argument bytes are within 1 % of
              what the card allocated for the step's inputs, its roofline's
              bound and three terms (H100 data-sheet constants) are at most
@@ -318,7 +347,9 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 # phase 12 holds a 76 GiB model on an 80 GB card: grow segments rather than
 # strand freed blocks (set before torch is imported)
@@ -342,7 +373,8 @@ WKV_TOL = 1e-3              # the WKV, fp32 (tests/test_kernels.py:85)
 # The LM's card-vs-CPU check keeps it: float32 through 2 layers of 8
 # projections and the WKV recurrence, summed in other orders on the card.
 LOGIT_TOL = 1e-4
-LOGIT_SEEDS = (1, 2, 3, 4)   # more seeds for the ResNet logits check, beside SEED
+LOGIT_SEEDS = (1, 2)         # more seeds for the ResNet logits check, beside SEED (1-4
+                             # until phase 14 (e) came)
 LM_ARCH, LM_REQUESTS, LM_PROMPT, LM_NEW = "rwkv6-7b", 4, 256, 32
 CPU_LAYERS, CPU_PROMPT, CPU_NEW = 2, 80, 4   # 80 = one 64-token chunk + a ragged 16
 # the attention LMs at kernel-q3, bf16, full width and depth: (arch,
@@ -367,7 +399,7 @@ ATTN_PATHS = (
 # script must end within 1200 s on the slowest of them (phase 9 serves the
 # 80 layers one-shot)
 ENGINE_PATHS = (
-    ("rwkv6-7b", 0, 0, None, 8 * 32, tuple(range(8))),
+    ("rwkv6-7b", 0, 0, None, 8 * 32, (0, 2, 4, 7)),     # all 8 greedy until phase 14 (e)
     ("qwen2-72b", 16, 48, 16, 7 * 16, (1, 4)),
 )
 ENGINE_CAPACITY, ENGINE_MAX_LEN, ENGINE_CHUNK, ENGINE_BLOCK = 4, 320, 64, 4
@@ -425,6 +457,18 @@ MAMBA_DEPTH = 8
 MAMBA_SITES, MAMBA_LAYERS = 7 * 4 + 1 * 4 + 4 * 3, 7
 MAMBA_MICRO, MAMBA_CHUNKS, MAMBA_ONESHOT = 77, 9, (1, 4)
 MAMBA_WORKSPACE = 3 << 29   # 1.5 GiB the phase needs free beside the parameters
+# phase 14 (e), Mamba training: jamba-1.5-large at folded-q3, one period
+# (MAMBA_DEPTH layers, MAMBA_FFN), bf16 compute with float32 parameters and
+# AdamW moments, TRAIN_BATCH x TRAIN_SEQ a step: each Mamba layer a launch of
+# the scan forward, again in the backward's recompute, and one of its
+# gradient kernel.  That kernel alone at the step's shape, held at
+# KERNEL_TOL on ddt, dx and dh0 and at GRAD_TOL on its sums over channels or
+# tokens (dA, dD, dB, dC), bit for bit across three launches and across a
+# split at MAMBA_SPLIT tokens; card against CPU at CPU_LAYERS Mamba layers of
+# jamba's widths with the dense FFN and on the smoke config (MoE, attention)
+MAMBA_BWD = "mamba_scan_bwd"
+MAMBA_TRAIN_VARIANT = "folded-q3"
+MAMBA_SPLIT = 128
 # phase 16, sharded serving: rwkv6-7b from a plan searched (the reference
 # test's search size) and legalized for a (1, 1) mesh, served on a (1, 1)
 # NCCL mesh with its codes laid out by placement, held bit for bit to the
@@ -432,7 +476,7 @@ MAMBA_WORKSPACE = 3 << 29   # 1.5 GiB the phase needs free beside the parameters
 # phase 10's rwkv6-7b requests through EngineConfig(mesh="1,1")
 MESH_EVO = dict(population=6, iterations=3, seed=0)
 MESH_PATH = f"{LM_ARCH} mesh 1,1"
-MESH_TURNS = 5          # phase 16's in-turns rounds
+MESH_TURNS = 2          # phase 16's in-turns rounds (5 until phase 14 (e) came)
 MESH_AB_ROUNDS = 20     # --time-mesh
 # phase 17, training on a mesh: phase 13 (c)'s rwkv6-7b on a (1, 1) NCCL mesh
 # through init_state(mesh=), its warm-up step held to phase 13's bit for bit,
@@ -487,6 +531,11 @@ KERNELS = {   # kernel -> (source, the TPU kernel it replaces)
     "mamba_scan": (
         "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "none (no TPU kernel): the jnp scan src/repro/models/ssm.py:320, :395-411"),
+    # the scan's gradient: the reference differentiates its jnp scan
+    "mamba_scan_bwd": (
+        "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+        "none (no TPU kernel): jax.grad of the jnp scan, src/repro/models/ssm.py:320, "
+        ":403-418"),
 }
 QUANT = "quant_epitome_matmul_blocks"
 
@@ -554,7 +603,8 @@ def graph_ms(torch, fn, calls: int = 20) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # thread-local capture: phase 14 (e) runs CPU work in a thread meanwhile
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for _ in range(calls):
             fn()
     ms = time_ms(torch, graph.replay) / calls
@@ -793,6 +843,16 @@ def main() -> int:
     launches[MAMBA] = (mamba_report["lm"]["launches"][MAMBA]
                        + mamba_report["engine"]["launches"][MAMBA])
 
+    # -- 14 (e). Mamba training: jamba folded-q3, one period, the scan's gradient --
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba_train_rows, mamba_train = mamba_train_phase(torch, dev, gen, ref, WRAPPERS, lm,
+                                                      get_config, launch_counts,
+                                                      reset_launch_counts)
+    rows += mamba_train_rows
+    launches[MAMBA] += mamba_train["run"]["launches"][MAMBA]
+    launches[MAMBA_BWD] = mamba_train["run"]["launches"][MAMBA_BWD]
+
     # -- 15. tuning and measured cost: the searched ResNet-50 plan -----------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -823,7 +883,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dry_rows, dry_report = dryrun_phase(torch, dev, gen, ops, ref, WRAPPERS, launch_counts,
-                                        reset_launch_counts, dry, lm_run, train_report["run"])
+                                        reset_launch_counts, dry, lm_run, train_report["run"],
+                                        mamba_train["run"])
     rows += dry_rows
     launches[QUANT] += dry_report["row_check"]["launches"]
 
@@ -890,7 +951,8 @@ def main() -> int:
                   attention_card_vs_cpu=attn_cpu, engine=engine_runs,
                   engine_card_vs_cpu=engine_cpu, fold_probe=fold, plan=plan_run["plan"],
                   quant_matmul_vs_f64=qm_f64, moe=moe_report, train=train_report,
-                  mamba=mamba_report, tuning=tune_report, mesh=mesh_report,
+                  mamba=mamba_report, mamba_train=mamba_train, tuning=tune_report,
+                  mesh=mesh_report,
                   mesh_train=mtrain_report, dryrun=dry_report,
                   total_s=time.perf_counter() - t_start, card_end=card_line())
     out = ROOT / "build"
@@ -903,7 +965,8 @@ def main() -> int:
         + ", ".join(f"{a} {t:.1f}" for a, t in report["attention_s"].items()) + ", engine "
         + ", ".join(f"{a} {t:.1f}" for a, t in report["engine_s"].items())
         + f", MoE {moe_report['seconds']:.1f}, training {train_report['seconds']:.1f}, "
-        f"Mamba {mamba_report['seconds']:.1f}, tuning {tune_report['seconds']:.1f}, "
+        f"Mamba {mamba_report['seconds']:.1f}, Mamba training {mamba_train['seconds']:.1f}, "
+        f"tuning {tune_report['seconds']:.1f}, "
         f"mesh {mesh_report['seconds']:.1f}, mesh training {mtrain_report['seconds']:.1f}, "
         f"dry run {dry_report['seconds']:.1f})")
     log(report["card_end"])
@@ -1928,7 +1991,8 @@ class route_recorder:
 
         def rec(x2d, router, cfg):
             w, e = orig(x2d, router, cfg)
-            top = self.torch.topk(x2d.float() @ router, cfg.top_k + 1, dim=-1).values
+            with self.torch.no_grad():
+                top = self.torch.topk(x2d.float() @ router, cfg.top_k + 1, dim=-1).values
             self.seen.append((x2d.device.type, e.cpu(), float((top[:, -2] - top[:, -1]).min())))
             return w, e
         self.moe._route = rec
@@ -2146,9 +2210,62 @@ def _checksum(torch, tensors) -> list:
     return out
 
 
-def train_card_vs_cpu(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves):
+def train_cpu_half(torch, loop, optimizer, SyntheticData, leaves, host, cfg) -> dict:
+    """The CPU's half of ``train_card_vs_cpu`` on ``host`` (the card's
+    initial parameters, copied): its loss and gradients on TRAIN_CPU_BATCH x
+    TRAIN_CPU_SEQ tokens, and how far one AdamW step (lr TRAIN_CPU_LR, no
+    warm-up) taken on them from its gradients moves each parameter.  It
+    touches no card, so it may run in a thread beside the card's work."""
+    batch = SyntheticData(cfg.vocab, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, seed=SEED).batch(0)
+    opt = optimizer.AdamWConfig(lr=TRAIN_CPU_LR, warmup_steps=0)
+    t0 = time.perf_counter()
+    loss, grads = loop.loss_and_grads(host, batch, cfg)
+    cpu_s = time.perf_counter() - t0
+    old = [p.detach().clone() for p in leaves(host)]
+    t1 = time.perf_counter()
+    st = {"params": host, "opt": optimizer.adamw_init(host, opt),
+          "step": torch.zeros((), dtype=torch.int32)}
+    loop.apply_grads(st, grads, opt)
+    deltas = [p.detach() - p0 for p, p0 in zip(leaves(host), old)]
+    return dict(loss=loss, grads=grads, deltas=deltas, batch=batch, opt=opt, cpu_s=cpu_s,
+                adamw_s=time.perf_counter() - t1, seconds=time.perf_counter() - t0)
+
+
+class CpuHalf:
+    """``train_cpu_half`` for ``cfg`` on a CPU copy of the card's initial
+    parameters (drawn from SEED as ``train_card_vs_cpu`` draws them), run in
+    a thread beside the card's work, with half of torch's threads: the
+    caller's thread keeps the rest of the cores, which its host-bound
+    launches need (with all but two taken, phase 14 (e)'s (c) set up 14x
+    slower).  ``result()`` waits for it, restores the thread count and
+    returns its dict with ``waited_s``."""
+
+    def __init__(self, torch, dev, lm, cfg, loop, optimizer, SyntheticData, leaves):
+        host = _to_cpu(lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev))
+        torch.cuda.empty_cache()
+        self.torch, self.threads = torch, torch.get_num_threads()
+        torch.set_num_threads(max(1, self.threads // 2))
+        self.pool = ThreadPoolExecutor(1)
+        self.future = self.pool.submit(train_cpu_half, torch, loop, optimizer, SyntheticData,
+                                       leaves, host, cfg)
+
+    def result(self) -> dict:
+        t0 = time.perf_counter()
+        try:
+            out = self.future.result()
+        finally:
+            self.pool.shutdown(wait=True)
+            self.torch.set_num_threads(self.threads)
+        out["waited_s"] = time.perf_counter() - t0
+        return out
+
+
+def train_card_vs_cpu(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
+                      cfg=None, what=None, tag="[train-cpu]", cpu=None):
     """Phase 13 (b): rwkv6-7b folded-q3 in float32 at full width, cut to
-    CPU_LAYERS layers, TRAIN_CPU_BATCH x TRAIN_CPU_SEQ tokens: the loss and
+    CPU_LAYERS layers (or the float32 ``cfg`` given, ``what``; ``cpu``, the
+    CPU's half taken already by ``train_cpu_half`` on the same seed's
+    parameters), TRAIN_CPU_BATCH x TRAIN_CPU_SEQ tokens: the loss and
     every gradient leaf on the card against the CPU (plain versions), and
     one AdamW step (lr TRAIN_CPU_LR, no warm-up) taken on both devices from
     the CPU's gradients, each parameter's change within 1e-3 lr of the
@@ -2157,37 +2274,37 @@ def train_card_vs_cpu(torch, dev, lm, get_config, loop, optimizer, SyntheticData
     gradient lies within the devices' rounding of zero may take it in
     either sign, so the gradients are held leaf by leaf instead."""
     from repro_torch.train.tree import tree_map
-    cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT, compute_dtype="float32", n_layers=CPU_LAYERS)
+    cfg = cfg or get_config(TRAIN_ARCH, TRAIN_VARIANT, compute_dtype="float32",
+                            n_layers=CPU_LAYERS)
     card = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
-    host = _to_cpu(card)
-    batch = SyntheticData(cfg.vocab, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, seed=SEED).batch(0)
-    opt = optimizer.AdamWConfig(lr=TRAIN_CPU_LR, warmup_steps=0)
-    t0 = time.perf_counter()
-    h_loss, h_grads = loop.loss_and_grads(host, batch, cfg)
-    cpu_s = time.perf_counter() - t0
+    if cpu is None:
+        cpu = train_cpu_half(torch, loop, optimizer, SyntheticData, leaves, _to_cpu(card), cfg)
+    t_card = time.perf_counter()
+    h_loss, batch, opt, cpu_s = cpu["loss"], cpu["batch"], cpu["opt"], cpu["cpu_s"]
     c_loss, c_grads = loop.loss_and_grads(card, {k: v.to(dev) for k, v in batch.items()}, cfg)
-    what = f"{TRAIN_ARCH} {TRAIN_VARIANT} float32 {CPU_LAYERS} layers"
+    what = what or f"{TRAIN_ARCH} {TRAIN_VARIANT} float32 {CPU_LAYERS} layers"
     scale = max(1.0, abs(float(h_loss)))
     loss_err = abs(float(c_loss) - float(h_loss))
     if not loss_err <= LOGIT_TOL * scale:
         raise AssertionError(f"{what}: loss {float(c_loss)} on the card, {float(h_loss)} on "
                              f"the CPU")
-    g_err, n_leaves = 0.0, len(leaves(h_grads))
-    for i, (a, b) in enumerate(zip(leaves(c_grads), leaves(h_grads))):
+    # the CPU's gradients, moved to the card, are compared there and step its AdamW
+    grads = tree_map(lambda g: g.to(dev), cpu["grads"])
+    g_err, n_leaves = 0.0, len(leaves(grads))
+    for i, (a, b) in enumerate(zip(leaves(c_grads), leaves(grads))):
         if bool(a.abs().max() > 0) != bool(b.abs().max() > 0):
             raise AssertionError(f"{what}: gradient leaf {i} is zero on one device only")
-        g_err = max(g_err, max_err(torch, a.cpu(), b, GRAD_TOL, f"{what} gradient leaf {i}"))
-    nonzero = sum(bool(b.abs().max() > 0) for b in leaves(h_grads))
+        g_err = max(g_err, max_err(torch, a, b, GRAD_TOL, f"{what} gradient leaf {i}"))
+    nonzero = sum(bool(b.abs().max() > 0) for b in leaves(grads))
     del c_grads
-    old = [p.detach().clone() for p in leaves(host)]
-    for params, grads in ((card, tree_map(lambda g: g.to(dev), h_grads)), (host, h_grads)):
-        st = {"params": params, "opt": optimizer.adamw_init(params, opt),
-              "step": torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)}
-        loop.apply_grads(st, grads, opt)
-        del st, grads
+    old = [p.detach().clone() for p in leaves(card)]
+    st = {"params": card, "opt": optimizer.adamw_init(card, opt),
+          "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    loop.apply_grads(st, grads, opt)
+    del st, grads
     step_tol, p_err, moved = 1e-3 * opt.lr, 0.0, 0.0
-    for i, (p0, a, b) in enumerate(zip(old, leaves(card), leaves(host))):
-        d_card, d_cpu = a.detach().cpu() - p0, b.detach() - p0
+    for i, (p0, a, d) in enumerate(zip(old, leaves(card), cpu["deltas"])):
+        d_card, d_cpu = a.detach() - p0, d.to(dev)
         err = float((d_card - d_cpu).abs().max())
         if not err <= step_tol:
             raise AssertionError(f"{what}: parameter {i} moved {err:.3e} apart in one AdamW "
@@ -2196,13 +2313,14 @@ def train_card_vs_cpu(torch, dev, lm, get_config, loop, optimizer, SyntheticData
     if not moved > 0.5 * opt.lr:
         raise AssertionError(f"{what}: one AdamW step at lr {opt.lr} moved no parameter "
                              f"past {moved:.3e}")
-    log(f"[train-cpu] {what}, {TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}: loss {float(c_loss):.6f} card, "
+    log(f"{tag} {what}, {TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}: loss {float(c_loss):.6f} card, "
         f"{float(h_loss):.6f} cpu (|d| {loss_err:.2e}); {n_leaves} gradient leaves, "
         f"{nonzero} non-zero on both, max |d| {g_err:.2e} (gate {GRAD_TOL} + {GRAD_TOL} |ref|); "
         f"one AdamW step at lr {opt.lr} on the CPU's gradients: changes up to {moved:.3e}, "
         f"card vs cpu max |d| {p_err:.2e} (gate {step_tol:.1e}); cpu loss and grads "
-        f"{cpu_s:.1f} s")
-    del card, host, h_grads, old
+        f"{cpu_s:.1f} s, its AdamW step {cpu['adamw_s']:.1f} s; the card's half and the "
+        f"comparisons {time.perf_counter() - t_card:.1f} s")
+    del card, old, cpu
     torch.cuda.empty_cache()
     return dict(loss_card=float(c_loss), loss_cpu=float(h_loss), loss_err=loss_err,
                 grad_max_abs_err=g_err, leaves=n_leaves, nonzero_leaves=nonzero,
@@ -2236,17 +2354,64 @@ def train_refusals(torch, dev, lm, get_config, loop, leaves) -> list:
     return out
 
 
+class TrainJob(NamedTuple):
+    """A training path of phase 13 or 14 (e): the config (``get_config(arch,
+    variant, **over)``), its recurrent kernel and that kernel's gradient
+    (2 and 1 launches a recurrent layer a step), the mixer leaves that must
+    get non-zero gradients (``leaf(name)``, ``per_layer`` of them a
+    recurrent layer) and the kernels summed from one step's profile
+    ({label: name fragments})."""
+    arch: str
+    variant: str
+    over: dict
+    kernels: tuple
+    leaf: Callable[[str], bool]
+    leaf_names: str
+    per_layer: int
+    profile: dict
+
+    def recurrent_layers(self, cfg) -> int:
+        return sum(kind in ("rwkv", "mamba") for kind, _ in cfg.full_pattern) * cfg.n_groups
+
+    def per_step(self, cfg) -> dict:
+        n = self.recurrent_layers(cfg)
+        return {self.kernels[0]: 2 * n, self.kernels[1]: n}
+
+
+def _rwkv_leaf(name: str) -> bool:
+    return "mixer" in name and (name.rsplit("/", 1)[-1] in ("u", "w0")
+                                or name.endswith(("wr/E", "wk/E", "wv/E")))
+
+
+def _mamba_leaf(name: str) -> bool:
+    parts = name.split("/")
+    return "mixer" in parts and (parts[-1] in ("A_log", "D", "conv_w") or (
+        parts[-1] in ("E", "W") and parts[-2] in ("in_proj", "x_proj", "dt_proj", "out_proj")))
+
+
+TRAIN_JOB = TrainJob(TRAIN_ARCH, TRAIN_VARIANT, {}, (WKV, WKV_BWD), _rwkv_leaf,
+                     "u, w0, wr/wk/wv E", 5,
+                     {"WKV forward": ("wkv6_kernel",),
+                      "WKV backward": ("wkv6_bwd_kernel", "du_reduce")})
+MAMBA_JOB = TrainJob(MAMBA_ARCH, MAMBA_TRAIN_VARIANT,
+                     dict(ffn_pattern=MAMBA_FFN, n_layers=MAMBA_DEPTH), (MAMBA, MAMBA_BWD),
+                     _mamba_leaf, "A_log, D, conv_w, the E (or W) of in/x/dt/out_proj", 7,
+                     {"scan forward": ("mamba_scan_kernel",),
+                      "scan backward": ("mamba_scan_bwd_kernel", "mamba_scan_bwd_reduce")})
+
+
 def train_first_step(torch, loop, leaves, cfg, opt, state, batch0, launch_counts,
-                     reset_launch_counts) -> tuple:
+                     reset_launch_counts, job: TrainJob = TRAIN_JOB) -> tuple:
     """The warm-up step in its two parts (``loss_and_grads``, then
-    ``apply_grads``): exactly 2 launches of kernel #4 and one of its
-    backward a layer, no other kernel; u, w0 and the E of wr/wk/wv with
-    non-zero gradients.  On a mesh the state's laid-out leaves are read
-    whole.  Returns (state, loss, the gradients' checksums, the new
-    state's checksums, grad norm)."""
+    ``apply_grads``): exactly 2 launches of the job's recurrent kernel and
+    one of its gradient a recurrent layer, no other kernel; the job's mixer
+    leaves (rwkv6-7b: u, w0 and the E of wr/wk/wv) with non-zero gradients.
+    On a mesh the state's laid-out leaves are read whole.  Returns (state,
+    loss, the gradients' checksums, the new state's checksums, grad
+    norm)."""
     from repro_torch.core.layers import unshard
-    per_step = {WKV: 2 * cfg.n_layers, WKV_BWD: cfg.n_layers}
-    what = f"{TRAIN_ARCH} {TRAIN_VARIANT}"
+    per_step = job.per_step(cfg)
+    what = f"{job.arch} {job.variant}"
     reset_launch_counts()
     loss, grads = loop.loss_and_grads(state["params"], batch0, cfg)
     torch.cuda.synchronize()
@@ -2256,37 +2421,38 @@ def train_first_step(torch, loop, leaves, cfg, opt, state, batch0, launch_counts
     sums = _checksum(torch, leaves(grads))
     flat = leaves(grads)
     names = [n for n, _ in _named(state["params"])]
-    wkv = [(g, name) for g, name in zip(flat, names) if "mixer" in name and (
-        name.rsplit("/", 1)[-1] in ("u", "w0") or name.endswith(("wr/E", "wk/E", "wv/E")))]
-    if len(wkv) != 5 * cfg.n_layers:
-        raise AssertionError(f"{what}: {len(wkv)} leaves named u, w0, wr/wk/wv E, "
-                             f"expected 5 a layer")
-    for g, name in wkv:
+    mixer = [(g, name) for g, name in zip(flat, names) if job.leaf(name)]
+    if len(mixer) != job.per_layer * job.recurrent_layers(cfg):
+        raise AssertionError(f"{what}: {len(mixer)} leaves named {job.leaf_names}, "
+                             f"expected {job.per_layer} a recurrent layer")
+    for g, name in mixer:
         if not bool(g.abs().max() > 0):
             raise AssertionError(f"{what}: {name} has a zero gradient")
     state, metrics = loop.apply_grads(state, grads, opt)
-    del grads, flat, wkv
+    del grads, flat, mixer
     return (state, float(loss), sums, _checksum(torch, [unshard(t) for t in leaves(state)]),
             float(metrics["grad_norm"]))
 
 
 def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
-               launch_counts, reset_launch_counts) -> dict:
-    """Phase 13 (c): rwkv6-7b folded-q3 at full width and depth (bf16
-    compute, float32 parameters and moments) through init_state ->
-    make_train_step -> train_loop on SyntheticData(vocab, TRAIN_SEQ,
-    TRAIN_BATCH): a warm-up step taken in its two parts (loss_and_grads,
-    apply_grads) with the launches and non-zero gradients checked, then
-    TRAIN_STEPS timed steps through train_loop (the main path, counted),
-    one profiled, the optimizer and fake quant timed, and the warm-up step
-    taken again from a fresh state of the same seed: loss, gradients and
-    the new state bit for bit."""
+               launch_counts, reset_launch_counts, job: TrainJob = TRAIN_JOB,
+               tag: str = "[train]") -> dict:
+    """Phase 13 (c) (and 14 (e) (c) for ``MAMBA_JOB``): the job's model
+    (rwkv6-7b folded-q3 at full width and depth) with bf16 compute and
+    float32 parameters and moments through init_state -> make_train_step
+    -> train_loop on SyntheticData(vocab, TRAIN_SEQ, TRAIN_BATCH): a warm-up
+    step taken in its two parts (loss_and_grads, apply_grads) with the
+    launches and non-zero gradients checked, then TRAIN_STEPS timed steps
+    through train_loop (the main path, counted), one profiled, the
+    optimizer and fake quant timed, and the warm-up step taken again from
+    a fresh state of the same seed: loss, gradients and the new state bit
+    for bit."""
     from repro_torch.core.quant import fake_quant
-    cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT)
+    cfg = get_config(job.arch, job.variant, **job.over)
     opt, tcfg = optimizer.AdamWConfig(), loop.TrainConfig(checkpoint_every=10 ** 9, log_every=1)
     data = SyntheticData(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
-    per_step = {WKV: 2 * cfg.n_layers, WKV_BWD: cfg.n_layers}
-    what = f"{TRAIN_ARCH} {TRAIN_VARIANT}"
+    per_step = job.per_step(cfg)
+    what = f"{job.arch} {job.variant}"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     alloc0 = torch.cuda.memory_allocated()
@@ -2298,7 +2464,7 @@ def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leave
     state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
     batch0 = {k: v.to(dev) for k, v in data.batch(0).items()}
     first_step = lambda state: train_first_step(torch, loop, leaves, cfg, opt, state, batch0,
-                                                launch_counts, reset_launch_counts)
+                                                launch_counts, reset_launch_counts, job)
     t0 = time.perf_counter()
     state, loss0, gsum0, ssum0, gn0 = first_step(state)
     warm_s = time.perf_counter() - t0
@@ -2314,7 +2480,7 @@ def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leave
         return st, m
     reset_launch_counts()
     state, hist = loop.train_loop(state, recorded, data, 1 + TRAIN_STEPS, train_cfg=tcfg,
-                                  log=lambda line: log(f"[train] {line}"))
+                                  log=lambda line: log(f"{tag} {line}"))
     counts = launch_counts()
     expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if counts != {k: expect.get(k, 0) for k in counts}:
@@ -2327,8 +2493,8 @@ def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leave
     # one step profiled, and its WKV kernels' device time
     prof = device_breakdown(torch, lambda: step_fn(state, data.batch(1 + TRAIN_STEPS)))
     busy = sum(ms for _, ms, _ in prof)
-    wkv_fwd = sum(ms for name, ms, _ in prof if "wkv6_kernel" in name)
-    wkv_bwd = sum(ms for name, ms, _ in prof if "wkv6_bwd_kernel" in name or "du_reduce" in name)
+    kernel_ms = {label: sum(ms for name, ms, _ in prof if any(f in name for f in frags))
+                 for label, frags in job.profile.items()}
     # the optimizer alone (two steps on one gradient) and fake quant per site
     _, grads = loop.loss_and_grads(state["params"], batch0, cfg)
     opt_ms = []
@@ -2344,6 +2510,8 @@ def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leave
     g0 = state["params"]["groups"][0]
     with torch.no_grad():
         for name, lc in lm.lm_layer_configs(cfg).items():
+            if not lc.is_epitome:
+                continue
             layer, kind, w = name.split("/")
             E = g0[layer][kind][w]["E"]
             fq += time_ms(torch, lambda: fake_quant(E, lc.spec, lc.quant))
@@ -2364,28 +2532,30 @@ def train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leave
     gc.collect()
     torch.cuda.empty_cache()
     tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
-    run = dict(arch=TRAIN_ARCH, variant=TRAIN_VARIANT, n_layers=cfg.n_layers,
+    run = dict(arch=job.arch, variant=job.variant, n_layers=cfg.n_layers,
                d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab, params=n_params,
                state_bytes=state_bytes, state_alloc_bytes=state_alloc,
                batch=[TRAIN_BATCH, TRAIN_SEQ], init_s=init_s,
                warmup_s=warm_s, losses=hist["loss"], grad_norms=norms,
                step_ms=[t * 1e3 for t in hist["step_time"]], step_ms_median=step_ms,
                tokens_s=tokens_s, peak_bytes=peak, launches=counts, launches_per_step=per_step,
-               device_busy_ms=busy, device_breakdown=prof[:20], wkv_fwd_ms=wkv_fwd,
-               wkv_bwd_ms=wkv_bwd, optimizer_ms=opt_ms, fake_quant_ms=fq_step,
+               device_busy_ms=busy, device_breakdown=prof[:20], kernel_ms=kernel_ms,
+               optimizer_ms=opt_ms, fake_quant_ms=fq_step,
                repeat_loss=[loss0, loss1], grad_norm0=gn0,
                warmup=dict(loss=loss0, grads=gsum0, state=ssum0))
-    log(f"[train] {what} bf16 compute, {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+    log(f"{tag} {what} bf16 compute, {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters, state {state_bytes / 2**30:.2f} "
         f"GiB, init {init_s:.1f} s, warm-up step {warm_s:.1f} s")
-    log(f"[train] {what} {TRAIN_BATCH}x{TRAIN_SEQ}: step median {step_ms:.1f} ms (runs "
+    log(f"{tag} {what} {TRAIN_BATCH}x{TRAIN_SEQ}: step median {step_ms:.1f} ms (runs "
         f"{', '.join(f'{t * 1e3:.1f}' for t in hist['step_time'])}) = {tokens_s:.0f} tokens/s; "
         f"losses {', '.join(f'{x:.4f}' for x in hist['loss'])}; grad norms "
         f"{', '.join(f'{x:.3f}' for x in norms)}; launches {counts} over {TRAIN_STEPS} steps; "
         f"peak {peak / 2**30:.2f} GiB")
-    log(f"[train] {what} one step: device busy {busy:.1f} ms of {step_ms:.1f}; WKV forward "
-        f"{wkv_fwd:.2f} ms, backward {wkv_bwd:.2f} ms; fake quant {fq_step:.1f} ms (layer "
-        f"0's 8 sites {fq:.3f} ms x 2 x {cfg.n_groups}); optimizer "
+    log(f"{tag} {what} one step: device busy {busy:.1f} ms of {step_ms:.1f}; "
+        + "; ".join(f"{label} {ms:.2f} ms ({100 * ms / max(busy, 1e-9):.1f} % of busy)"
+                    for label, ms in kernel_ms.items())
+        + f"; fake quant {fq_step:.1f} ms (group 0's sites {fq:.3f} ms x 2 x {cfg.n_groups}); "
+        f"optimizer "
         f"{', '.join(f'{t:.1f}' for t in opt_ms)} ms; the warm-up step repeated from a fresh "
         f"state: loss, gradients and new state bit for bit")
     for kname, ms, n in prof[:10]:
@@ -2461,15 +2631,24 @@ def train_phase(torch, dev, gen, ref, wrappers, lm, get_config, launch_counts,
     cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT)
     path = f"{TRAIN_ARCH} {TRAIN_VARIANT} train"
     steps_fwd, steps_bwd = 2 * cfg.n_layers * TRAIN_STEPS, cfg.n_layers * TRAIN_STEPS
-    rows = wkv_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, steps_bwd)
-    # kernel #4 forward at the training shape (a zero state: rwkv_time_mix's)
-    rows += wkv_rows(torch, dev, gen, ref, wrappers, cfg, path, TRAIN_BATCH, TRAIN_SEQ, steps_fwd)
-    torch.cuda.empty_cache()
+    # (b)'s CPU half runs in a thread beside (a) and (c), which keep the card busy
+    cpu_cfg = get_config(TRAIN_ARCH, TRAIN_VARIANT, compute_dtype="float32", n_layers=CPU_LAYERS)
+    cpu_half = CpuHalf(torch, dev, lm, cpu_cfg, loop, optimizer, SyntheticData, leaves)
+    try:
+        rows = wkv_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, steps_bwd)
+        # kernel #4 forward at the training shape (a zero state: rwkv_time_mix's)
+        rows += wkv_rows(torch, dev, gen, ref, wrappers, cfg, path, TRAIN_BATCH, TRAIN_SEQ,
+                         steps_fwd)
+        torch.cuda.empty_cache()
+        run = train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
+                         launch_counts, reset_launch_counts)
+    finally:
+        cpu = cpu_half.result()
     card_cpu = train_card_vs_cpu(torch, dev, lm, get_config, loop, optimizer, SyntheticData,
-                                 leaves)
+                                 leaves, cfg=cpu_cfg, cpu=cpu)
+    card_cpu.update(cpu_half_s=cpu["seconds"], waited_s=cpu["waited_s"])
+    del cpu
     refused = train_refusals(torch, dev, lm, get_config, loop, leaves)
-    run = train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
-                     launch_counts, reset_launch_counts)
     restart = train_restart(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
                             CheckpointManager)
     seconds = time.perf_counter() - t_phase
@@ -2610,24 +2789,6 @@ def mamba_build(torch, dev, lm, get_config):
                              setup_s=setup_s)
 
 
-def mamba_refusal(torch, dev, ops) -> str:
-    """backward() through the scan on the card raises NotImplementedError
-    naming the ROADMAP item of the scan's gradient."""
-    from repro_torch.kernels.mamba_scan import GRAD_ITEM
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, 1, 8, 64, 16)
-    x.requires_grad_(True)
-    y, _ = ops.mamba_scan(dt, x, Bm, Cm, A, D, h0)
-    try:
-        y.sum().backward()
-    except NotImplementedError as e:
-        if GRAD_ITEM not in str(e):
-            raise AssertionError(f"{MAMBA}: the refusal does not name {GRAD_ITEM}: {e}")
-        log(f"[mamba-cpu] backward() through the scan on the card refuses: {e}")
-        return str(e)
-    raise AssertionError(f"{MAMBA}: backward() on the card did not raise")
-
-
 def mamba_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, launch_counts,
                 reset_launch_counts):
     """Phase 14: (a) the scan kernel at jamba's width (scan_rows,
@@ -2639,8 +2800,7 @@ def mamba_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, laun
     the scan and kernel #1 at the engine's rows; (d) card against CPU in
     float32: jamba's widths at 2 Mamba layers with the dense FFN, 2 x 64
     tokens, and the jamba smoke config (16 layers, MoE and attention) with
-    the router's experts equal; backward() refuses on the card.  Returns
-    (kernel rows, report)."""
+    the router's experts equal.  Returns (kernel rows, report)."""
     import dataclasses
     import gc
     from repro_torch.configs import get_smoke_config
@@ -2733,13 +2893,211 @@ def mamba_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, laun
     gap = min(g for _, _, g in rr.seen[:n])
     log(f"[mamba-cpu] {MAMBA_ARCH} smoke float32 {smoke.n_layers} layers: the router's experts "
         f"equal on the card and the CPU over {n} routings; smallest top-k gap {gap:.3e}")
-    refusal = mamba_refusal(torch, dev, ops)
     seconds = time.perf_counter() - t_phase
     _RETAG.clear()
     log(f"[mamba] phase 14 {seconds:.1f} s")
     return rows, dict(lm=run, engine=eng_run, bits=bits, ptxas=ptxas,
                       card_vs_cpu=dict(wide=wide, smoke=small, router_min_gap=gap),
-                      refusal=refusal, seconds=seconds)
+                      seconds=seconds)
+
+
+# -- phase 14 (e): Mamba training ------------------------------------------------------
+SCAN_GRADS = ("ddt", "dx", "dB", "dC", "dA", "dD", "dh0")
+# ddt, dx and dh0 at the kernel gate; the sums over channels or tokens at the
+# WKV gradient's
+SCAN_GRAD_TOLS = (KERNEL_TOL, KERNEL_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL, KERNEL_TOL)
+
+
+def scan_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
+    """Phase 14 (e) (a): the scan's gradient kernel at the training step's
+    shape (TRAIN_BATCH x TRAIN_SEQ at jamba's width) against its plain
+    version (``mamba_scan_bwd_ref``) and against autograd through the
+    plain forward, three launches bit for bit, timed beside its plain
+    version.  Cases: bf16 dt, x, B, C with a zero state, dy and no dhT (the
+    training step's, counted ``launches``); float32 with h0, dy and dhT;
+    float32 with h0 and dhT and no dy; bf16 at a ragged S with all three.
+    The bound counts the gradient's inputs read once and outputs written
+    once and its operations (one forward of the states and the backward
+    recurrence) at the fp32 rate; the kernel's own bytes and operations
+    (its second read of the inputs, its scratch written and read, its
+    first sweep) and the SFU's time for its exponentials (two sweeps) are
+    logged beside it."""
+    from repro_torch.kernels import _build
+    c = _cost()
+    B, S, di, ds = TRAIN_BATCH, TRAIN_SEQ, cfg.mamba_d_inner, cfg.mamba_d_state
+    ptxas = ptxas_of(_build.build_log.get(MAMBA_BWD, ""))
+    rows = []
+    for dtype, h0_kind, dy_on, dhT_on, seq in ((cfg.cdtype, None, True, False, S),
+                                               (torch.float32, "random", True, True, S),
+                                               (torch.float32, "random", False, True, S),
+                                               (cfg.cdtype, "random", True, True, S - 6)):
+        dname = str(dtype).replace("torch.", "")
+        dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, B, seq, di, ds, h0_kind)
+        ins = [t.to(dtype) for t in (dt, x, Bm, Cm)] + [A, D, h0]
+        dy = torch.randn(B, seq, di, device=dev, generator=gen) if dy_on else None
+        dhT = torch.randn(B, di, ds, device=dev, generator=gen) if dhT_on else None
+        what = (f"{MAMBA_BWD} {dname} S={seq} h0={h0_kind or 'zero'} dy="
+                f"{'random' if dy_on else None} dhT={'random' if dhT_on else None}")
+        kernel = lambda: wrappers[MAMBA_BWD](*ins, dy, dhT)
+        plain = lambda: ref.mamba_scan_bwd_ref(*ins, dy, dhT)
+        outs = [kernel() for _ in range(3)]
+        if not all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0])):
+            raise AssertionError(f"{what}: three identical launches differ")
+        err = max(max_err(torch, a, b, tol, f"{what} {n}")
+                  for a, b, n, tol in zip(outs[0], plain(), SCAN_GRADS, SCAN_GRAD_TOLS))
+        # autograd through the plain forward (float32 copies: the plain
+        # versions read bf16 as these values; a zero state for none)
+        req = [t.detach().to(torch.float32, copy=True).requires_grad_(True) for t in ins[:6]] + [
+            (torch.zeros(B, di, ds, device=dev) if h0 is None else h0).clone().requires_grad_(True)]
+        y, hT = ref.mamba_scan_ref(*req)
+        out = ((y * dy).sum() if dy_on else 0.0) + ((hT * dhT).sum() if dhT_on else 0.0)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(torch.autograd.grad(out, req, allow_unused=True), req)]
+        err_auto = max(max_err(torch, a, b, tol, f"{what} {n} (autograd)")
+                       for a, b, n, tol in zip(outs[0], grads, SCAN_GRADS, SCAN_GRAD_TOLS))
+        del req, y, hT, out, grads, outs
+        esz = ins[0].element_size()
+        nbytes = c.scan_bwd_bytes(B, seq, di, ds, esz, h0 is not None, dy_on, dhT_on)
+        own_bytes, own_ops = c.scan_bwd_work(B, seq, di, ds, esz, h0 is not None, dy_on, dhT_on)
+        own_ms = c.bound_seconds(MAMBA_BWD, own_bytes, own_ops, dname)[0] * 1e3
+        scratch = c.scan_bwd_scratch(B, seq, di)
+        row = timed_row(torch, MAMBA_BWD, kernel, plain, None, nbytes,
+                        c.scan_bwd_ops(B, seq, di, ds), dname)
+        regs, st, ld = next((v for e, v in ptxas.items()
+                             if "mamba_scan_bwd_kernel" in e and ("bfloat16" in e) == (esz == 2)),
+                            (None, None, None))
+        row.update(B=B, S=seq, di=di, ds=ds, dtype=dname, h0=h0_kind, dy=dy_on, dhT=dhT_on,
+                   max_abs_err=err, max_abs_err_autograd=err_auto, scratch_bytes=scratch,
+                   kernel_bytes=own_bytes, kernel_flops=own_ops, kernel_bound_ms=own_ms,
+                   sfu_ms=2 * B * seq * di * ds / SFU_EXP_S * 1e3, path=path, registers=regs,
+                   spill_bytes=None if st is None else st + ld,
+                   count=launches if (dtype == cfg.cdtype and h0 is None and not dhT_on
+                                      and seq == S) else 0)
+        rows.append(row)
+        log(f"[mamba-train-kernels] {what} B={B} di={di} ds={ds} x{row['count']}: max_err "
+            f"{err:.2e} (plain), {err_auto:.2e} (autograd of the plain forward); 3 launches bit "
+            f"for bit; ms={row['ms']:.4f} (eager {row['ms_eager']:.4f}) plain_ms="
+            f"{row['plain_ms']:.3f} library_ms=none bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}; {nbytes / 1e9:.3f} GB in and out, {row['flops'] / 1e9:.2f} "
+            f"GFLOP at the fp32 rate); the kernel's own {own_bytes / 1e9:.3f} GB and "
+            f"{own_ops / 1e9:.2f} GFLOP: {own_ms:.4f} ms; sfu_ms={row['sfu_ms']:.4f} (two "
+            f"sweeps); scratch {scratch / 1e9:.4f} GB; "
+            + ("ptxas: not built in this process" if regs is None else
+               f"ptxas {regs} registers, {row['spill_bytes']} bytes spilled"))
+        del dt, x, Bm, Cm, A, D, h0, ins, dy, dhT
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scan_bwd_bits(torch, dev, gen, wrappers, cfg) -> dict:
+    """Phase 14 (e) (a), bit for bit at the training shape in bf16 with a
+    state, dy and dhT: the scan split at MAMBA_SPLIT tokens, the second
+    half from the forward kernel's state there and the first given the
+    second's dh0, against one launch: ddt, dx, dB, dC and dh0 bit for bit,
+    dA and dD (their halves added in another order) within GRAD_TOL."""
+    B, S, di, ds = TRAIN_BATCH, TRAIN_SEQ, cfg.mamba_d_inner, cfg.mamba_d_state
+    dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, B, S, di, ds)
+    dt, x, Bm, Cm = (t.to(cfg.cdtype) for t in (dt, x, Bm, Cm))
+    dy = torch.randn(B, S, di, device=dev, generator=gen)
+    dhT = torch.randn(B, di, ds, device=dev, generator=gen)
+    k = wrappers[MAMBA_BWD]
+    cut = lambda lo, hi, *ts: [t[:, lo:hi].contiguous() for t in ts]
+    one = k(dt, x, Bm, Cm, A, D, h0, dy, dhT)
+    _, ha = wrappers[MAMBA](*cut(0, MAMBA_SPLIT, dt, x, Bm, Cm), A, D, h0)
+    late = k(*cut(MAMBA_SPLIT, S, dt, x, Bm, Cm), A, D, ha, *cut(MAMBA_SPLIT, S, dy), dhT)
+    early = k(*cut(0, MAMBA_SPLIT, dt, x, Bm, Cm), A, D, h0, *cut(0, MAMBA_SPLIT, dy), late[6])
+    out = {n: torch.equal(torch.cat([early[i], late[i]], 1), one[i])
+           for i, n in enumerate(SCAN_GRADS[:4])}
+    out["dh0"] = torch.equal(early[6], one[6])
+    sums = {n: max_err(torch, early[i] + late[i], one[i], GRAD_TOL, f"{MAMBA_BWD} split {n}")
+            for i, n in ((4, "dA"), (5, "dD"))}
+    log(f"[mamba-train-kernels] {MAMBA_BWD} bf16 {B}x{S} split at {MAMBA_SPLIT} against one "
+        f"launch, bit for bit: " + ", ".join(f"{n} {v}" for n, v in out.items())
+        + "; " + ", ".join(f"{n} max |d| {v:.2e}" for n, v in sums.items())
+        + f" (gate {GRAD_TOL} + {GRAD_TOL} |ref|)")
+    if not all(out.values()):
+        raise AssertionError(f"{MAMBA_BWD}: the split scan's gradient differs: {out}")
+    return dict(split=MAMBA_SPLIT, bits=out, sums_max_abs_err=sums)
+
+
+def mamba_train_phase(torch, dev, gen, ref, wrappers, lm, get_config, launch_counts,
+                      reset_launch_counts) -> tuple:
+    """Phase 14 (e): Mamba training, after phase 14 has freed the card.  (a)
+    The scan's gradient kernel at the training step's shape
+    (``scan_bwd_rows``, ``scan_bwd_bits``) and the scan's forward there
+    (bf16, a zero state); (b) float32 card against CPU (``train_card_vs_cpu``):
+    jamba's widths at CPU_LAYERS Mamba layers with the dense FFN, and the
+    jamba smoke config (16 layers: Mamba, attention, MoE) with the router's
+    experts equal on both; (c) ``train_full`` on ``MAMBA_JOB``: jamba
+    folded-q3 at one period (MAMBA_DEPTH layers, MAMBA_FFN), 14 launches of
+    the scan and 7 of its gradient a step, TRAIN_STEPS timed steps through
+    train_loop (counted), one profiled, peak memory, the warm-up step
+    again bit for bit.  Returns (kernel rows, report)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.train import loop, optimizer
+    from repro_torch.train.data import SyntheticData
+    from repro_torch.train.tree import leaves
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MAMBA_JOB.arch, MAMBA_JOB.variant, **MAMBA_JOB.over)
+    path = f"{MAMBA_ARCH} {MAMBA_TRAIN_VARIANT} train"
+    n = MAMBA_JOB.recurrent_layers(cfg)
+    # (b)'s CPU half at jamba's widths (about 70 s of host work, most of it
+    # the vocab's 1.07 G parameters) runs in a thread beside (a) and (c),
+    # which keep the card busy
+    wide_cfg = get_config(MAMBA_ARCH, MAMBA_TRAIN_VARIANT, compute_dtype="float32",
+                          n_layers=CPU_LAYERS, pattern=("mamba",), ffn_pattern=("dense",))
+    cpu_half = CpuHalf(torch, dev, lm, wide_cfg, loop, optimizer, SyntheticData, leaves)
+    try:
+        rows = scan_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, n * TRAIN_STEPS)
+        bits = scan_bwd_bits(torch, dev, gen, wrappers, cfg)
+        # the scan forward at the step's shape (a zero state: mamba_mix's)
+        rows += scan_rows(torch, dev, gen, ref, wrappers, cfg, path,
+                          [(TRAIN_BATCH, TRAIN_SEQ, cfg.cdtype, None, 2 * n * TRAIN_STEPS)])
+        torch.cuda.empty_cache()
+        run = train_full(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
+                         launch_counts, reset_launch_counts, MAMBA_JOB, tag="[mamba-train]")
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        cpu = cpu_half.result()
+    t0 = time.perf_counter()
+    wide = train_card_vs_cpu(torch, dev, lm, get_config, loop, optimizer, SyntheticData, leaves,
+                             cfg=wide_cfg, tag="[mamba-train-cpu]", cpu=cpu,
+                             what=f"{MAMBA_ARCH} {MAMBA_TRAIN_VARIANT} float32 {CPU_LAYERS} "
+                                  f"Mamba layers, dense FFN")
+    wide.update(cpu_half_s=cpu["seconds"], waited_s=cpu["waited_s"])
+    del cpu
+    smoke_cfg = dataclasses.replace(get_smoke_config(MAMBA_ARCH, MAMBA_TRAIN_VARIANT),
+                                    compute_dtype="float32")
+    with route_recorder(torch, moe) as rr:
+        small = train_card_vs_cpu(torch, dev, lm, get_config, loop, optimizer, SyntheticData,
+                                  leaves, cfg=smoke_cfg, tag="[mamba-train-cpu]",
+                                  what=f"{MAMBA_ARCH} smoke {MAMBA_TRAIN_VARIANT} float32 "
+                                       f"{smoke_cfg.n_layers} layers")
+    half = len(rr.seen) // 2
+    if 2 * half != len(rr.seen) or not half or not all(
+            torch.equal(a, b) for (_, a, _), (_, b, _) in zip(rr.seen[:half], rr.seen[half:])):
+        raise AssertionError(f"{MAMBA_ARCH} smoke training: the router picks other experts on "
+                             f"the card than on the CPU")
+    gap = min(g for _, _, g in rr.seen[:half])
+    cpu_s = time.perf_counter() - t0
+    log(f"[mamba-train-cpu] {MAMBA_ARCH} smoke: the router's experts equal on the card and the "
+        f"CPU over {half} routings; smallest top-k gap {gap:.3e}; the wide CPU half took "
+        f"{wide['cpu_half_s']:.1f} s in its thread beside (a) and "
+        f"(c) ({wide['waited_s']:.1f} s waited for after them); (b) after them {cpu_s:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[mamba-train] phase 14 (e) {seconds:.1f} s (card against CPU {cpu_s:.1f} s); "
+        f"peak {run['peak_bytes'] / 2**30:.2f} GiB; {card_line()}")
+    return rows, dict(run=run, bits=bits, card_vs_cpu=dict(wide=wide, smoke=small,
+                                                            router_min_gap=gap, seconds=cpu_s),
+                      seconds=seconds)
 
 
 QM_SHAPES = ((4096, 4096), (4096, 14336), (14336, 4096))   # rwkv6-7b's projections
@@ -3531,9 +3889,10 @@ def _end_children():
 def dryrun_calls() -> list:
     """Phase 18 (b)'s cells, ``launch/dryrun.py``'s ``run_cell`` keywords:
     phase 13's training step (its config, AdamW and TrainConfig, TRAIN_BATCH
-    x TRAIN_SEQ) and phase 5's prefill (LM_REQUESTS x LM_PROMPT) and decode
-    step (against its state of prompt + new + 1 rows), each on a fake
-    (1, 1) world, the full-depth trace and the 1- and 2-group probes."""
+    x TRAIN_SEQ), phase 5's prefill (LM_REQUESTS x LM_PROMPT) and decode
+    step (against its state of prompt + new + 1 rows) and phase 14 (e)'s
+    jamba training step (MAMBA_JOB's config), each on a fake (1, 1) world,
+    the full-depth trace and the 1- and 2-group probes."""
     from repro_torch.configs import ShapeCell
     from repro_torch.launch import dryrun
     from repro_torch.train.loop import TrainConfig
@@ -3548,7 +3907,12 @@ def dryrun_calls() -> list:
                                                "prefill"), **one),
             dryrun.encode_call(arch=LM_ARCH, epitome="kernel-q3",
                                shape=ShapeCell("phase5_decode", LM_PROMPT + LM_NEW + 1,
-                                               LM_REQUESTS, "decode"), **one)]
+                                               LM_REQUESTS, "decode"), **one),
+            dryrun.encode_call(arch=MAMBA_JOB.arch, epitome=MAMBA_JOB.variant,
+                               opt_cfg=AdamWConfig(),
+                               train_cfg=TrainConfig(checkpoint_every=10 ** 9, log_every=1),
+                               shape=ShapeCell("phase14e_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                               **MAMBA_JOB.over, **one)]
 
 
 def start_dryrun():
@@ -3634,14 +3998,14 @@ def row_check(torch, dev, gen, ops, ref, wrappers, launch_counts, reset_launch_c
 
 
 def dryrun_phase(torch, dev, gen, ops, ref, wrappers, launch_counts, reset_launch_counts,
-                 dry, lm_run, train_run) -> tuple:
+                 dry, lm_run, train_run, mamba_train_run) -> tuple:
     """Phase 18.  (a) ``row_check``.  (b) The dry run started after the
-    build (``start_dryrun``): for phase 13's step and phase 5's prefill and
-    decode step, its kernels' launches a step equal the launches the phase
-    counted, exactly; its argument bytes are within ARG_TOL of how much
-    ``torch.cuda.memory_allocated`` grew while the phase built what the
-    step takes in (phase 13's training state; phase 5's prepacked
-    parameters, plus the decode state for the decode step); its roofline's
+    build (``start_dryrun``): for phase 13's step, phase 5's prefill and
+    decode step and phase 14 (e)'s jamba step, its kernels' launches a step
+    equal the launches the phase counted, exactly; its argument bytes are
+    within ARG_TOL of how much ``torch.cuda.memory_allocated`` grew while
+    the phase built what the step takes in (the training states; phase 5's
+    prepacked parameters, plus the decode state for the decode step); its roofline's
     bound and each of its three terms are at most the step's device-busy
     time (``torch.profiler``): a bound above a measurement is a count that
     is wrong; its useful ratio is at most 1 and its roofline fraction at
@@ -3659,13 +4023,18 @@ def dryrun_phase(torch, dev, gen, ops, ref, wrappers, launch_counts, reset_launc
         raise AssertionError(f"[dryrun] the dry run failed ({proc.returncode}): "
                              f"{err[-3000:]}")
     results = [json.loads(line) for line in out.strip().splitlines()]
-    per_step = {k: v // TRAIN_STEPS for k, v in train_run["launches"].items() if v}
-    real = (("phase 13 train step", train_run["state_alloc_bytes"], per_step,
+    per_step = lambda run: {k: v // TRAIN_STEPS for k, v in run["launches"].items() if v}
+    real = (("phase 13 train step", train_run["state_alloc_bytes"], per_step(train_run),
              train_run["device_busy_ms"], train_run["peak_bytes"]),
             ("phase 5 prefill", lm_run["params_alloc_bytes"], lm_run["prefill_launches"],
              lm_run["prefill_busy_ms"], lm_run["peak_bytes"]),
             ("phase 5 decode step", lm_run["params_alloc_bytes"] + lm_run["state_alloc_bytes"],
-             lm_run["decode_launches"], lm_run["decode_busy_ms"], lm_run["peak_bytes"]))
+             lm_run["decode_launches"], lm_run["decode_busy_ms"], lm_run["peak_bytes"]),
+            ("phase 14 (e) jamba train step", mamba_train_run["state_alloc_bytes"],
+             per_step(mamba_train_run), mamba_train_run["device_busy_ms"],
+             mamba_train_run["peak_bytes"]))
+    if len(results) != len(real):
+        raise AssertionError(f"[dryrun] {len(results)} cells came back, {len(real)} were run")
     report = dict(row_check=checked, cells=[])
     for r, (what, alloc, launched, busy_ms, peak) in zip(results, real):
         predicted = {k: v["launches"] for k, v in r["kernels"].items()}

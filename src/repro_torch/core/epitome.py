@@ -320,6 +320,21 @@ def overlap_mask(spec: EpitomeSpec) -> np.ndarray:
     return cnt > pos.min()
 
 
+# ---------------------------------------------------------------------------
+# Conversion from a dense weight (the epitome designer)
+# ---------------------------------------------------------------------------
+def epitomize_dense(W: torch.Tensor, spec: EpitomeSpec) -> torch.Tensor:
+    """Least-squares init of E from a dense W (M, N): each epitome cell
+    becomes the mean of every virtual cell that samples it (the scatter-add
+    adjoint of ``reconstruct``, normalized by coverage)."""
+    ri = _index(spec.row_index_map(), W)
+    ci = _index(spec.col_index_map(), W)
+    flat = (ri[:, None] * spec.n + ci[None, :]).reshape(-1)
+    sums = W.new_zeros(spec.m * spec.n).index_add_(0, flat, W.reshape(-1))
+    cnt = torch.as_tensor(np.maximum(overlap_counts(spec), 1), dtype=W.dtype, device=W.device)
+    return sums.reshape(spec.m, spec.n) / cnt
+
+
 def init_epitome(generator: torch.Generator, spec: EpitomeSpec,
                  dtype=torch.float32, scale: Optional[float] = None,
                  device="cuda") -> torch.Tensor:

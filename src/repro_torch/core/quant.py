@@ -191,6 +191,10 @@ def quantize_epitome(E: torch.Tensor, spec: Optional[EpitomeSpec],
     return quantize(E, S, Z, cfg), S, Z
 
 
+def dequantize_epitome(q: torch.Tensor, S: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    return dequantize(q, S, Z)
+
+
 # ---------------------------------------------------------------------------
 # Packed (int8-storage) quantization — the kernel-side contract
 # ---------------------------------------------------------------------------
@@ -270,3 +274,9 @@ def fake_quant(E: torch.Tensor, spec: Optional[EpitomeSpec],
         y = dequantize(q, S, Z).to(E.dtype)
     return _STE.apply(E, y)
 
+
+def quant_mse(E: torch.Tensor, spec: Optional[EpitomeSpec], cfg: QuantConfig) -> torch.Tensor:
+    """Reconstruction MSE of quantize -> dequantize, the offline proxy that
+    validates the Table 2 ordering (naive > +crossbar > +overlap)."""
+    q, S, Z = quantize_epitome(E, spec, cfg)
+    return torch.mean((dequantize(q, S, Z) - E) ** 2)

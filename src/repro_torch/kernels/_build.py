@@ -57,6 +57,10 @@ LIBRARIES = {
     "mamba_scan": ("mamba_scan.cu", {
         "mamba_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
     }),
+    "mamba_scan_bwd": ("mamba_scan_bwd.cu", {
+        "mamba_scan_bwd_launch": [_P] * 17 + [_I] * 5 + [_P],
+        "mamba_scan_bwd_scratch": [_I] * 3 + [_P],
+    }),
 }
 
 _lock = threading.Lock()

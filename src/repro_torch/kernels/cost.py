@@ -151,15 +151,56 @@ def scan_bytes(B: int, S: int, di: int, ds: int, esz: int, h0: bool = True) -> f
             + 4.0 * B * di * ds * (2 if h0 else 1) + 4.0 * B * S * di)
 
 
-def scan_bwd_work(B: int, S: int, di: int, ds: int, esz: int, h0: bool) -> Tuple[float, float]:
-    """The scan's gradient, which has no kernel yet (ROADMAP item 7.13): an
-    estimate, the forward's operations twice (its recompute and the
-    adjoint recurrence) and its bytes with dy read and every input's
-    gradient written in float32."""
-    nbytes = (scan_bytes(B, S, di, ds, esz, h0) + 4.0 * B * S * di
-              + 4.0 * (2 * B * S * di + 2 * B * S * ds + di * ds + di)
-              + (4.0 * B * di * ds if h0 else 0.0))
-    return nbytes, 2.0 * scan_ops(B, S, di, ds)
+# the scan's gradient (csrc/mamba_scan_bwd.cu): a stored state every
+# SCAN_BWD_WINDOW tokens, the sums over channels SCAN_BWD_CHANNELS at a time
+SCAN_BWD_WINDOW, SCAN_BWD_CHANNELS = 8, 64
+
+
+def scan_bwd_ops(B: int, S: int, di: int, ds: int) -> float:
+    """Operations of the scan's gradient (kernels/ref.py, mamba_scan_bwd_ref),
+    per (batch, token, channel): one forward of the states, which the
+    gradient needs (dt A, its exponential, (dt x) B and the state's
+    multiply-add: 5 ds, and dt x), and the backward recurrence: per state
+    g += dy C (2), dy h and g dt x with their adds over the channels (4), g B
+    and its add over the states (2), a h, g a h, its product with A and
+    that add (4), dA's multiply-add (2) and a g (1); per channel dt x, dx
+    (3), ddt (2) and dD's multiply-add (2)."""
+    return float(B * S * di * (20 * ds + 9))
+
+
+def scan_bwd_bytes(B: int, S: int, di: int, ds: int, esz: int, h0: bool, dy: bool,
+                   dhT: bool) -> float:
+    """The gradient's inputs read once and outputs written once: dt, x, B and
+    C in their dtype (esz bytes), A and D, h0, dy and dhT where given; ddt,
+    dx, dB, dC, dA, dD and dh0 in float32."""
+    state = 4.0 * B * di * ds
+    return (2.0 * esz * B * S * (di + ds) + 4.0 * (di * ds + di) + state * (h0 + dhT)
+            + 4.0 * B * S * di * dy
+            + 4.0 * (2 * B * S * di + 2 * B * S * ds + di * ds + di) + state)
+
+
+def scan_bwd_scratch(B: int, S: int, di: int) -> float:
+    """Bytes of the scratch the kernel takes (mamba_scan_bwd_scratch): the
+    state before every window of SCAN_BWD_WINDOW tokens (16 floats a
+    channel), each block's 32 sums over its channels a token, and each
+    batch row's dA (16 a channel) and dD."""
+    windows = -(-S // SCAN_BWD_WINDOW)
+    blocks = -(-di // SCAN_BWD_CHANNELS)
+    return 4.0 * (B * windows * di * 16 + blocks * B * S * 32 + B * di * 16
+                  + -(-(B * di) // 4) * 4)
+
+
+def scan_bwd_work(B: int, S: int, di: int, ds: int, esz: int, h0: bool, dy: bool = True,
+                  dhT: bool = False) -> Tuple[float, float]:
+    """(bytes, operations) the gradient's kernel (csrc/mamba_scan_bwd.cu)
+    moves and does: its inputs and outputs (``scan_bwd_bytes``); sweep 2
+    reading dt, x, B, C and A again; its scratch written once and read
+    once; and ``scan_bwd_ops`` with sweep 1's forward of the states (5 ds +
+    1 a token and channel) besides."""
+    nbytes = (scan_bwd_bytes(B, S, di, ds, esz, h0, dy, dhT)
+              + 2.0 * esz * B * S * (di + ds) + 4.0 * di * ds
+              + 2.0 * scan_bwd_scratch(B, S, di))
+    return nbytes, scan_bwd_ops(B, S, di, ds) + float(B * S * di * (5 * ds + 1))
 
 
 # -- the bound --------------------------------------------------------------------

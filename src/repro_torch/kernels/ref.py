@@ -87,6 +87,23 @@ def quant_epitome_matmul_fused_fold_ref(x: torch.Tensor, q: torch.Tensor,
                                            col_blocks, bk, bn)
 
 
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+             u: torch.Tensor) -> torch.Tensor:
+    """The WKV's naive recurrence from a zero state, token by token in
+    float32: r, k, v, logw (BH, S, K), u (BH, K); returns o (BH, S, K) in
+    r's dtype."""
+    BH, S, K = r.shape
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    w, uf = logw.float().exp(), u.float()
+    state = torch.zeros((BH, K, K), device=r.device)
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, None] * vf[:, t, None, :]
+        outs.append(torch.einsum("bk,bkv->bv", rf[:, t], state + uf[:, :, None] * kv))
+        state = state * w[:, t, :, None] + kv
+    return (torch.stack(outs, 1) if outs else rf.new_zeros((BH, 0, K))).to(r.dtype)
+
+
 def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      logw: torch.Tensor, u: torch.Tensor,
                      state: Optional[torch.Tensor] = None, *,
@@ -203,6 +220,11 @@ def _mamba_scan_tokens(h, dt, x, Bm, Cm, A, D):
     return torch.stack(ys, 1), h
 
 
+def _wide(t: torch.Tensor) -> torch.dtype:
+    """The scan's arithmetic type: float32, or float64 for float64 inputs."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def mamba_scan_ref(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                    A: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
                    chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -212,15 +234,18 @@ def mamba_scan_ref(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, Cm: torc
         y_t = sum_n h[n] C_t[n] + D x_t.
     dt, x: (B, S, di); Bm, Cm: (B, S, ds); A (di, ds) and D (di) float32;
     h0 (B, di, ds) or None (zero).  Returns (y (B, S, di), hT (B, di, ds)),
-    float32.  No (B, S, di, ds) tensor is built; where autograd records,
+    float32 (float64 for a float64 dt, which the tests differentiate).  No
+    (B, S, di, ds) tensor is built; where autograd records,
     each window of ``chunk`` tokens runs under one checkpoint, so its
     backward keeps one state a window (the reference's memory rule)."""
     Bsz, S, di = dt.shape
     ds = Bm.shape[-1]
     ins = (dt, x, Bm, Cm, A, D, h0)
     record = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ins)
-    dt, x, Bm, Cm, A, D = (t.float() for t in ins[:6])
-    h = (torch.zeros((Bsz, di, ds), device=dt.device) if h0 is None else h0.float())
+    wide = _wide(dt)
+    dt, x, Bm, Cm, A, D = (t.to(wide) for t in ins[:6])
+    h = (torch.zeros((Bsz, di, ds), device=dt.device, dtype=wide) if h0 is None
+         else h0.to(wide))
     L = max(1, min(chunk, S))
     ys = []
     for lo in range(0, S, L):
@@ -233,3 +258,63 @@ def mamba_scan_ref(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, Cm: torc
             y, h = _mamba_scan_tokens(*window)
         ys.append(y)
     return (torch.cat(ys, 1) if ys else dt.new_zeros((Bsz, 0, di))), h
+
+
+def mamba_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                       A: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor],
+                       dy: Optional[torch.Tensor], dhT: Optional[torch.Tensor] = None, *,
+                       chunk: int = 128) -> Tuple[torch.Tensor, ...]:
+    """The gradient of the selective scan, token by token in float32: given
+    ``dy`` (B, S, di), the gradient of y, and ``dhT`` (B, di, ds), that of
+    the final state (either None: zero), with a_t = exp(dt_t A) and g the
+    gradient of h_t, backward in t:
+        g += dy_t C_t,
+        dC_t = sum_d dy_t h_t,   dB_t = sum_d g dt_t x_t,
+        dx_t = dt_t sum_n g B_t + D dy_t,
+        ddt_t = x_t sum_n g B_t + sum_n g A a_t h_{t-1},
+        dA += g dt_t a_t h_{t-1},   dD += dy_t x_t   (over b and t),
+        g <- a_t g.
+    The states come from the plain forward: each window of ``chunk``
+    tokens' start state from a forward sweep from ``h0`` (None: zero), its
+    tokens' states recomputed from it as the walk reaches the window, so no
+    (B, S, di, ds) tensor is built.  Returns (ddt, dx, dB, dC, dA, dD,
+    dh0), float32 (float64 for a float64 dt); dh0 is the gradient of the
+    initial state."""
+    Bsz, S, di = dt.shape
+    ds = Bm.shape[-1]
+    wide = _wide(dt)
+    dt, x, Bm, Cm, A, D = (t.to(wide) for t in (dt, x, Bm, Cm, A, D))
+    dy = None if dy is None else dy.to(wide)
+    zero = lambda: torch.zeros((Bsz, di, ds), device=dt.device, dtype=wide)
+    h = zero() if h0 is None else h0.to(wide)
+    L = max(1, min(chunk, S))
+    starts = []
+    for lo in range(0, S, L):
+        starts.append(h)
+        for t in range(lo, min(lo + L, S)):
+            h = torch.exp(dt[:, t, :, None] * A) * h \
+                + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+    g = zero() if dhT is None else dhT.to(wide)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dB, dC = torch.zeros_like(Bm), torch.zeros_like(Cm)
+    dA, dD = torch.zeros_like(A), torch.zeros_like(D)
+    for lo, h in reversed(list(zip(range(0, S, L), starts))):
+        hs, decays = [h], []
+        for t in range(lo, min(lo + L, S)):
+            decays.append(torch.exp(dt[:, t, :, None] * A))
+            hs.append(decays[-1] * hs[-1] + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :])
+        for i in reversed(range(len(decays))):
+            t = lo + i
+            if dy is not None:
+                g = g + dy[:, t, :, None] * Cm[:, t, None, :]
+                dC[:, t] = (dy[:, t, :, None] * hs[i + 1]).sum(1)
+            dB[:, t] = (g * (dt[:, t] * x[:, t])[..., None]).sum(1)
+            gB = (g * Bm[:, t, None, :]).sum(-1)
+            gp = g * decays[i] * hs[i]
+            dx[:, t] = gB * dt[:, t] + (0.0 if dy is None else D * dy[:, t])
+            ddt[:, t] = gB * x[:, t] + (gp * A).sum(-1)
+            dA = dA + (gp * dt[:, t, :, None]).sum(0)
+            if dy is not None:
+                dD = dD + (dy[:, t] * x[:, t]).sum(0)
+            g = decays[i] * g
+    return ddt, dx, dB, dC, dA, dD, g

@@ -32,9 +32,8 @@ From the trace (``trace_cell``):
   kernel's bytes: the per-op bound);
 * ``kernels``: each hand-written kernel's launches, operations, bytes and
   bound, from its wrapper's shape-only branch (``kernels.cost``): counted,
-  not launched.  ``mamba_scan_bwd`` is counted though the card has no such
-  kernel yet (ROADMAP item 7.13): a Mamba training step traces, but does
-  not run on the card;
+  not launched (``mamba_scan_bwd`` at its kernel's own bytes, scratch
+  included, and operations: ``cost.scan_bwd_work``);
 * ``collectives``: ``roofline.CollectiveCounter``'s bytes by op and by mesh
   axis;
 * ``roofline``: ``roofline.roofline_terms`` on H100 data-sheet constants,
@@ -537,7 +536,9 @@ def src_path() -> str:
 def _json_call(payload: str) -> None:
     kinds = {"ShapeCell": ShapeCell, "AdamWConfig": AdamWConfig, "TrainConfig": TrainConfig}
     for call in json.loads(payload):
-        kw = {k: (kinds[v.pop("__cls__")](**v) if isinstance(v, dict) and "__cls__" in v else v)
+        # a dataclass by its fields; a list (JSON's tuple: ffn_pattern=) as a tuple
+        kw = {k: (kinds[v.pop("__cls__")](**v) if isinstance(v, dict) and "__cls__" in v
+                  else tuple(v) if isinstance(v, list) else v)
               for k, v in call.items()}
         kw.setdefault("verbose", False)
         print(json.dumps(run_cell(**kw)), flush=True)

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import time
+import warnings
 from typing import Optional
 
 import torch
@@ -119,7 +120,38 @@ def build_model(arch: str, epitome: str, smoke: bool, seed: int, device="cuda",
     return cfg, params
 
 
+DEFAULT_REQUESTS, DEFAULT_NEW_TOKENS = 4, 16
+
+
+def _resolve_deprecated(args, old: str, new: str) -> None:
+    """An old flag still works but warns; the new flag wins when both are
+    given."""
+    old_v, new_v = getattr(args, old), getattr(args, new)
+    if old_v is not None:
+        warnings.warn(f"--{old.replace('_', '-')} is deprecated; use "
+                      f"--{new.replace('_', '-')} (see launch.engine.Request)",
+                      DeprecationWarning, stacklevel=2)
+        if new_v is None:
+            setattr(args, new, old_v)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """``build_parser``'s flags with the deprecated aliases resolved
+    (--batch into --requests, --gen into --max-new-tokens) and the
+    defaults filled in."""
+    args = build_parser().parse_args(argv)
+    _resolve_deprecated(args, "batch", "requests")
+    _resolve_deprecated(args, "gen", "max_new_tokens")
+    if args.requests is None:
+        args.requests = DEFAULT_REQUESTS
+    if args.max_new_tokens is None:
+        args.max_new_tokens = DEFAULT_NEW_TOKENS
+    return args
+
+
 def build_parser() -> argparse.ArgumentParser:
+    """Flags mirror EngineConfig / Request fields; --batch and --gen are
+    deprecated aliases kept for old scripts."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="rwkv6-7b",
@@ -135,9 +167,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "serve on, parameters laid out by placement; default: the running "
                          "world (one device when there is no process group)")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=None,
+                    help=f"number of prompts to serve (default {DEFAULT_REQUESTS})")
+    ap.add_argument("--batch", type=int, default=None, help="deprecated alias of --requests")
     ap.add_argument("--prompt-len", type=int, default=32)
-    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--max-new-tokens", type=int, default=None,
+                    help=f"tokens to generate a request (default {DEFAULT_NEW_TOKENS})")
+    ap.add_argument("--gen", type=int, default=None,
+                    help="deprecated alias of --max-new-tokens")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 samples every generated token")
     ap.add_argument("--seed", type=int, default=0)
@@ -161,7 +198,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     from .mesh import destroy_world, resolve_mesh
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     device = torch.device(args.device)
     plan = args.plan or None
     if plan is not None:

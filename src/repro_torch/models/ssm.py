@@ -12,7 +12,9 @@ there.
 Mamba (arXiv:2312.00752, as used in jamba): input-dependent (dt, B, C)
 through a causal depthwise conv and two projections, then the selective
 scan through ``kernels.ops.mamba_scan`` (the CUDA kernel on the card, its
-plain version on the CPU) for a prefill and a decode step alike.
+plain version on the CPU) for a prefill and a decode step alike; training
+differentiates it through its gradient kernel (``kernels.mamba_scan.
+mamba_scan_bwd``, ``csrc/mamba_scan_bwd.cu``).
 
 A right-padded prefill (``valid_len``, the serving engine's bucketed and
 chunked prefills) masks its pad rows so they leave the carried state as

@@ -970,15 +970,111 @@ def test_mamba_scan_ptxas_gate_holds_on_a_warm_cache(cuda_device):
     assert sum("Lb1E" in k for k in ptxas) == 4
 
 
-def test_mamba_scan_backward_raises_on_card(cuda_device):
-    from repro_torch.kernels.mamba_scan import GRAD_ITEM
-    dt, x, Bm, Cm, A, D, h0 = _scan_case(1, 8, 64, 4, cuda_device)
-    x.requires_grad_(True)
-    y, _ = ops.mamba_scan(dt, x, Bm, Cm, A, D, h0)
-    with pytest.raises(NotImplementedError, match=GRAD_ITEM.replace(".", r"\.")):
-        y.sum().backward()
-    with pytest.raises(TypeError, match="one dtype"):
-        ops.mamba_scan(dt, x.detach().bfloat16(), Bm, Cm, A, D, h0)
+GRAD = dict(rtol=1e-3, atol=1e-3)       # sums of thousands of terms: the WKV gradient's gate
+SCAN_GRADS = ("ddt", "dx", "dB", "dC", "dA", "dD", "dh0")
+
+
+def _scan_grad_case(B, S, di, ds, device, dtype, state=True, dy=True, dhT=True, seed=0):
+    """The scan's inputs (dt, x, B, C in ``dtype``) and the gradients of
+    its outputs, dy (B, S, di) and dhT (B, di, ds), float32 or None."""
+    dt, x, Bm, Cm, A, D, h0 = _scan_case(B, S, di, ds, device, seed=seed, state=state)
+    g = torch.Generator().manual_seed(seed + 1)
+    gy = torch.randn(B, S, di, generator=g).to(device) if dy else None
+    gh = torch.randn(B, di, ds, generator=g).to(device) if dhT else None
+    return [t.to(dtype) for t in (dt, x, Bm, Cm)] + [A, D, h0], gy, gh
+
+
+def _hold_scan_grads(got, want):
+    """ddt, dx and dh0 at the kernel gate, the sums over channels or tokens
+    (dA, dD, dB, dC) at the WKV gradient's."""
+    for name, a, b in zip(SCAN_GRADS, got, want):
+        tol = SCAN if name in ("ddt", "dx", "dh0") else GRAD
+        torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("B,S,di,ds,state,dy,dhT", [
+    (8, 256, 16384, 16, False, True, False),   # jamba's training step
+    (2, 250, 1000, 16, True, True, True),      # ragged S and di
+    (4, 1, 4096, 16, True, True, True),        # one token
+    (3, 77, 300, 4, True, False, True),        # 4 states, no dy
+    (1, 40, 128, 16, True, True, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_bwd_kernel(B, S, di, ds, state, dy, dhT, dtype, cuda_device):
+    """The scan's gradient kernel, one launch, against its plain version."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    ins, gy, gh = _scan_grad_case(B, S, di, ds, cuda_device, dtype, state, dy, dhT)
+    before = mamba_scan_bwd.launches
+    got = mamba_scan_bwd(*ins, gy, gh)
+    torch.cuda.synchronize()
+    assert mamba_scan_bwd.launches == before + 1
+    assert all(t.dtype == torch.float32 for t in got)
+    _hold_scan_grads(got, ref.mamba_scan_bwd_ref(*ins, gy, gh))
+
+
+def test_mamba_scan_bwd_repeats_and_splits_bit_for_bit(cuda_device):
+    """Three launches give the same bits; a scan split at token 128 (the
+    second half from the forward kernel's state, the first given the
+    second's dh0) gives one launch's ddt, dx, dB, dC and dh0 bit for bit,
+    and dA and dD, added in another order, within the gate; MambaScan's
+    backward on the card is one launch of the kernel."""
+    from repro_torch.kernels.mamba_scan import MambaScan, mamba_scan, mamba_scan_bwd
+    ins, gy, gh = _scan_grad_case(2, 256, 4096, 16, cuda_device, torch.bfloat16)
+    dt, x, Bm, Cm, A, D, h0 = ins
+    one = mamba_scan_bwd(*ins, gy, gh)
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(mamba_scan_bwd(*ins, gy, gh), one))
+    cut = lambda lo, hi, *ts: [t[:, lo:hi].contiguous() for t in ts]
+    _, ha = mamba_scan(*cut(0, 128, dt, x, Bm, Cm), A, D, h0)
+    late = mamba_scan_bwd(*cut(128, 256, dt, x, Bm, Cm), A, D, ha,
+                          gy[:, 128:].contiguous(), gh)
+    early = mamba_scan_bwd(*cut(0, 128, dt, x, Bm, Cm), A, D, h0, gy[:, :128].contiguous(),
+                           late[6])
+    for i in range(4):
+        assert torch.equal(torch.cat([early[i], late[i]], 1), one[i]), SCAN_GRADS[i]
+    assert torch.equal(early[6], one[6])
+    for i in (4, 5):
+        torch.testing.assert_close(early[i] + late[i], one[i], **GRAD)
+    req = [t.clone().requires_grad_(True) for t in ins]
+    before = mamba_scan_bwd.launches
+    y, hT = MambaScan.apply(*req, 128)
+    grads = torch.autograd.grad((y * gy).sum() + (hT * gh).sum(), req)
+    assert mamba_scan_bwd.launches == before + 1
+    for a, b, t in zip(grads, one, ins):
+        assert a.dtype == t.dtype and torch.equal(a, b.to(t.dtype))
+
+
+def test_smoke_jamba_train_step_on_card_matches_cpu(cuda_device):
+    """One loss_and_grads of the jamba smoke config (Mamba, attention, MoE)
+    at folded-q3 in float32 on the card: 2 forward scan launches (the remat
+    recompute) and one of its gradient a Mamba layer, no kernel #1 or #3;
+    the loss and every gradient leaf against the CPU at the WKV gradient's
+    gate, and twice from one state bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.train.data import SyntheticData
+    from repro_torch.train.tree import leaves
+    cfg = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b", "folded-q3"),
+                              compute_dtype="float32")
+    mamba = sum(kind == "mamba" for kind, _ in cfg.full_pattern) * cfg.n_groups
+    batch = SyntheticData(cfg.vocab, 40, 2, seed=1).batch(0)
+    params = lambda device: lm.init_params(torch.Generator().manual_seed(0), cfg, device)
+    runs = []
+    for _ in range(2):
+        reset_launch_counts()
+        loss, grads = loop.loss_and_grads(
+            params(cuda_device), {k: v.to(cuda_device) for k, v in batch.items()}, cfg)
+        counts = launch_counts()
+        assert counts["mamba_scan"] == 2 * mamba and counts["mamba_scan_bwd"] == mamba
+        assert counts["quant_epitome_matmul_blocks"] == counts["epitome_matmul_blocks"] == 0
+        runs.append((loss, [g.cpu() for g in leaves(grads)]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    h_loss, h_grads = loop.loss_and_grads(params("cpu"), batch, cfg)
+    torch.testing.assert_close(runs[0][0].cpu(), h_loss, rtol=1e-4, atol=1e-4)
+    for a, b in zip(runs[0][1], leaves(h_grads)):
+        torch.testing.assert_close(a, b, **GRAD)
 
 
 def test_smoke_jamba_on_card_matches_cpu(cuda_device):
