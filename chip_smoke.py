@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the repo root, on a machine with a card
     python3 chip_smoke.py --time-wkv-bwd TREE   # the WKV backward of checkout TREE alone
     python3 chip_smoke.py --time-mamba-scan TREE   # the selective scan of checkout TREE alone
+    python3 chip_smoke.py --time-mamba-scan-bwd TREE   # the scan's gradient of checkout TREE alone
     python3 chip_smoke.py --time-jamba-engine TREE   # jamba's engine on checkout TREE's port
     python3 chip_smoke.py --time-mesh   # rwkv6-7b, no mesh against a (1, 1) mesh, in turns
     python3 chip_smoke.py --time-decode TREE   # kernel #1's decode rows of checkout TREE alone
@@ -2397,7 +2398,8 @@ MAMBA_JOB = TrainJob(MAMBA_ARCH, MAMBA_TRAIN_VARIANT,
                      dict(ffn_pattern=MAMBA_FFN, n_layers=MAMBA_DEPTH), (MAMBA, MAMBA_BWD),
                      _mamba_leaf, "A_log, D, conv_w, the E (or W) of in/x/dt/out_proj", 7,
                      {"scan forward": ("mamba_scan_kernel",),
-                      "scan backward": ("mamba_scan_bwd_kernel", "mamba_scan_bwd_reduce")})
+                      "scan backward": ("mamba_scan_bwd_kernel",),
+                      "scan backward reduce": ("mamba_scan_bwd_reduce",)})
 
 
 def train_first_step(torch, loop, leaves, cfg, opt, state, batch0, launch_counts,
@@ -2903,6 +2905,42 @@ def mamba_phase(torch, dev, gen, ops, ref, wrappers, lm, serve, get_config, laun
 
 # -- phase 14 (e): Mamba training ------------------------------------------------------
 SCAN_GRADS = ("ddt", "dx", "dB", "dC", "dA", "dD", "dh0")
+# the scan gradient's main kernel: blocks of 256 threads an SM its registers
+# are planned for (16 warps), so at most 65536 / (2 x 256) registers a thread
+SCAN_BWD_BLOCKS, SCAN_BWD_THREADS = 2, 256
+# phase 14 (e)'s cases of the scan's gradient at TRAIN_BATCH x TRAIN_SEQ:
+# (dt, x, B, C in the model's dtype?, h0, dy?, dhT?, tokens cut off S)
+SCAN_BWD_CASES = ((True, None, True, False, 0), (False, "random", True, True, 0),
+                  (False, "random", False, True, 0), (True, "random", True, True, 6))
+
+
+def scan_bwd_ptxas(build_log: dict) -> dict:
+    """Phase 14 (e): ptxas' registers and spills of the scan gradient's main
+    kernel, its four instances <dtype, vector>, from the mamba_scan_bwd
+    library's nvcc log (``_build.build_log``, read back from beside a
+    library built earlier).  Raises if one is missing, spills, or takes
+    more registers than SCAN_BWD_BLOCKS blocks an SM leave it."""
+    ptxas = {e: v for e, v in ptxas_of(build_log.get(MAMBA_BWD, "")).items()
+             if "mamba_scan_bwd_kernel" in e}
+    limit = 65536 // (SCAN_BWD_BLOCKS * SCAN_BWD_THREADS)
+    for entry, (regs, st, ld) in ptxas.items():
+        log(f"[mamba-train-kernels] ptxas {entry}: {regs} registers (at most {limit}), "
+            f"{st} / {ld} bytes spilled")
+    bad = [e for e, (regs, st, ld) in ptxas.items() if st + ld or regs is None or regs > limit]
+    if bad or len(ptxas) != 4:
+        raise AssertionError(f"{MAMBA_BWD}: instances spill, pass {limit} registers or are "
+                             f"missing: {sorted(ptxas)}, at fault {bad}")
+    return ptxas
+
+
+def scan_bwd_occupancy(bf16: bool) -> dict:
+    """The vector instance's blocks an SM and shared bytes a block on this
+    card; raises below SCAN_BWD_BLOCKS blocks (16 warps an SM)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_occupancy
+    occ = mamba_scan_bwd_occupancy(bf16)
+    if occ["blocks_per_sm"] < SCAN_BWD_BLOCKS:
+        raise AssertionError(f"{MAMBA_BWD}: {occ} below {SCAN_BWD_BLOCKS} blocks an SM")
+    return occ
 # ddt, dx and dh0 at the kernel gate; the sums over channels or tokens at the
 # WKV gradient's
 SCAN_GRAD_TOLS = (KERNEL_TOL, KERNEL_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL, KERNEL_TOL)
@@ -2920,17 +2958,17 @@ def scan_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
     once and its operations (one forward of the states and the backward
     recurrence) at the fp32 rate; the kernel's own bytes and operations
     (its second read of the inputs, its scratch written and read, its
-    first sweep) and the SFU's time for its exponentials (two sweeps) are
-    logged beside it."""
+    first sweep, the decays recomputed) and the SFU's time for its
+    exponentials (three a state and token) are logged beside it; ptxas'
+    registers and spills are gated (``scan_bwd_ptxas``), the blocks an SM
+    too (``scan_bwd_occupancy``)."""
     from repro_torch.kernels import _build
     c = _cost()
     B, S, di, ds = TRAIN_BATCH, TRAIN_SEQ, cfg.mamba_d_inner, cfg.mamba_d_state
-    ptxas = ptxas_of(_build.build_log.get(MAMBA_BWD, ""))
+    ptxas = scan_bwd_ptxas(_build.build_log)
     rows = []
-    for dtype, h0_kind, dy_on, dhT_on, seq in ((cfg.cdtype, None, True, False, S),
-                                               (torch.float32, "random", True, True, S),
-                                               (torch.float32, "random", False, True, S),
-                                               (cfg.cdtype, "random", True, True, S - 6)):
+    for model_dtype, h0_kind, dy_on, dhT_on, cut in SCAN_BWD_CASES:
+        dtype, seq = cfg.cdtype if model_dtype else torch.float32, S - cut
         dname = str(dtype).replace("torch.", "")
         dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, B, seq, di, ds, h0_kind)
         ins = [t.to(dtype) for t in (dt, x, Bm, Cm)] + [A, D, h0]
@@ -2963,14 +3001,15 @@ def scan_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
         scratch = c.scan_bwd_scratch(B, seq, di)
         row = timed_row(torch, MAMBA_BWD, kernel, plain, None, nbytes,
                         c.scan_bwd_ops(B, seq, di, ds), dname)
-        regs, st, ld = next((v for e, v in ptxas.items()
-                             if "mamba_scan_bwd_kernel" in e and ("bfloat16" in e) == (esz == 2)),
-                            (None, None, None))
+        regs, st, ld = next(v for e, v in ptxas.items()
+                            if "Lb1E" in e and ("bfloat16" in e) == (esz == 2))
+        occ = scan_bwd_occupancy(esz == 2)
         row.update(B=B, S=seq, di=di, ds=ds, dtype=dname, h0=h0_kind, dy=dy_on, dhT=dhT_on,
                    max_abs_err=err, max_abs_err_autograd=err_auto, scratch_bytes=scratch,
                    kernel_bytes=own_bytes, kernel_flops=own_ops, kernel_bound_ms=own_ms,
-                   sfu_ms=2 * B * seq * di * ds / SFU_EXP_S * 1e3, path=path, registers=regs,
-                   spill_bytes=None if st is None else st + ld,
+                   sfu_ms=c.SCAN_BWD_EXPS * B * seq * di * ds / SFU_EXP_S * 1e3, path=path,
+                   registers=regs, spill_bytes=st + ld, blocks_per_sm=occ["blocks_per_sm"],
+                   shared_bytes=occ["shared_bytes"],
                    count=launches if (dtype == cfg.cdtype and h0 is None and not dhT_on
                                       and seq == S) else 0)
         rows.append(row)
@@ -2980,10 +3019,11 @@ def scan_bwd_rows(torch, dev, gen, ref, wrappers, cfg, path, launches) -> list:
             f"{row['plain_ms']:.3f} library_ms=none bound_ms={row['bound_ms']:.4f} "
             f"({row['bound_by']}; {nbytes / 1e9:.3f} GB in and out, {row['flops'] / 1e9:.2f} "
             f"GFLOP at the fp32 rate); the kernel's own {own_bytes / 1e9:.3f} GB and "
-            f"{own_ops / 1e9:.2f} GFLOP: {own_ms:.4f} ms; sfu_ms={row['sfu_ms']:.4f} (two "
-            f"sweeps); scratch {scratch / 1e9:.4f} GB; "
-            + ("ptxas: not built in this process" if regs is None else
-               f"ptxas {regs} registers, {row['spill_bytes']} bytes spilled"))
+            f"{own_ops / 1e9:.2f} GFLOP: {own_ms:.4f} ms; sfu_ms={row['sfu_ms']:.4f} "
+            f"({c.SCAN_BWD_EXPS} exponentials a state and token); scratch {scratch / 1e9:.4f} "
+            f"GB; ptxas {regs} registers, {row['spill_bytes']} bytes spilled (vector instance); "
+            f"{occ['blocks_per_sm']} blocks of {SCAN_BWD_THREADS} threads an SM, "
+            f"{occ['shared_bytes']} shared bytes a block")
         del dt, x, Bm, Cm, A, D, h0, ins, dy, dhT
         torch.cuda.empty_cache()
     return rows
@@ -4482,6 +4522,77 @@ def time_mamba_scan(tree: str) -> int:
     return 0
 
 
+def time_mamba_scan_bwd(tree: str) -> int:
+    """``python3 chip_smoke.py --time-mamba-scan-bwd TREE``: the scan's
+    gradient kernel of the port in checkout TREE at phase 14 (e)'s shape
+    (jamba's width, TRAIN_BATCH x TRAIN_SEQ), SCAN_BWD_CASES each with bf16
+    and with float32 dt, x, B, C: device ms a launch (graph_ms, three
+    readings after 200 ms of launches), the main kernel's and the second
+    kernel's device ms of one launch (torch.profiler), the largest error
+    against the plain version as a share of its gate (SCAN_GRAD_TOLS), the
+    scratch bytes (the C entry's count), ptxas' registers and spills of the
+    instance and its blocks an SM (the C entry's
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor where the checkout has
+    one, else from the registers: 65536 over them rounded up to 8, times
+    the threads); one JSON line with the card line.  To compare two
+    checkouts' kernels, run it for each in turn in one chip call (A, B, B,
+    A)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import ctypes
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    _build.build_all()
+    lib = _build.library(MAMBA_BWD)
+    ptxas = {e: v for e, v in ptxas_of(_build.build_log.get(MAMBA_BWD, "")).items()
+             if "mamba_scan_bwd_kernel" in e}
+    cfg = get_config(MAMBA_ARCH, MAMBA_TRAIN_VARIANT, ffn_pattern=MAMBA_FFN)
+    B, di, ds = TRAIN_BATCH, cfg.mamba_d_inner, cfg.mamba_d_state
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = dict(tree=tree, card=card_line(), B=B, di=di, ds=ds)
+    for _, h0_kind, dy_on, dhT_on, cut in SCAN_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            S, bf16 = TRAIN_SEQ - cut, dtype == torch.bfloat16
+            dt, x, Bm, Cm, A, D, h0 = scan_inputs(torch, dev, gen, B, S, di, ds, h0_kind)
+            ins = [t.to(dtype) for t in (dt, x, Bm, Cm)] + [A, D, h0]
+            dy = torch.randn(B, S, di, device=dev, generator=gen) if dy_on else None
+            dhT = torch.randn(B, di, ds, device=dev, generator=gen) if dhT_on else None
+            kernel = lambda: mamba_scan_bwd(*ins, dy, dhT)
+            over = max(float(((a - r).abs() / (tol + tol * r.abs())).max())
+                       for a, r, tol in zip(kernel(), ref.mamba_scan_bwd_ref(*ins, dy, dhT),
+                                            SCAN_GRAD_TOLS))
+            floats = ctypes.c_longlong()
+            _build.check_launch(lib.mamba_scan_bwd_scratch(B, S, di, ctypes.byref(floats)),
+                                "mamba_scan_bwd_scratch")
+            entry = max((e for e in ptxas if ("bfloat16" in e) == bf16),
+                        key=lambda e: "Lb1E" in e)
+            regs, st, ld = ptxas[entry]
+            if hasattr(lib, "mamba_scan_bwd_occupancy"):
+                from repro_torch.kernels.mamba_scan import mamba_scan_bwd_occupancy
+                occ = dict(mamba_scan_bwd_occupancy(bf16), source="cuda occupancy")
+            else:
+                occ = dict(blocks_per_sm=65536 // (-(-regs // 8) * 8 * 256), threads=256,
+                           source="registers")
+            time_ms(torch, kernel, 200.0)       # the card's clocks up before the readings
+            prof = device_breakdown(torch, kernel)
+            out[f"{str(dtype).replace('torch.', '')} S={S} h0={h0_kind or 'zero'} "
+                f"dy={dy_on} dhT={dhT_on}"] = dict(
+                ms=[graph_ms(torch, kernel) for _ in range(3)], over_gate=over,
+                kernel_ms=sum(ms for n, ms, _ in prof if "mamba_scan_bwd_kernel" in n),
+                reduce_ms=sum(ms for n, ms, _ in prof if "mamba_scan_bwd_reduce" in n),
+                scratch_bytes=4 * floats.value, ptxas_entry=entry, registers=regs,
+                spill_bytes=st + ld, **occ)
+            del dt, x, Bm, Cm, A, D, h0, ins, dy, dhT
+            torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
 def time_jamba_engine(tree: str) -> int:
     """``python3 chip_smoke.py --time-jamba-engine TREE``: phase 14 (c)'s
     engine (jamba kernel-q3 from mamba_build, phase 10's requests and
@@ -4552,6 +4663,8 @@ if __name__ == "__main__":
         sys.exit(time_wkv_bwd(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--time-mamba-scan"]:
         sys.exit(time_mamba_scan(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--time-mamba-scan-bwd"]:
+        sys.exit(time_mamba_scan_bwd(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--time-jamba-engine"]:
         sys.exit(time_jamba_engine(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--time-mesh"]:

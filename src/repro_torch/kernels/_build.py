@@ -60,6 +60,7 @@ LIBRARIES = {
     "mamba_scan_bwd": ("mamba_scan_bwd.cu", {
         "mamba_scan_bwd_launch": [_P] * 17 + [_I] * 5 + [_P],
         "mamba_scan_bwd_scratch": [_I] * 3 + [_P],
+        "mamba_scan_bwd_occupancy": [_I] * 2 + [_P],
     }),
 }
 

@@ -153,7 +153,9 @@ def scan_bytes(B: int, S: int, di: int, ds: int, esz: int, h0: bool = True) -> f
 
 # the scan's gradient (csrc/mamba_scan_bwd.cu): a stored state every
 # SCAN_BWD_WINDOW tokens, the sums over channels SCAN_BWD_CHANNELS at a time
-SCAN_BWD_WINDOW, SCAN_BWD_CHANNELS = 8, 64
+# (a block's), and SCAN_BWD_EXPS exponentials a (token, channel, state):
+# sweep 1, a window's recompute and the backward walk's decays
+SCAN_BWD_WINDOW, SCAN_BWD_CHANNELS, SCAN_BWD_EXPS = 8, 64, 3
 
 
 def scan_bwd_ops(B: int, S: int, di: int, ds: int) -> float:
@@ -193,14 +195,15 @@ def scan_bwd_scratch(B: int, S: int, di: int) -> float:
 def scan_bwd_work(B: int, S: int, di: int, ds: int, esz: int, h0: bool, dy: bool = True,
                   dhT: bool = False) -> Tuple[float, float]:
     """(bytes, operations) the gradient's kernel (csrc/mamba_scan_bwd.cu)
-    moves and does: its inputs and outputs (``scan_bwd_bytes``); sweep 2
-    reading dt, x, B, C and A again; its scratch written once and read
-    once; and ``scan_bwd_ops`` with sweep 1's forward of the states (5 ds +
-    1 a token and channel) besides."""
+    moves and does: its inputs and outputs (``scan_bwd_bytes``); sweep 1's
+    read of dt, x and B besides sweep 2's, and A read again; its scratch
+    written once and read once; and ``scan_bwd_ops`` with sweep 1's
+    forward of the states (5 ds + 1 a token and channel) and the backward
+    walk's decays, recomputed (dt A and its exponential: 2 ds) besides."""
     nbytes = (scan_bwd_bytes(B, S, di, ds, esz, h0, dy, dhT)
-              + 2.0 * esz * B * S * (di + ds) + 4.0 * di * ds
+              + esz * B * S * (2.0 * di + ds) + 4.0 * di * ds
               + 2.0 * scan_bwd_scratch(B, S, di))
-    return nbytes, scan_bwd_ops(B, S, di, ds) + float(B * S * di * (5 * ds + 1))
+    return nbytes, scan_bwd_ops(B, S, di, ds) + float(B * S * di * (7 * ds + 1))
 
 
 # -- the bound --------------------------------------------------------------------

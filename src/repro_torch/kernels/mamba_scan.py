@@ -15,9 +15,11 @@ plain version in ``ref.py``.
 
 ``mamba_scan_bwd`` is its gradient (``csrc/mamba_scan_bwd.cu`` on the card:
 a stored state every 8 tokens, each window's states recomputed with the
-forward's arithmetic and walked backward, every sum in a fixed order;
-``ref.mamba_scan_bwd_ref`` on the CPU), and ``MambaScan`` the autograd
-function that pairs the two, through which the LM trains.
+forward's arithmetic and walked backward with the decays recomputed, so two
+blocks of 8 warps fit an SM; tiles staged by ``cp.async`` while the last is
+walked; the sums over a block's channels through shared memory, every sum
+in a fixed order; ``ref.mamba_scan_bwd_ref`` on the CPU), and ``MambaScan``
+the autograd function that pairs the two, through which the LM trains.
 """
 from __future__ import annotations
 
@@ -126,9 +128,7 @@ def mamba_scan_bwd(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, Cm: torc
     dA, dD, dh0 = torch.empty((di, ds), **f32), torch.empty((di,), **f32), \
         torch.empty((B, di, ds), **f32)
     lib = _build.library("mamba_scan_bwd")
-    floats = ctypes.c_longlong()
-    _build.check_launch(lib.mamba_scan_bwd_scratch(B, S, di, ctypes.byref(floats)), name)
-    scratch = torch.empty((max(1, floats.value),), **f32)
+    scratch = torch.empty((max(1, mamba_scan_bwd_scratch_bytes(B, S, di) // 4),), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dt.device):
         rc = lib.mamba_scan_bwd_launch(
@@ -143,6 +143,26 @@ def mamba_scan_bwd(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor, Cm: torc
 
 
 mamba_scan_bwd.launches = 0
+
+
+def mamba_scan_bwd_scratch_bytes(B: int, S: int, di: int) -> int:
+    """Bytes of the scratch the gradient's kernel takes at (B, S, di), as
+    its C entry counts them (``cost.scan_bwd_scratch`` predicts them)."""
+    floats = ctypes.c_longlong()
+    _build.check_launch(_build.library("mamba_scan_bwd").mamba_scan_bwd_scratch(
+        B, S, di, ctypes.byref(floats)), "mamba_scan_bwd_scratch")
+    return 4 * floats.value
+
+
+def mamba_scan_bwd_occupancy(bf16: bool, vec: bool = True) -> dict:
+    """The gradient's main kernel on the current card, its bf16 or float32
+    and vector or scalar instance: blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), shared bytes and
+    threads a block."""
+    out = (ctypes.c_int * 3)()
+    _build.check_launch(_build.library("mamba_scan_bwd").mamba_scan_bwd_occupancy(
+        int(bf16), int(vec), out), "mamba_scan_bwd_occupancy")
+    return dict(blocks_per_sm=out[0], shared_bytes=out[1], threads=out[2])
 
 
 class MambaScan(torch.autograd.Function):

@@ -1043,6 +1043,108 @@ def test_mamba_scan_bwd_repeats_and_splits_bit_for_bit(cuda_device):
         assert a.dtype == t.dtype and torch.equal(a, b.to(t.dtype))
 
 
+def _autograd_scan_grads(ins, gy, gh):
+    """The gradient by autograd through the plain forward (float32 copies
+    of the inputs: the plain versions read bf16 as these values; a zero
+    state for none), in SCAN_GRADS order."""
+    B, _, di = ins[0].shape
+    ds = ins[2].shape[-1]
+    h0 = ins[6]
+    req = [t.detach().to(torch.float32, copy=True).requires_grad_(True) for t in ins[:6]] + [
+        (torch.zeros(B, di, ds, device=ins[0].device) if h0 is None else h0)
+        .detach().clone().requires_grad_(True)]
+    y, hT = ref.mamba_scan_ref(*req)
+    out = (0.0 if gy is None else (y * gy).sum()) + (0.0 if gh is None else (hT * gh).sum())
+    grads = torch.autograd.grad(out, req, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for g, t in zip(grads, req)]
+
+
+# ragged edges of the gradient's kernel (64 channels a block, a stored
+# state every 8 tokens, 16-token tiles): ds 1, 5, 16; di one off the
+# channel tile each way and a multiple of 8 that is not (the vector
+# instance's zero-filled chunks); S 0, 1, 7, 9 and 17; a long scan
+SCAN_BWD_RAGGED = [
+    (2, 40, 128, 1), (2, 40, 128, 5), (2, 40, 128, 16),
+    (2, 40, 63, 16), (2, 40, 65, 16), (2, 40, 72, 16),
+    (2, 0, 128, 16), (2, 1, 128, 16), (2, 7, 128, 16), (2, 9, 128, 16), (2, 17, 128, 16),
+    (1, 1000, 256, 16)]
+
+
+@pytest.mark.parametrize("B,S,di,ds", SCAN_BWD_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_bwd_kernel_ragged_edges(B, S, di, ds, dtype, cuda_device):
+    """The gradient's kernel with a state, dy and dhT at ragged ds, di and
+    S, one launch, against its plain version and against autograd of the
+    plain forward; three launches bit for bit."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    ins, gy, gh = _scan_grad_case(B, S, di, ds, cuda_device, dtype, seed=S + di + ds)
+    got = mamba_scan_bwd(*ins, gy, gh)
+    torch.cuda.synchronize()
+    assert [tuple(t.shape) for t in got] == [(B, S, di), (B, S, di), (B, S, ds), (B, S, ds),
+                                            (di, ds), (di,), (B, di, ds)]
+    _hold_scan_grads(got, ref.mamba_scan_bwd_ref(*ins, gy, gh))
+    _hold_scan_grads(got, _autograd_scan_grads(ins, gy, gh))
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(mamba_scan_bwd(*ins, gy, gh), got))
+
+
+@pytest.mark.parametrize("cut", [1, 7, 8, 9, 128])
+def test_mamba_scan_bwd_splits_bit_for_bit_at_any_cut(cut, cuda_device):
+    """A scan split at ``cut`` tokens (inside a window, at its edge, past
+    it, at a tile's), the second half from the forward kernel's state and
+    the first given the second's dh0, against one launch: ddt, dx, dB, dC
+    and dh0 bit for bit, dA and dD (their halves added in another order)
+    within the gate."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
+    ins, gy, gh = _scan_grad_case(2, 256, 4096, 16, cuda_device, torch.bfloat16, seed=cut)
+    dt, x, Bm, Cm, A, D, h0 = ins
+    one = mamba_scan_bwd(*ins, gy, gh)
+    part = lambda lo, hi, *ts: [t[:, lo:hi].contiguous() for t in ts]
+    _, ha = mamba_scan(*part(0, cut, dt, x, Bm, Cm), A, D, h0)
+    late = mamba_scan_bwd(*part(cut, 256, dt, x, Bm, Cm), A, D, ha, *part(cut, 256, gy), gh)
+    early = mamba_scan_bwd(*part(0, cut, dt, x, Bm, Cm), A, D, h0, *part(0, cut, gy), late[6])
+    for i in range(4):
+        assert torch.equal(torch.cat([early[i], late[i]], 1), one[i]), SCAN_GRADS[i]
+    assert torch.equal(early[6], one[6])
+    for i in (4, 5):
+        torch.testing.assert_close(early[i] + late[i], one[i], **GRAD)
+
+
+@pytest.mark.parametrize("B,S,di", [
+    (8, 256, 16384), (2, 250, 1000), (4, 1, 4096), (3, 77, 300), (1, 40, 128)]
+    + [(B, S, di) for B, S, di, _ in SCAN_BWD_RAGGED])
+def test_mamba_scan_bwd_scratch_is_the_cost_models(B, S, di, cuda_device):
+    """The C entry's scratch (mamba_scan_bwd_scratch) is what
+    ``cost.scan_bwd_scratch`` predicts, at every tested shape."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_scratch_bytes
+    assert mamba_scan_bwd_scratch_bytes(B, S, di) == cost.scan_bwd_scratch(B, S, di)
+
+
+def test_mamba_scan_bwd_ptxas_gate_holds_on_a_warm_cache(cuda_device):
+    """chip_smoke.py's phase 14 (e) gate in a process that builds nothing:
+    the nvcc log read back from beside the built library lists the four
+    instances of the gradient's main kernel, none spilling, each within
+    the registers of two 256-thread blocks an SM; and each instance runs
+    two blocks (16 warps) an SM."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_occupancy
+    _build.build_all()
+    _build.build_log.clear()
+    _build.build_all()
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bwd_gate", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert len(smoke.scan_bwd_ptxas(_build.build_log)) == 4
+    for bf16 in (False, True):
+        for vec in (False, True):
+            occ = mamba_scan_bwd_occupancy(bf16, vec)
+            assert occ["threads"] == 256 and occ["blocks_per_sm"] >= 2, (bf16, vec, occ)
+
+
 def test_smoke_jamba_train_step_on_card_matches_cpu(cuda_device):
     """One loss_and_grads of the jamba smoke config (Mamba, attention, MoE)
     at folded-q3 in float32 on the card: 2 forward scan launches (the remat

@@ -125,6 +125,21 @@ def test_scan_bwd_windows_and_the_wrapper_on_the_cpu():
         *ins, dy, dhT, chunk=CHUNK)))
 
 
+def test_scan_bwd_cost_at_the_training_shape_is_the_kernels_note():
+    """``kernels.cost``'s scratch and work of the gradient's kernel at
+    jamba's training shape (8 x 256 tokens, di 16384, 16 states, bf16 dt,
+    x, B, C, dy, no h0 or dhT) are the numbers the header of
+    ``csrc/mamba_scan_bwd.cu`` states: 0.3445 GB of scratch, 1.372 GB and
+    14.83 GFLOP of its own, 1.61 G exponentials."""
+    from repro_torch.kernels import cost
+    B, S, di, ds = 8, 256, 16384, 16
+    assert cost.scan_bwd_scratch(B, S, di) == 344457216
+    nbytes, ops = cost.scan_bwd_work(B, S, di, ds, 2, False, True, False)
+    assert (nbytes, ops) == (1372127232.0, 14831058944.0)
+    assert round(nbytes / cost.HBM_BW * 1e3, 2) == 0.41
+    assert round(cost.SCAN_BWD_EXPS * B * S * di * ds / 1e9, 2) == 1.61
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_scan_cpu_backward_is_the_plain_version(dtype):
     """MambaScan's backward on the CPU: the plain gradient bit for bit, cast
